@@ -1,0 +1,111 @@
+"""Command-line interface of the port, conformance mode.
+
+  render   one frame of the reference's 7-triangle scene → PNG/PPM
+
+The clamped frame goes through ``render_pt_fast``, the serving path (the
+fused CUDA kernel on a CUDA device); ``--flat`` renders the flat debug
+view. Examples::
+
+  python -m spath_tpu_torch.cli render --size 640x480 --spp 128 --out frame.png
+  python -m spath_tpu_torch.cli render --flat --device cpu --out flat.png
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def _parse_vec3(s: str):
+    parts = [float(x) for x in s.split(",")]
+    if len(parts) != 3:
+        raise argparse.ArgumentTypeError(f"expected x,y,z — got {s!r}")
+    return parts
+
+
+def _parse_size(s: str):
+    w, h = s.lower().split("x")
+    return int(w), int(h)
+
+
+def _device(name: str):
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(f"--device {name}: no CUDA device here "
+                             "(use --device cpu for the plain wavefront)")
+        if (device.index or 0) >= torch.cuda.device_count():
+            raise SystemExit(f"--device {name}: only "
+                             f"{torch.cuda.device_count()} CUDA devices")
+    elif device.type != "cpu":
+        raise SystemExit(f"--device {name}: use cuda or cpu")
+    return device
+
+
+def cmd_render(args) -> int:
+    device = _device(args.device)
+
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.convert import camera_from_numpy
+    from spath_tpu_torch.models.flat import render_flat
+    from spath_tpu_torch.models.pathtracer import render_pt_fast
+    from spath_tpu_torch.scene import default_scene
+    from spath_tpu_torch.utils.image import write_png, write_ppm
+
+    scene = default_scene(device)
+    cam = camera_from_numpy(args.camera_pos, args.camera_angle, args.focal,
+                            device=device)
+    w, h = args.size
+    cfg = RenderConfig(width=w, height=h, spp=args.spp,
+                       max_bounces=args.bounces, rng="lcg", sampler="angle")
+    t0 = time.perf_counter()
+    if args.flat:
+        img = render_flat(scene, cam, cfg)
+    else:
+        img = render_pt_fast(scene, cam, cfg, args.seed)
+    img = img.cpu().numpy()          # waits for the device
+    dt = time.perf_counter() - t0
+    n_rays = w * h * (1 if args.flat else cfg.spp * cfg.max_bounces)
+    print(f"rendered {w}x{h} on {device} in {dt:.3f}s "
+          f"({n_rays / dt:.4g} rays/s incl. kernel build)", file=sys.stderr)
+
+    if args.out.endswith(".ppm"):
+        write_ppm(args.out, img)
+    else:
+        write_png(args.out, img)
+    print(args.out)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="spath-tpu-torch", description=__doc__)
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("render", help="render one frame to an image file")
+    p.add_argument("--size", type=_parse_size, default=(640, 480),
+                   help="WxH resolution (reference default 640x480)")
+    p.add_argument("--spp", type=int, default=128,
+                   help="samples per pixel (reference default 128)")
+    p.add_argument("--bounces", type=int, default=5,
+                   help="path length cap (reference: hard 5)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--flat", action="store_true",
+                   help="flat-shaded debug view (reference render_flat)")
+    p.add_argument("--out", default="frame.png")
+    p.add_argument("--camera-pos", type=_parse_vec3, default=[0, 0, -3])
+    p.add_argument("--camera-angle", type=_parse_vec3, default=[0, 0, 0])
+    p.add_argument("--focal", type=float, default=2.0)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the fused kernel) or cpu (the plain "
+                        "wavefront); a missing card is an error")
+    p.set_defaults(fn=cmd_render)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

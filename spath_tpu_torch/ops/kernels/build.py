@@ -1,0 +1,107 @@
+"""Build and load the port's CUDA kernels.
+
+On first use, ``nvcc`` compiles every ``spath_tpu_torch/csrc/*.cu`` into
+one shared library with a plain C interface,
+``build/kernels/libspath_kernels.so`` at the root of the checkout, which
+``ctypes`` loads. The library is rebuilt when the hash of the sources or
+of the compiler flags changes. Nothing is built when a module is
+imported: the CPU tests import every module on machines without
+``nvcc``.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` without
+``--use_fast_math``, so the kernels round op for op like their plain
+PyTorch versions (fast math turns ``cosf``/``sinf`` into approximations
+and division into an approximate reciprocal; either flips paths).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+SOURCE_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+LIBRARY = BUILD_DIR / "libspath_kernels.so"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+def sources() -> list[Path]:
+    return sorted(SOURCE_DIR.glob("*.cu"))
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from ``CUDA_HOME``, ``PATH`` or ``/usr/local/cuda``."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def nvcc_command(output: Path) -> list[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(output),
+            *map(str, sources())]
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile the library unless one built from the same sources exists.
+    Returns its path; raises ``RuntimeError`` with the compiler's output if
+    ``nvcc`` fails. The compiler's report (registers, spills) is kept in
+    ``build/kernels/build.log``."""
+    digest = source_hash()
+    stamp = BUILD_DIR / "libspath_kernels.sha256"
+    if LIBRARY.is_file() and stamp.is_file() \
+            and stamp.read_text().strip() == digest:
+        return LIBRARY
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"libspath_kernels.{os.getpid()}.so"
+    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True,
+                          check=False)
+    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, LIBRARY)
+    stamp.write_text(digest + "\n")
+    return LIBRARY
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built library with every entry point's argument types set."""
+    lib = ctypes.CDLL(str(build()))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.spath_megakernel_forward.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.spath_megakernel_forward.restype = i32
+    lib.spath_error_string.argtypes = [i32]
+    lib.spath_error_string.restype = ctypes.c_char_p
+    return lib

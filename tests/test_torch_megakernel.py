@@ -1,0 +1,182 @@
+"""The fused kernel's wrapper (K1) on the CPU: its plain version against
+the JAX package's Pallas kernel (interpret mode) and wavefront on the
+same inputs, the packing and table layouts, the input checks, and the
+build's flags. The CUDA kernel itself runs only on the card
+(``chip_smoke.py``)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from spath_tpu.camera import Camera as JCamera  # noqa: E402
+from spath_tpu.config import RenderConfig as JConfig  # noqa: E402
+from spath_tpu.models.pathtracer import (  # noqa: E402
+    render_radiance_jit as j_render_radiance_jit,
+)
+from spath_tpu.ops.pallas import megakernel as jmk  # noqa: E402
+from spath_tpu.scene import default_scene as j_default_scene  # noqa: E402
+from spath_tpu.scene import make_scene  # noqa: E402
+from spath_tpu.scene import procedural_scene as j_procedural  # noqa: E402
+from spath_tpu_torch.camera import Camera  # noqa: E402
+from spath_tpu_torch.config import RenderConfig  # noqa: E402
+from spath_tpu_torch.convert import scene_from_numpy  # noqa: E402
+from spath_tpu_torch.ops.kernels import build  # noqa: E402
+from spath_tpu_torch.ops.kernels import megakernel as mk  # noqa: E402
+
+CPU = torch.device("cpu")
+#: one 1024-ray tile of K1, 3 samples of 5 bounces
+SIZE = dict(width=32, height=32, spp=3, max_bounces=5)
+
+
+def _default_plus_18():
+    """The default scene and 18 small random triangles, 25 in all: the
+    regime where K1 walks its table in a loop (T > 16). A procedural
+    scene alone shows no light in so small a frame."""
+    base, extra = j_default_scene(), j_procedural(18, seed=2)
+    return make_scene(*(np.concatenate([np.asarray(getattr(base, k)),
+                                        np.asarray(getattr(extra, k))])
+                        for k in ("vertices", "albedo", "emission")))
+
+
+def _port_scene(js):
+    return scene_from_numpy(np.asarray(js.vertices), np.asarray(js.albedo),
+                            np.asarray(js.emission), js.light_idx,
+                            device=CPU)
+
+
+def _plain_image(js, cfg, seed):
+    o, d, seeds = mk.pack_rays(Camera.default(CPU), cfg, seed)
+    out = mk.megakernel_plain(o, d, seeds, mk.scene_table(_port_scene(js)),
+                              cfg)
+    assert out.shape == (cfg.width * cfg.height, 3)
+    return out.reshape(cfg.height, cfg.width, 3).numpy()
+
+
+def _assert_conforms(got, want):
+    """The kernel-vs-wavefront bounds of tests/test_pallas.py: under 1% of
+    pixels off by more than 1e-4 (trig-ulp path flips), mean within 5%."""
+    assert got.shape == want.shape
+    flipped = (np.abs(got - want) > 1e-4).any(-1)
+    assert flipped.mean() < 0.01, f"{flipped.mean():.4f} flipped"
+    np.testing.assert_allclose(got.mean(), want.mean(), rtol=5e-2)
+
+
+def test_plain_matches_jax_megakernel():
+    """Against K1 itself, run by the Pallas interpreter (its fori-walk
+    regime; the unrolled one compiles twice as long on the CPU)."""
+    js = _default_plus_18()
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jmk.render_radiance_megakernel(
+            js, JCamera.default(), JConfig(**SIZE), 5))
+    got = _plain_image(js, RenderConfig(**SIZE), 5)
+    assert want.max() > 0.1                          # a light is seen
+    _assert_conforms(got, want)
+
+
+def test_plain_matches_jax_wavefront():
+    """The default scene, the main path's, against the JAX wavefront."""
+    js = j_default_scene()
+    want = np.asarray(j_render_radiance_jit(js, JCamera.default(),
+                                            JConfig(**SIZE), 5))
+    assert want.max() > 0.1
+    _assert_conforms(_plain_image(js, RenderConfig(**SIZE), 5), want)
+
+
+def test_pack_rays_and_table_match_jax():
+    """The same numbers as K1's packing, without its TPU padding: the
+    JAX package's (8, Np) rays carry 2 zero rows and zero lanes past n,
+    its (T, 24) table 6 zero columns."""
+    cfg = RenderConfig(width=24, height=8, spp=1)
+    o, d, seeds = mk.pack_rays(Camera.default(CPU), cfg, seed=7)
+    pack = jax.jit(jmk.pack_rays, static_argnums=(1, 3))
+    jrays, jseeds = pack(JCamera.default(), JConfig(width=24, height=8,
+                                                    spp=1), 7, 1024)[:2]
+    jrays, n = np.asarray(jrays), 192
+    assert o.shape == d.shape == (n, 3) and seeds.shape == (n,)
+    assert o.is_contiguous() and d.is_contiguous()
+    np.testing.assert_array_equal(o.numpy(), jrays[0:3, :n].T)
+    np.testing.assert_array_equal(d.numpy(), jrays[3:6, :n].T)
+    assert not jrays[6:].any() and not jrays[:, n:].any()
+    np.testing.assert_array_equal(seeds.numpy().astype(np.uint32),
+                                  np.asarray(jseeds)[0, :n])
+    for js in (j_default_scene(), j_procedural(40, seed=1)):
+        table = mk.scene_table(_port_scene(js))
+        want = np.asarray(jax.jit(jmk._scene_table)(js))
+        assert table.shape == (want.shape[0], 18) and table.is_contiguous()
+        assert not want[:, 18:].any()
+        np.testing.assert_array_equal(table[:, :9].numpy(), want[:, :9])
+        np.testing.assert_allclose(table.numpy(), want[:, :18],
+                                   rtol=2 ** -22, atol=1e-7)
+
+
+def test_supported_matches_jax_guardrails():
+    small = _port_scene(j_default_scene())
+    assert mk.supported(small, RenderConfig(rng="lcg", sampler="angle"))
+    assert mk.supported(_port_scene(j_procedural(100)), RenderConfig())
+    assert not mk.supported(_port_scene(j_procedural(mk.MAX_TRIS + 8)),
+                            RenderConfig())
+    assert mk.MAX_TRIS == jmk.MAX_TRIS
+    for kw in (dict(rng="threefry"), dict(rng="hash", sampler="cosine"),
+               dict(rng="hash", nee=True), dict(rng="hash", rr_start=2),
+               dict(rng="hash", stratify=True), dict(vis_grad=True)):
+        assert not mk.supported(small, RenderConfig(**kw)), kw
+
+
+def test_mega_call_cpu_takes_plain_without_counting():
+    scene = _port_scene(j_default_scene())
+    cfg = RenderConfig(width=8, height=4, spp=2)
+    o, d, seeds = mk.pack_rays(Camera.default(CPU), cfg)
+    tri = mk.scene_table(scene)
+    before = mk.mega_call.launches
+    got = mk.mega_call(o, d, seeds, tri, cfg)
+    assert mk.mega_call.launches == before        # no kernel was launched
+    assert got.shape == (32, 3)
+    assert torch.equal(got, mk.megakernel_plain(o, d, seeds, tri, cfg))
+
+
+def test_mega_call_rejects_bad_inputs():
+    scene = _port_scene(j_default_scene())
+    cfg = RenderConfig(width=8, height=4, spp=1)
+    o, d, seeds = mk.pack_rays(Camera.default(CPU), cfg)
+    tri = mk.scene_table(scene)
+    big = mk.scene_table(_port_scene(j_procedural(mk.MAX_TRIS + 1)))
+    bad = [
+        (o.double(), d, seeds, tri, cfg),
+        (o, d[:-1], seeds, tri, cfg),
+        (o.T.contiguous(), d, seeds, tri, cfg),
+        (o, d, seeds.int(), tri, cfg),
+        (o, d, seeds[:-1], tri, cfg),
+        (o, d, seeds, torch.cat([tri, tri[:, :6]], 1), cfg),
+        (o, d, seeds, tri[:0], cfg),
+        (o, d, seeds, big, cfg),
+        (o.T.contiguous().T, d, seeds, tri, cfg),   # not contiguous
+        (o, d, seeds, tri, cfg.replace(spp=0)),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            mk.mega_call(*args)
+    with pytest.raises(NotImplementedError):
+        mk.mega_call(o, d, seeds, tri, cfg.replace(rng="hash"))
+
+
+def test_build_flags_and_rebuild_hash(tmp_path, monkeypatch):
+    cmd = build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-fmad=false" in cmd
+    assert not any("fast_math" in f or "fast-math" in f for f in cmd)
+    assert [p.name for p in build.sources()] == ["megakernel.cu"]
+    assert build.LIBRARY.parent.parts[-2:] == ("build", "kernels")
+    monkeypatch.setattr(build, "SOURCE_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text("// one\n")
+    h1 = build.source_hash()
+    (tmp_path / "k.cu").write_text("// two\n")
+    assert build.source_hash() != h1
+
+
+def test_kernel_source_names_what_it_replaces():
+    src = (build.SOURCE_DIR / "megakernel.cu").read_text()
+    assert "spath_tpu/ops/pallas/megakernel.py::_megakernel" in src
+    assert 'extern "C" int spath_megakernel_forward' in src

@@ -1,0 +1,220 @@
+"""The port's slice as a whole on the CPU: the flat view, the wavefront
+and the serving path ``render_pt_fast`` against the JAX package; the
+routing, which never takes the CUDA kernel for CPU tensors; configs that
+are not ported; and the CLI."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from spath_tpu.camera import Camera as JCamera  # noqa: E402
+from spath_tpu.config import RenderConfig as JConfig  # noqa: E402
+from spath_tpu.models.flat import render_flat as j_render_flat  # noqa: E402
+from spath_tpu.models.pathtracer import (  # noqa: E402
+    render_pt_jit as j_render_pt, trace_radiance as j_trace_radiance,
+)
+from spath_tpu.camera import generate_rays as j_generate_rays  # noqa: E402
+from spath_tpu.scene import default_scene as j_default_scene  # noqa: E402
+from spath_tpu.utils.image import to_rgb_u8 as j_to_rgb_u8  # noqa: E402
+from spath_tpu_torch import cli  # noqa: E402
+from spath_tpu_torch.camera import Camera, generate_rays  # noqa: E402
+from spath_tpu_torch.config import RenderConfig  # noqa: E402
+from spath_tpu_torch.convert import camera_from_numpy  # noqa: E402
+from spath_tpu_torch.models import pathtracer, renderer  # noqa: E402
+from spath_tpu_torch.models.flat import render_flat  # noqa: E402
+from spath_tpu_torch.models.pathtracer import (  # noqa: E402
+    render_pt, render_pt_fast, render_radiance, trace_radiance,
+)
+from spath_tpu_torch.ops.kernels import megakernel  # noqa: E402
+from spath_tpu_torch.ops.rng import pixel_seeds  # noqa: E402
+from spath_tpu_torch.scene import Scene, default_scene  # noqa: E402
+from spath_tpu_torch.scene import procedural_scene  # noqa: E402
+from spath_tpu_torch.utils.image import read_png, to_rgb_u8  # noqa: E402
+
+CPU = torch.device("cpu")
+#: the frame of tests/test_pallas.py's kernel-vs-wavefront check
+SIZE = dict(width=48, height=32, spp=3, max_bounces=5)
+
+
+def _j_camera(pos, angle, focal):
+    return JCamera(pos=jnp.asarray(pos, jnp.float32),
+                   angle=jnp.asarray(angle, jnp.float32),
+                   focal=jnp.float32(focal))
+
+
+@pytest.mark.parametrize("pose", [
+    ((0.0, 0.0, -3.0), (0.0, 0.0, 0.0), 2.0),
+    ((0.3, 0.1, -2.0), (0.1, -0.2, 0.0), 1.5),
+])
+def test_render_flat_u8_exact(pose):
+    """Against the JAX function run op by op: under ``jax.jit`` XLA fuses
+    the sweep and rounds some multiply-adds once, which moves a few edge
+    pixels."""
+    cfg = dict(width=40, height=30, spp=1)
+    want = j_to_rgb_u8(np.asarray(j_render_flat(
+        j_default_scene(), _j_camera(*pose), JConfig(**cfg))))
+    got = to_rgb_u8(render_flat(default_scene(CPU),
+                                camera_from_numpy(*pose, device=CPU),
+                                RenderConfig(**cfg)).numpy())
+    np.testing.assert_array_equal(got, want)
+    assert (got == [255, 0, 0]).all(-1).any()          # red triangle
+    assert (got == [0, 0, 0]).all(-1).any()            # background
+
+
+@pytest.fixture(scope="module")
+def jax_pt():
+    """JAX ``render_pt`` of the default scene and camera, seed 3."""
+    return np.asarray(j_render_pt(j_default_scene(), JCamera.default(),
+                                  JConfig(**SIZE), 3))
+
+
+def _assert_conforms(got, want):
+    """The kernel-vs-wavefront bounds of tests/test_pallas.py: under 1% of
+    pixels off by more than 1e-4 (trig-ulp path flips), mean within 5%."""
+    assert got.shape == want.shape
+    flipped = (np.abs(got - want) > 1e-4).any(-1)
+    assert flipped.mean() < 0.01, f"{flipped.mean():.4f} flipped"
+    np.testing.assert_allclose(got.mean(), want.mean(), rtol=5e-2)
+
+
+def test_render_pt_fast_cpu_matches_jax_render_pt(jax_pt):
+    """The slice as a whole: the serving entry point on CPU tensors."""
+    got = render_pt_fast(default_scene(CPU), Camera.default(CPU),
+                         RenderConfig(**SIZE), 3)
+    assert got.dtype == torch.float32 and got.shape == (32, 48, 3)
+    assert 0.0 <= got.min() and got.max() <= 1.0 and got.max() > 0.1
+    _assert_conforms(got.numpy(), jax_pt)
+
+
+def test_render_pt_and_radiance_match(jax_pt):
+    scene, cam, cfg = default_scene(CPU), Camera.default(CPU), \
+        RenderConfig(**SIZE)
+    pt = render_pt(scene, cam, cfg, 3)
+    _assert_conforms(pt.numpy(), jax_pt)
+    assert torch.equal(pt, render_radiance(scene, cam, cfg, 3).clamp(0, 1))
+
+
+def test_trace_radiance_one_sample_matches():
+    """One sample: radiance and the LCG state after it (advanced twice
+    per hit), against JAX on the same rays and seeds."""
+    cfg = dict(width=32, height=16, spp=1, max_bounces=5)
+    jo, jd = j_generate_rays(JCamera.default(), 32, 16)
+    trace = jax.jit(j_trace_radiance, static_argnames=("cfg",))
+    j_rad, j_state = trace(
+        j_default_scene(), jo, jd, JConfig(**cfg),
+        jnp.arange(512, dtype=jnp.uint32) + jnp.uint32(9))
+    o, d = generate_rays(Camera.default(CPU), 32, 16)
+    rad, state = trace_radiance(default_scene(CPU), o, d, RenderConfig(**cfg),
+                                pixel_seeds(512, 9, device=CPU))
+    same = state.numpy().astype(np.uint32) == np.asarray(j_state)
+    assert same.mean() > 0.99 and (state.numpy() != np.arange(512) + 9).any()
+    _assert_conforms(rad.numpy(), np.asarray(j_rad))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(rng="threefry"), dict(rng="hash", sampler="cosine"),
+    dict(rng="table"), dict(sampler="uniform"),
+    dict(rng="hash", nee=True), dict(rng="hash", rr_start=2),
+    dict(rng="hash", stratify=True), dict(vis_grad=True),
+])
+def test_unported_configs_raise(kw):
+    scene, cam = default_scene(CPU), Camera.default(CPU)
+    cfg = RenderConfig(width=8, height=4, spp=1, **kw)
+    for fn in (render_pt_fast, render_pt):
+        with pytest.raises(NotImplementedError):
+            fn(scene, cam, cfg)
+
+
+def test_routing_keeps_cpu_tensors_off_the_kernel(monkeypatch):
+    scene, cam = default_scene(CPU), Camera.default(CPU)
+    cfg = RenderConfig(width=8, height=4, spp=1)
+    mega = renderer.MegakernelRenderer()
+    assert not mega.available(scene) and not mega.supports(scene, cfg)
+    assert renderer.forward_renderer(scene, cfg).name == "wavefront"
+    assert [r.name for r in renderer.REGISTRY] == ["megakernel", "wavefront"]
+
+    def forbidden(*args, **kw):
+        raise AssertionError("mega_call reached with CPU tensors")
+
+    monkeypatch.setattr(megakernel, "mega_call", forbidden)
+    render_pt_fast(scene, cam, cfg)
+
+
+def _as_if_on_cuda(monkeypatch):
+    """Scenes and cameras report a CUDA device; the wavefront must not be
+    reached, and the kernel's entry point only records its calls."""
+    cuda = torch.device("cuda", 0)
+    monkeypatch.setattr(Scene, "device", property(lambda self: cuda))
+    monkeypatch.setattr(Camera, "device", property(lambda self: cuda))
+
+    def forbidden(*args, **kw):
+        raise AssertionError("plain wavefront reached for a CUDA scene")
+
+    monkeypatch.setattr(pathtracer, "render_radiance", forbidden)
+    calls = []
+
+    def kernel(scene, camera, cfg, seed=0):
+        calls.append(scene.n_tris)
+        return torch.zeros((cfg.height, cfg.width, 3))
+
+    monkeypatch.setattr(megakernel, "render_radiance_megakernel", kernel)
+    return calls
+
+
+@pytest.mark.parametrize("n_tris", [7, 129, megakernel.MAX_TRIS])
+def test_routing_sends_cuda_scenes_to_the_kernel(monkeypatch, n_tris):
+    """Every scene the kernel can hold goes to it on a CUDA device, above
+    the JAX package's 128-triangle crossover as well."""
+    scene = (default_scene(CPU) if n_tris == 7
+             else procedural_scene(n_tris, seed=1, device=CPU))
+    cam = Camera.default(CPU)
+    calls = _as_if_on_cuda(monkeypatch)
+    cfg = RenderConfig(width=8, height=4, spp=1)
+    assert not renderer.WavefrontRenderer().available(scene)
+    assert renderer.forward_renderer(scene, cfg).name == "megakernel"
+    assert render_pt_fast(scene, cam, cfg).shape == (4, 8, 3)
+    assert calls == [n_tris]
+
+
+def test_routing_raises_for_cuda_scenes_without_a_kernel(monkeypatch):
+    """No silent plain render on a CUDA device: a scene too big for the
+    fused kernel names the unported streamed kernel, an unported config
+    says what is not ported."""
+    big = procedural_scene(megakernel.MAX_TRIS + 1, seed=1, device=CPU)
+    small, cam = default_scene(CPU), Camera.default(CPU)
+    calls = _as_if_on_cuda(monkeypatch)
+    cfg = RenderConfig(width=8, height=4, spp=1)
+    with pytest.raises(NotImplementedError, match="K6"):
+        render_pt_fast(big, cam, cfg)
+    with pytest.raises(NotImplementedError, match="rng='hash'"):
+        render_pt_fast(small, cam, cfg.replace(rng="hash"))
+    assert calls == []
+
+
+def test_cli_device_cuda_without_card_exits_nonzero(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "frame.png"
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["render", "--size", "16x8", "--spp", "1", "--device",
+                  "cuda", "--out", str(out)])
+    assert exc.value.code not in (0, None)
+    assert not out.exists()
+
+
+def test_cli_renders_on_cpu(tmp_path):
+    flat = tmp_path / "flat.png"
+    assert cli.main(["render", "--size", "40x30", "--flat", "--device",
+                     "cpu", "--out", str(flat)]) == 0
+    img = read_png(str(flat))
+    assert img.shape == (30, 40, 3)
+    for colour in ([255, 0, 0], [255, 255, 255], [0, 0, 0]):
+        assert (img == colour).all(-1).any(), colour
+    frame = tmp_path / "pt.ppm"
+    assert cli.main(["render", "--size", "16x8", "--spp", "2", "--device",
+                     "cpu", "--camera-angle", "0.05,0,0", "--out",
+                     str(frame)]) == 0
+    assert frame.read_bytes().startswith(b"P6\n16 8\n255\n")
