@@ -6,8 +6,9 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``spath_tpu_torch/csrc`` and drives the
-port's serving path through the entry points a user calls, in five
-phases; any failure exits non-zero before a result is printed.
+port's serving path and training path through the entry points a user
+calls, in ten phases; any failure exits non-zero before a result is
+printed.
 
 1. Device: the card's name and power limit, and the kernel build.
 2. Kernel against its plain PyTorch version on the same rays: the
@@ -19,6 +20,24 @@ phases; any failure exits non-zero before a result is printed.
 5. At 1080p64: kernel against its plain version on the same rays, with
    the bounds of phase 2; then both timed, CUDA events around launches
    after warm-up, in turns (plain, kernel, kernel, plain).
+6. The backward kernel K2 against its plain version ``mega_bwd_plain`` on
+   the same rays and cotangent: the default and 25-triangle scenes at
+   320x240, 8 spp, a scene of K2's largest size (1024 triangles, its
+   shared memory above the default 48 KB) at 64x48, 2 spp, then the
+   default scene at 1080p64; the normal, albedo and emission adjoints
+   each within 1e-5 of their own max, columns 0-8 exactly zero, two
+   launches bitwise equal.
+7. The gradient entry point ``render_radiance_fastgrad`` at 320x240, 8
+   spp: vertex, albedo and emission gradients against autograd of the
+   plain wavefront ``render_radiance``, and the emission-linearity check
+   through K1 twice.
+8. The training slice at full width: 3 steps of ``make_train_step`` at
+   1920x1080, 64 spp, 5 bounces with the CLI's perturbation and
+   optimizer; each step launches K1 once and K2 once, and the loss falls.
+9. The CLI: ``invert`` at 640x480, 16 spp, 5 steps lowers the albedo
+   error.
+10. At 1080p64: K2 and its plain version timed in turns, and the walk's
+    sweeps and hits counted by the plain replay for the kernels' bounds.
 
 The last three lines of standard output are the kernels' JSON record,
 the card as ``nvidia-smi`` names it, and ``{"ok": true, "device": ...}``.
@@ -42,6 +61,31 @@ FLIP_ATOL, FLIP_MAX, MEAN_RTOL = 1e-4, 0.01, 5e-2
 SLICE_MEAN_RTOL = 2e-2
 HEADLINE = dict(width=1920, height=1080, spp=64, max_bounces=5)
 CLI_SIZE = (640, 480)
+#: K2 against its plain version, which sums in float64: K2's float32
+#: sums within GRAD_RTOL of max|plain| in each column group, so that the
+#: normal adjoint is held on its own scale, not the emission's
+GRAD_RTOL = 1e-5
+GRAD_GROUPS = {"normal": slice(9, 12), "albedo": slice(12, 15),
+               "emission": slice(15, 18)}
+#: the gradient entry point against autograd of the plain wavefront,
+#: which sums in float32 in another order, relative to max|plain|
+ENTRY_RTOL = 1e-3
+#: the emission-linearity check, relative (tests/test_megakernel_grad.py)
+LINEARITY_RTOL = 1e-4
+#: Operations counted from the kernels' source (compares, selects, loads
+#: and integer work not counted): one Moller-Trumbore test is 18
+#: multiplies, 15 adds or subtracts, 12 more in u, v and u + v, and one
+#: divide; a hit costs K1 ~44 more (flip, two LCG divides, the sampler
+#: with its 4 trig calls counted as one each, weight, radiance,
+#: throughput, next origin); K2 replays the hit without the radiance (38)
+#: and adds the reverse sweep and its 9 accumulating adds (43).
+MT_OPS, K1_HIT_OPS, K2_HIT_OPS = 46, 44, 81
+#: Peak rates of an H100 SXM (NVIDIA's data sheet): float32 outside the
+#: tensor cores 67e12 FLOP/s, memory 3.35e12 bytes/s. The bound uses
+#: them. The kernels are built with -fmad=false, so no multiply and add
+#: fuse: they cannot do float32 work faster than half the peak,
+#: NOFMA_OPS, reported beside the bound as a second ceiling.
+PEAK_OPS, PEAK_BYTES, NOFMA_OPS = 67e12, 3.35e12, 67e12 / 2
 
 
 class SmokeFailure(Exception):
@@ -116,6 +160,169 @@ def event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(ops: float, nbytes: float):
+    """The least time the card could take, ms, and what bounds it."""
+    t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def backward_vs_plain(torch, o, d, seeds, tri, cfg, name: str):
+    """K2 against ``mega_bwd_plain`` on the same rays and a cotangent
+    drawn uniform in [0.1, 1) from seed 3: each column group within
+    GRAD_RTOL of its own max|plain| (exactly equal where the plain group
+    is zero), columns 0-8 exactly zero, two launches bitwise equal.
+    Returns the comparison and the cotangent."""
+    from spath_tpu_torch.ops.kernels import megakernel_grad as mg
+
+    gen = torch.Generator().manual_seed(3)
+    gbar = (torch.rand((o.shape[0], 3), generator=gen) * 0.9
+            + 0.1).to(o.device)
+    got = mg.mega_bwd_call(o, d, seeds, tri, gbar, cfg)
+    again = mg.mega_bwd_call(o, d, seeds, tri, gbar, cfg)
+    torch.cuda.synchronize()
+    want = mg.mega_bwd_plain(o, d, seeds, tri, gbar, cfg)
+    check(torch.isfinite(got).all().item(), f"{name}: K2 not finite")
+    check(want.abs().max().item() > 0.0, f"{name}: the plain adjoint is "
+          "zero")
+    rel = {}
+    for group, cols in GRAD_GROUPS.items():
+        scale = want[:, cols].abs().max().item()
+        err = (got[:, cols] - want[:, cols]).abs().max().item()
+        check(err <= GRAD_RTOL * scale, f"{name}: K2's {group} adjoint off "
+              f"its plain version by {err:.6g}, max|plain| {scale:.6g}")
+        rel[group] = err / scale if scale else 0.0
+    check(bool((got[:, :9] == 0).all()), f"{name}: columns 0-8 not zero")
+    check(torch.equal(got, again), f"{name}: two launches differ")
+    return dict(max_abs_err=(got - want).abs().max().item(),
+                rel_err_by_group=rel, deterministic=True), gbar
+
+
+def gradient_entry(torch, dev, cam, scene) -> str:
+    """Phase 7: ``render_radiance_fastgrad`` on the card against autograd
+    of the plain wavefront, then emission linearity through K1 twice."""
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.models.pathtracer import (
+        render_radiance, render_radiance_fastgrad,
+    )
+    from spath_tpu_torch.ops.kernels import megakernel as mk
+    from spath_tpu_torch.ops.kernels import megakernel_grad as mg
+    from spath_tpu_torch.scene import Scene
+
+    cfg = RenderConfig(width=320, height=240, spp=8, max_bounces=5)
+    gen = torch.Generator().manual_seed(7)
+    wts = (torch.rand((cfg.height, cfg.width, 3), generator=gen) * 0.9
+           + 0.1).to(dev)
+
+    def grads(render):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (scene.vertices, scene.albedo, scene.emission)]
+        loss = (render(Scene(*leaves), cam, cfg, 0) * wts).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    mk.mega_call.launches = mg.mega_bwd_call.launches = 0
+    got = grads(render_radiance_fastgrad)
+    torch.cuda.synchronize()
+    k1, k2 = mk.mega_call.launches, mg.mega_bwd_call.launches
+    check(k1 > 0 and k2 > 0, f"render_radiance_fastgrad launched K1 {k1} "
+          f"and K2 {k2} times")
+    want = grads(render_radiance)
+    errs = {}
+    for name, g, w in zip(("vertices", "albedo", "emission"), got, want):
+        scale = w.abs().max().item()
+        errs[name] = (g - w).abs().max().item() / scale
+        check(scale > 0.0, f"{name}: zero gradient")
+        check(errs[name] <= ENTRY_RTOL, f"{name} gradient off the "
+              f"wavefront's by {errs[name]:.3g} of its max")
+
+    e = scene.emission.detach().clone().requires_grad_()
+    loss = render_radiance_fastgrad(Scene(scene.vertices, scene.albedo, e),
+                                    cam, cfg, 0).mean()
+    (g,) = torch.autograd.grad(loss, [e])
+    direction = torch.randn(e.shape, generator=gen).to(dev)
+    with torch.no_grad():
+        f1 = render_radiance_fastgrad(
+            Scene(scene.vertices, scene.albedo, e + direction), cam, cfg,
+            0).mean().item()
+    want_d, got_d = f1 - loss.item(), (g * direction).sum().item()
+    check(abs(got_d - want_d) <= LINEARITY_RTOL * max(abs(want_d), 1e-6),
+          f"emission linearity: <g, dir> {got_d} against {want_d}")
+    return (f"K1 {k1} and K2 {k2} launches; gradient error / max: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f"; emission <g, dir> {got_d:.7g} vs L(e+dir) - L(e) "
+            f"{want_d:.7g}")
+
+
+def training(torch, dev, cam, scene, cfg) -> dict:
+    """Phase 8: three train steps at full width through K1 and K2."""
+    import dataclasses
+
+    import numpy as np
+
+    from spath_tpu_torch.models.inverse import (
+        InverseParams, init_state, make_train_step, param_group_optimizer,
+    )
+    from spath_tpu_torch.models.pathtracer import render_radiance_fastgrad
+    from spath_tpu_torch.models.renderer import forward_renderer
+    from spath_tpu_torch.ops.kernels import megakernel as mk
+    from spath_tpu_torch.ops.kernels import megakernel_grad as mg
+
+    target = forward_renderer(scene, cfg).render_radiance(scene, cam, cfg, 0)
+    true_albedo = scene.albedo.cpu().numpy()
+    rng = np.random.default_rng(1)
+    bad = np.clip(true_albedo + rng.uniform(-0.4, 0.4, true_albedo.shape)
+                  .astype(np.float32), 0.05, 1.0)
+    params = InverseParams(cam_pos=cam.pos, cam_angle=cam.angle,
+                           cam_focal=cam.focal,
+                           albedo=torch.from_numpy(bad).to(dev))
+    state = init_state(param_group_optimizer(freeze_pose=True,
+                                             albedo_lr=2e-2), params)
+    step = make_train_step(scene, cfg, fixed_seed=0)
+    torch.cuda.synchronize()
+
+    mk.mega_call.launches = mg.mega_bwd_call.launches = 0
+    losses, step_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, aux = step(state, target)
+        losses.append(float(aux["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    k1, k2 = mk.mega_call.launches, mg.mega_bwd_call.launches
+    check(k1 == 3 and k2 == 3, f"3 train steps launched K1 {k1} and K2 "
+          f"{k2} times")
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+    albedo = state.params.albedo.detach().clone().requires_grad_()
+
+    def fwd_bwd():
+        img = render_radiance_fastgrad(
+            dataclasses.replace(scene, albedo=albedo), cam, cfg, 0)
+        torch.autograd.grad(((img - target) ** 2).mean(), [albedo])
+
+    fwd_bwd()
+    ms = event_ms(torch, fwd_bwd, 3)
+    return dict(k1=k1, k2=k2, losses=losses, step_s=step_s, fwd_bwd_ms=ms)
+
+
+def cli_invert(cli) -> str:
+    """Phase 9: ``invert`` returns 0 and lowers the albedo error."""
+    import contextlib
+    import io
+    import re
+
+    w, h = CLI_SIZE
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["invert", "--size", f"{w}x{h}", "--spp", "16",
+                       "--steps", "5"])
+    text = out.getvalue()
+    m = re.search(r"albedo error ([0-9.]+) -> ([0-9.]+)", text)
+    check(rc == 0 and m is not None, f"cli invert: rc {rc}, {text!r}")
+    check(float(m[2]) < float(m[1]), f"albedo error did not fall: {text!r}")
+    return text.strip()
+
+
 def run() -> None:
     import torch
 
@@ -125,7 +332,7 @@ def run() -> None:
     from spath_tpu_torch.models.pathtracer import render_pt, render_pt_fast
     from spath_tpu_torch.ops.kernels import build
     from spath_tpu_torch.ops.kernels import megakernel as mk
-    from spath_tpu_torch.scene import default_scene
+    from spath_tpu_torch.scene import default_scene, procedural_scene
     from spath_tpu_torch.utils.image import read_png
 
     dev = torch.device("cuda", 0)
@@ -235,15 +442,100 @@ def run() -> None:
         f"{segs / (slice_ms / 1e3):.4e} rays/s; build {build_s:.2f} s")
     check(k_ms > 0 and p_ms > 0, "timing failed")
 
+    # 6. the backward kernel against its plain version
+    from spath_tpu_torch.ops.kernels import megakernel_grad as mg
+
+    for name, bscene in (("default", default_scene(dev)),
+                         ("25 triangles", scene_25(dev))):
+        c, _ = backward_vs_plain(torch, *mk.pack_rays(cam, small, 0),
+                                 mk.scene_table(bscene), small, name)
+        log(f"[6] K2 vs plain, {name}, 320x240 spp8: {c}")
+    largest = RenderConfig(width=64, height=48, spp=2, max_bounces=5)
+    c, _ = backward_vs_plain(
+        torch, *mk.pack_rays(cam, largest, 0),
+        mk.scene_table(procedural_scene(mg.GRAD_MAX_TRIS, seed=1,
+                                        device=dev)),
+        largest, f"{mg.GRAD_MAX_TRIS} triangles")
+    log(f"[6] K2 vs plain, {mg.GRAD_MAX_TRIS} triangles, 64x48 spp2: {c}")
+    bwd_headline, gbar = backward_vs_plain(torch, o, d, seeds, tri, cfg,
+                                           frame)
+    log(f"[6] K2 vs plain, default scene, {frame}: {bwd_headline}")
+
+    # 7. the gradient entry point
+    log(f"[7] render_radiance_fastgrad 320x240 spp8: "
+        f"{gradient_entry(torch, dev, cam, default_scene(dev))}")
+
+    # 8. the training slice at full width
+    tr = training(torch, dev, cam, scene, cfg)
+    log(f"[8] 3 train steps {frame} {cfg.max_bounces} bounces on {smi}: "
+        f"K1 {tr['k1']} and K2 {tr['k2']} launches, losses {tr['losses']}, "
+        f"step s {[round(x, 6) for x in tr['step_s']]}; "
+        f"render_radiance_fastgrad forward+backward {tr['fwd_bwd_ms']:.3f} "
+        f"ms, {segs / (tr['fwd_bwd_ms'] / 1e3):.4e} rays/s")
+
+    # 9. the CLI's invert
+    log(f"[9] cli invert {CLI_SIZE[0]}x{CLI_SIZE[1]} spp16, 5 steps: "
+        f"{cli_invert(cli)}")
+
+    # 10. at 1080p64: K2 and its plain version timed in turns
+    def backward():
+        mg.mega_bwd_call(o, d, seeds, tri, gbar, cfg)
+
+    def backward_plain():
+        mg.mega_bwd_plain(o, d, seeds, tri, gbar, cfg)
+
+    bplain_ms = [event_ms(torch, backward_plain, 1)]
+    bkernel_ms = [event_ms(torch, backward, 3), event_ms(torch, backward, 3)]
+    bplain_ms.append(event_ms(torch, backward_plain, 1))
+    k2_ms, p2_ms = sum(bkernel_ms) / 2, sum(bplain_ms) / 2
+    # the walk's work, from the plain replay: one camera sweep per ray,
+    # then a sweep for every bounce after a hit
+    n, n_tris = o.shape[0], tri.shape[0]
+    sweeps, hits = n, 0
+    with torch.no_grad():
+        for saved in mg.replay(o, d, seeds, tri, cfg):
+            per_bounce = torch.stack([hit.sum() for hit, *_ in saved])
+            hits += int(per_bounce.sum())
+            sweeps += int(per_bounce[:-1].sum())
+    ray_bytes = n * (24 + 8) + n_tris * 18 * 4
+    k1_ops = sweeps * n_tris * MT_OPS + hits * K1_HIT_OPS
+    k2_ops = sweeps * n_tris * MT_OPS + hits * K2_HIT_OPS
+    k1_bound = bound(k1_ops, ray_bytes + n * 12)
+    k2_bound = bound(k2_ops, ray_bytes + n * 12 + n_tris * 18 * 4)
+    log(f"[10] {frame} on {smi}: K2 {bkernel_ms} ms, plain {bplain_ms} ms; "
+        f"K2 {segs / (k2_ms / 1e3):.4e} rays/s; the walk: {sweeps} sweeps, "
+        f"{hits} hits; bound K1 {k1_bound[0]:.4f} ms, K2 "
+        f"{k2_bound[0]:.4f} ms ({k1_bound[1]}); without FMA at "
+        f"{NOFMA_OPS:.3g}/s: K1 {k1_ops / NOFMA_OPS * 1e3:.4f} ms, K2 "
+        f"{k2_ops / NOFMA_OPS * 1e3:.4f} ms")
+    check(k2_ms > 0 and p2_ms > 0, "timing failed")
+
     print(json.dumps({"kernels": [{
         "name": "megakernel_forward",
         "route": "cuda",
         "source": "spath_tpu_torch/csrc/megakernel.cu",
         "replaces": "spath_tpu/ops/pallas/megakernel.py:182",
-        "launches": launches,
+        "launches": tr["k1"],
+        "launches_by_path": {"serving": launches, "training": tr["k1"]},
         "max_abs_err": headline["max_abs_err"],
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "megakernel_backward",
+        "route": "cuda",
+        "source": "spath_tpu_torch/csrc/megakernel_grad.cu",
+        "replaces": "spath_tpu/ops/pallas/megakernel_grad.py:370",
+        "launches": tr["k2"],
+        "launches_by_path": {"serving": 0, "training": tr["k2"]},
+        "max_abs_err": bwd_headline["max_abs_err"],
+        "ms": k2_ms,
+        "plain_ms": p2_ms,
+        "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1],
+        "library_ms": None,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

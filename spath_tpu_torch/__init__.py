@@ -1,18 +1,20 @@
 """spath_tpu_torch: the PyTorch and CUDA port of spath_tpu.
 
-The conformance serving path — the reference's per-pixel LCG and
-angle-uniform sampler on its 7-triangle scene — runs on an NVIDIA Hopper
-card through a hand-written CUDA kernel (``ops/kernels/megakernel.py``,
-``csrc/megakernel.cu``), and on the CPU through the plain PyTorch
-wavefront. The JAX package ``spath_tpu`` is the reference it is tested
-against; this package imports neither it nor JAX.
+The conformance estimator — the reference's per-pixel LCG and
+angle-uniform sampler on its 7-triangle scene — renders and trains on an
+NVIDIA Hopper card through two hand-written CUDA kernels: the fused
+forward (``ops/kernels/megakernel.py``, ``csrc/megakernel.cu``) and its
+reverse sweep (``ops/kernels/megakernel_grad.py``,
+``csrc/megakernel_grad.cu``); on the CPU through the plain PyTorch
+wavefront and autograd. The JAX package ``spath_tpu`` is the reference it
+is tested against; this package imports neither it nor JAX.
 """
 
 from spath_tpu_torch.camera import Camera, generate_rays
 from spath_tpu_torch.config import CONFORMANCE, RenderConfig
 from spath_tpu_torch.models.flat import render_flat
 from spath_tpu_torch.models.pathtracer import (
-    render_pt, render_pt_fast, render_radiance,
+    render_pt, render_pt_fast, render_radiance, render_radiance_fastgrad,
 )
 from spath_tpu_torch.scene import (
     Scene, default_scene, make_scene, procedural_scene,
@@ -22,4 +24,5 @@ __all__ = [
     "CONFORMANCE", "Camera", "RenderConfig", "Scene", "default_scene",
     "generate_rays", "make_scene", "procedural_scene", "render_flat",
     "render_pt", "render_pt_fast", "render_radiance",
+    "render_radiance_fastgrad",
 ]

@@ -1,13 +1,17 @@
 """Command-line interface of the port, conformance mode.
 
   render   one frame of the reference's 7-triangle scene → PNG/PPM
+  invert   recover the scene's albedo from a rendered target
 
 The clamped frame goes through ``render_pt_fast``, the serving path (the
 fused CUDA kernel on a CUDA device); ``--flat`` renders the flat debug
-view. Examples::
+view. ``invert`` trains through ``render_radiance_fastgrad`` (the fused
+kernel forward and its reverse sweep backward on a CUDA device).
+Examples::
 
   python -m spath_tpu_torch.cli render --size 640x480 --spp 128 --out frame.png
   python -m spath_tpu_torch.cli render --flat --device cpu --out flat.png
+  python -m spath_tpu_torch.cli invert --size 640x480 --spp 16 --steps 100
 """
 
 from __future__ import annotations
@@ -45,6 +49,22 @@ def _device(name: str):
     return device
 
 
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--size", type=_parse_size, default=(640, 480),
+                   help="WxH resolution (reference default 640x480)")
+    p.add_argument("--spp", type=int, default=128,
+                   help="samples per pixel (reference default 128)")
+    p.add_argument("--bounces", type=int, default=5,
+                   help="path length cap (reference: hard 5)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--camera-pos", type=_parse_vec3, default=[0, 0, -3])
+    p.add_argument("--camera-angle", type=_parse_vec3, default=[0, 0, 0])
+    p.add_argument("--focal", type=float, default=2.0)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the fused kernels) or cpu (the plain "
+                        "wavefront); a missing card is an error")
+
+
 def cmd_render(args) -> int:
     device = _device(args.device)
 
@@ -80,28 +100,84 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_invert(args) -> int:
+    """Albedo recovery in conformance mode, as the JAX package's
+    ``invert``: render the target at the true scene, perturb the albedo
+    (``default_rng(1)`` uniform ±0.4, clipped to [0.05, 1]) and descend
+    with the pose frozen and the target's seed fixed."""
+    device = _device(args.device)
+
+    import numpy as np
+    import torch
+
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.convert import camera_from_numpy
+    from spath_tpu_torch.models.inverse import (
+        InverseParams, param_group_optimizer, recover,
+    )
+    from spath_tpu_torch.models.renderer import forward_renderer
+    from spath_tpu_torch.scene import default_scene
+
+    scene = default_scene(device)
+    cam = camera_from_numpy(args.camera_pos, args.camera_angle, args.focal,
+                            device=device)
+    w, h = args.size
+    cfg = RenderConfig(width=w, height=h, spp=args.spp,
+                       max_bounces=args.bounces, rng="lcg", sampler="angle")
+    print("rendering target...", file=sys.stderr)
+    # render_radiance's value, through the serving path's renderer (the
+    # fused kernel on a CUDA device, bit-identical to the wavefront)
+    target = forward_renderer(scene, cfg).render_radiance(scene, cam, cfg,
+                                                          args.seed)
+
+    true_albedo = scene.albedo.cpu().numpy()
+    rng = np.random.default_rng(1)
+    bad_albedo = np.clip(
+        true_albedo
+        + rng.uniform(-0.4, 0.4, true_albedo.shape).astype(np.float32),
+        0.05, 1.0)
+    params = InverseParams(
+        cam_pos=cam.pos, cam_angle=cam.angle, cam_focal=cam.focal,
+        albedo=torch.from_numpy(bad_albedo).to(device))
+    t0 = time.perf_counter()
+    state, losses = recover(
+        scene, target, params, cfg, steps=args.steps,
+        optimizer=param_group_optimizer(freeze_pose=True, albedo_lr=2e-2),
+        fixed_seed=args.seed, checkpoint_dir=args.checkpoint_dir,
+        log_fn=lambda m: print(m, file=sys.stderr))
+    dt = time.perf_counter() - t0
+    err0 = np.abs(bad_albedo - true_albedo).mean()
+    err1 = np.abs(state.params.albedo.detach().cpu().numpy()
+                  - true_albedo).mean()
+    if losses:
+        print(f"{len(losses)} steps on {device} in {dt:.3f}s",
+              file=sys.stderr)
+        print(f"albedo error {err0:.4f} -> {err1:.4f}; "
+              f"loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    else:
+        print(f"albedo error {err0:.4f} -> {err1:.4f}; no step left to run")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="spath-tpu-torch", description=__doc__)
     sub = ap.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("render", help="render one frame to an image file")
-    p.add_argument("--size", type=_parse_size, default=(640, 480),
-                   help="WxH resolution (reference default 640x480)")
-    p.add_argument("--spp", type=int, default=128,
-                   help="samples per pixel (reference default 128)")
-    p.add_argument("--bounces", type=int, default=5,
-                   help="path length cap (reference: hard 5)")
-    p.add_argument("--seed", type=int, default=0)
+    _add_common(p)
     p.add_argument("--flat", action="store_true",
                    help="flat-shaded debug view (reference render_flat)")
     p.add_argument("--out", default="frame.png")
-    p.add_argument("--camera-pos", type=_parse_vec3, default=[0, 0, -3])
-    p.add_argument("--camera-angle", type=_parse_vec3, default=[0, 0, 0])
-    p.add_argument("--focal", type=float, default=2.0)
-    p.add_argument("--device", default="cuda",
-                   help="cuda (the fused kernel) or cpu (the plain "
-                        "wavefront); a missing card is an error")
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("invert", help="inverse-rendering demo: recover "
+                                      "the albedo")
+    _add_common(p)
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save every 50 steps and at the end; resume from "
+                        "the newest checkpoint found there")
+    p.set_defaults(fn=cmd_invert)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -41,3 +41,23 @@ def camera_to_numpy(camera: Camera):
     """Camera → ``(pos, angle, focal)`` float32 numpy arrays."""
     return tuple(t.detach().cpu().numpy()
                  for t in (camera.pos, camera.angle, camera.focal))
+
+
+def inverse_params_from_numpy(cam_pos, cam_angle, cam_focal, albedo, *,
+                              device):
+    """The JAX package's ``InverseParams`` fields as arrays → the port's
+    ``InverseParams`` on ``device``."""
+    from spath_tpu_torch.models.inverse import InverseParams
+
+    def tensor(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+    return InverseParams(cam_pos=tensor(cam_pos), cam_angle=tensor(cam_angle),
+                         cam_focal=tensor(cam_focal), albedo=tensor(albedo))
+
+
+def inverse_params_to_numpy(params):
+    """The port's ``InverseParams`` → ``(cam_pos, cam_angle, cam_focal,
+    albedo)`` float32 numpy arrays, the JAX package's field order."""
+    return tuple(t.detach().cpu().numpy()
+                 for t in params.tensors().values())

@@ -30,6 +30,8 @@
 // multiply and add rounds on its own as in the plain PyTorch version
 // (megakernel_plain), division is IEEE, and cosf/sinf are the accurate
 // library forms. A 1-ulp difference in any of these flips chaotic paths.
+// The walk's pieces (nearest, lcg, surface) live in megakernel_common.cuh,
+// which the backward kernel K2 (megakernel_grad.cu) replays them from.
 //
 // Layouts (checked by the Python wrapper ops/kernels/megakernel.py), all
 // row-major and contiguous:
@@ -41,67 +43,16 @@
 // The launch goes on the caller's stream, allocates nothing and does not
 // synchronise; the entry point returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "megakernel_common.cuh"
 
 namespace {
 
-// float32 values equal to the JAX package's np.float32 constants.
-constexpr float kEps = 0x1.6849b8p-47f;     // float32(1e-14)
-constexpr float kInvEps = 0x1.6bcc42p+46f;  // float32(1 / 1e-14)
-constexpr float kBig = 0x1.d1a94ap+39f;     // float32(1e12), the miss distance
-constexpr float kTwoPi = 0x1.921fb6p+2f;    // float32(2 pi)
-constexpr float kHalfPi = 0x1.921fb6p+0f;   // float32(pi / 2)
-constexpr int kCols = 18;
+using spath::Hit;
+using spath::kCols;
+using spath::nearest;
+using spath::Surface;
+
 constexpr int kBlock = 128;
-
-struct Hit {
-  float dist;
-  int idx;
-};
-
-__device__ __forceinline__ Hit nearest(const float* __restrict__ tri,
-                                       int n_tris, float ox, float oy,
-                                       float oz, float dx, float dy, float dz,
-                                       int src) {
-  Hit best{kBig, -1};
-  for (int t = 0; t < n_tris; ++t) {
-    const float* r = tri + t * kCols;
-    const float v0x = __ldg(r + 0), v0y = __ldg(r + 1), v0z = __ldg(r + 2);
-    const float e1x = __ldg(r + 3), e1y = __ldg(r + 4), e1z = __ldg(r + 5);
-    const float e2x = __ldg(r + 6), e2y = __ldg(r + 7), e2z = __ldg(r + 8);
-    // h = d x e2
-    const float hx = dy * e2z - dz * e2y;
-    const float hy = dz * e2x - dx * e2z;
-    const float hz = dx * e2y - dy * e2x;
-    const float a = e1x * hx + e1y * hy + e1z * hz;
-    const bool nondeg = fabsf(a) >= kEps;
-    const float f = 1.0f / (nondeg ? a : 1.0f);
-    const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-    const float u = f * (sx * hx + sy * hy + sz * hz);
-    // q = s x e1
-    const float qx = sy * e1z - sz * e1y;
-    const float qy = sz * e1x - sx * e1z;
-    const float qz = sx * e1y - sy * e1x;
-    const float v = f * (dx * qx + dy * qy + dz * qz);
-    const float dist = f * (e2x * qx + e2y * qy + e2z * qz);
-    const bool ok = nondeg && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-                    u + v <= 1.0f && dist > kEps && dist < kInvEps &&
-                    src != t && dist < best.dist;
-    if (ok) {
-      best.dist = dist;
-      best.idx = t;
-    }
-  }
-  return best;
-}
-
-// The reference's LCG: advance the seed, return ((seed >> 16) & 0x7FFF)
-// divided (not multiplied by the reciprocal) by 32767.
-__device__ __forceinline__ float lcg(uint32_t& seed) {
-  seed = 214013u * seed + 2531011u;
-  return static_cast<float>((seed >> 16) & 0x7FFFu) / 32767.0f;
-}
 
 __global__ void __launch_bounds__(kBlock)
     megakernel_forward(const float* __restrict__ origins,
@@ -132,46 +83,24 @@ __global__ void __launch_bounds__(kBlock)
                         ? first
                         : nearest(tri, n_tris, ox, oy, oz, dx, dy, dz, src);
       if (h.idx < 0) break;
+      const Surface sf = spath::surface(tri, h.idx, dx, dy, dz, seed);
       const float* r = tri + h.idx * kCols;
-      float nx = __ldg(r + 9), ny = __ldg(r + 10), nz = __ldg(r + 11);
       const float ar = __ldg(r + 12), ag = __ldg(r + 13), ab = __ldg(r + 14);
       const float er = __ldg(r + 15), eg = __ldg(r + 16), eb = __ldg(r + 17);
-      if (nx * dx + ny * dy + nz * dz > 0.0f) {
-        nx = -nx;
-        ny = -ny;
-        nz = -nz;
-      }
-
-      const float u1 = lcg(seed);
-      const float u2 = lcg(seed);
-
-      // angle-uniform hemisphere sample about the flipped normal
-      const float az = u1 * kTwoPi;
-      const float el = u2 * kHalfPi;
-      const float fx = cosf(el);
-      float sx = cosf(az) * fx;
-      float sy = sinf(el);
-      float sz = sinf(az) * fx;
-      if (!(nx * sx + ny * sy + nz * sz >= 0.0f)) {
-        sx = -sx;
-        sy = -sy;
-        sz = -sz;
-      }
-      const float w = 2.0f * (sx * nx + sy * ny + sz * nz);
 
       rad_r = rad_r + thr_r * er;
       rad_g = rad_g + thr_g * eg;
       rad_b = rad_b + thr_b * eb;
-      thr_r = thr_r * ar * w;
-      thr_g = thr_g * ag * w;
-      thr_b = thr_b * ab * w;
+      thr_r = thr_r * ar * sf.w;
+      thr_g = thr_g * ag * sf.w;
+      thr_b = thr_b * ab * sf.w;
 
       ox = ox + h.dist * dx;
       oy = oy + h.dist * dy;
       oz = oz + h.dist * dz;
-      dx = sx;
-      dy = sy;
-      dz = sz;
+      dx = sf.sx;
+      dy = sf.sy;
+      dz = sf.sz;
       src = h.idx;
     }
     acc_r = acc_r + rad_r;

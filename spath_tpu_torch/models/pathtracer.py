@@ -16,10 +16,18 @@ hit triangle are gathered by plain indexing.
 The walk is written over the scene's geometry ``(v0, e1, e2, normals,
 albedo, emission)``, so the fused kernel's plain version
 (``ops/kernels/megakernel.py::megakernel_plain``) runs the same code on
-the columns of its packed table. Forward only: the quality estimator
-(NEE, MIS, Russian roulette, stratification, other RNGs and samplers),
-visibility gradients and the differentiable path are not ported yet and
-raise ``NotImplementedError``.
+the columns of its packed table.
+
+Differentiability (detached sampling, as the JAX package): sampled
+directions and hit indices are constants of the backward pass; the
+weight ``2·cosθ`` is recomputed against the detached direction, so its
+gradient flows through the shading normal only. ``render_radiance`` is
+differentiable with respect to the scene's vertices, albedo and emission
+and the camera under ``torch.autograd``; ``render_radiance_fastgrad``
+gives the same gradients through the fused kernels' hand-written
+backward on a CUDA device. The quality estimator (NEE, MIS, Russian
+roulette, stratification, other RNGs and samplers) and visibility
+gradients are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -104,7 +112,12 @@ def trace_geometry(geom, origins, directions, seeds, cfg: RenderConfig,
         s1, u1 = lcg_next(seeds)
         s2, u2 = lcg_next(s1)
         seeds = torch.where(hit, s2, seeds)
-        next_d, weight = angle_sample(adj_n, u1, u2)
+        next_d, _ = angle_sample(adj_n, u1, u2)
+        # Detached sampling: the direction is a constant of the backward
+        # pass, and the weight is recomputed against it so that its
+        # gradient flows through the normal only.
+        next_d = next_d.detach()
+        weight = 2.0 * dot3(next_d, adj_n)
 
         radiance = radiance + torch.where(hit3, throughput * emi, 0.0)
         throughput = torch.where(hit3, throughput * alb * weight[:, None],
@@ -175,6 +188,23 @@ def render_pt(scene: Scene, camera: Camera, cfg: RenderConfig,
     """Path-traced frame with the reference's final clamp, float32
     ``(H, W, 3)`` in [0, 1]."""
     return torch.clamp(render_radiance(scene, camera, cfg, seed), 0.0, 1.0)
+
+
+def render_radiance_fastgrad(scene: Scene, camera: Camera,
+                             cfg: RenderConfig, seed: int = 0
+                             ) -> torch.Tensor:
+    """Differentiable unclamped radiance ``(H, W, 3)``: the same value and
+    the same detached-sampling gradients as ``render_radiance``, from the
+    fastest backend with a gradient path (``models/renderer.py``). On a
+    CUDA device the forward is the fused kernel K1 and the backward its
+    hand-written reverse sweep K2; on the CPU, autograd of the wavefront.
+    A scene or config that no ported kernel differentiates raises
+    ``NotImplementedError``."""
+    from spath_tpu_torch.models.renderer import grad_renderer
+
+    _check_devices(scene, camera)
+    return grad_renderer(scene, cfg).render_radiance_grad(scene, camera,
+                                                          cfg, seed)
 
 
 def render_pt_fast(scene: Scene, camera: Camera, cfg: RenderConfig,

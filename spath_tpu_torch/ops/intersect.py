@@ -12,8 +12,14 @@ order.
 on the TPU to put the sweep on its matrix unit, and Hopper's float32
 tensor-core path is TF32, which is not exact. ``"pallas"`` and
 ``"pallas_fast"`` name the standalone Pallas kernel (K5), which is not
-ported yet, and raise. Forward only: the custom backward comes with the
-gradient port.
+ported yet, and raise.
+
+Gradients: ``nearest_hit_edges`` is a ``torch.autograd.Function``, the
+port of the JAX package's custom VJP (``spath_tpu/ops/intersect.py``,
+``_nearest_hit_vjp``). The argmin is a detached selector; the backward
+is the O(N) derivative of the selected triangle's distance
+(``_dist_selected``). Autograd through the sweep itself would keep
+``(N, B)`` block tensors for every sweep of every sample and bounce.
 """
 
 from __future__ import annotations
@@ -67,12 +73,8 @@ def _mt_block(o, d, v0, e1, e2, src_idx, tri_base: int):
     return torch.where(valid, dist, torch.full_like(dist, BIG))
 
 
-def nearest_hit_edges(o, d, v0, e1, e2, src_idx, tri_block: int = 512):
-    """Nearest hit against triangles given as ``v0`` and edges
-    ``e1 = v1 - v0``, ``e2 = v2 - v0`` (each ``(T, 3)``).
-
-    Returns ``(dist (N,), idx (N,) int64)``: ``idx`` is -1 on a miss.
-    """
+def _sweep(o, d, v0, e1, e2, src_idx, tri_block: int):
+    """The blocked sweep: ``(dist (N,), idx (N,) int64)``."""
     best = torch.full((o.shape[0],), BIG, dtype=torch.float32,
                       device=o.device)
     best_i = torch.full((o.shape[0],), -1, dtype=torch.int64,
@@ -86,6 +88,52 @@ def nearest_hit_edges(o, d, v0, e1, e2, src_idx, tri_block: int = 512):
         best_i = torch.where(better, blk_idx + base, best_i)
     best_i = torch.where(best >= BIG, torch.full_like(best_i, -1), best_i)
     return best, best_i
+
+
+def _dist_selected(o, d, v0, e1, e2, idx):
+    """Differentiable Möller–Trumbore distance of each ray to its selected
+    triangle, ``BIG`` on a miss: the O(N) backward path. The guard is
+    ``|a| > 0``, as in the JAX package, not the sweep's ε."""
+    safe = idx.clamp_min(0)
+    a0, e1s, e2s = v0[safe], e1[safe], e2[safe]
+    h = torch.linalg.cross(d, e2s)
+    a = (e1s * h).sum(-1)
+    f = 1.0 / torch.where(a.abs() > 0.0, a, torch.ones_like(a))
+    q = torch.linalg.cross(o - a0, e1s)
+    dist = f * (e2s * q).sum(-1)
+    return torch.where(idx >= 0, dist, torch.full_like(dist, BIG))
+
+
+class _NearestHit(torch.autograd.Function):
+    """The sweep forward; the selected triangle's distance backward. Saves
+    only the O(N) residuals ``(o, d, v0, e1, e2, idx)``."""
+
+    @staticmethod
+    def forward(ctx, o, d, v0, e1, e2, src_idx, tri_block):
+        dist, idx = _sweep(o, d, v0, e1, e2, src_idx, tri_block)
+        ctx.save_for_backward(o, d, v0, e1, e2, idx)
+        ctx.mark_non_differentiable(idx)
+        return dist, idx
+
+    @staticmethod
+    def backward(ctx, dist_bar, _idx_bar):
+        o, d, v0, e1, e2, idx = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (o, d, v0, e1, e2)]
+            grads = torch.autograd.grad(_dist_selected(*leaves, idx), leaves,
+                                        dist_bar)
+        return (*grads, None, None)
+
+
+def nearest_hit_edges(o, d, v0, e1, e2, src_idx, tri_block: int = 512):
+    """Nearest hit against triangles given as ``v0`` and edges
+    ``e1 = v1 - v0``, ``e2 = v2 - v0`` (each ``(T, 3)``).
+
+    Returns ``(dist (N,), idx (N,) int64)``: ``idx`` is -1 on a miss.
+    ``dist`` is differentiable in ``o``, ``d`` and the triangles through
+    the selected triangle only.
+    """
+    return _NearestHit.apply(o, d, v0, e1, e2, src_idx, tri_block)
 
 
 def check_method(method: str) -> None:

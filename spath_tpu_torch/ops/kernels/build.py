@@ -3,8 +3,9 @@
 On first use, ``nvcc`` compiles every ``spath_tpu_torch/csrc/*.cu`` into
 one shared library with a plain C interface,
 ``build/kernels/libspath_kernels.so`` at the root of the checkout, which
-``ctypes`` loads. The library is rebuilt when the hash of the sources or
-of the compiler flags changes. Nothing is built when a module is
+``ctypes`` loads. The library is rebuilt when the hash of the compiler
+flags or of any file under ``csrc/`` changes, the headers the kernels
+share (``*.cuh``, ``*.h``) included. Nothing is built when a module is
 imported: the CPU tests import every module on machines without
 ``nvcc``.
 
@@ -38,7 +39,15 @@ NVCC_FLAGS = (
 
 
 def sources() -> list[Path]:
+    """The translation units ``nvcc`` compiles."""
     return sorted(SOURCE_DIR.glob("*.cu"))
+
+
+def hashed_files() -> list[Path]:
+    """Every file the library is built from: the sources and the headers
+    they include."""
+    return sorted(p for p in SOURCE_DIR.iterdir()
+                  if p.suffix in (".cu", ".cuh", ".h"))
 
 
 def nvcc_path() -> str:
@@ -64,9 +73,9 @@ def nvcc_command(output: Path) -> list[str]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for path in hashed_files():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()
 
 
@@ -102,6 +111,11 @@ def library() -> ctypes.CDLL:
     lib.spath_megakernel_forward.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.spath_megakernel_forward.restype = i32
+    lib.spath_megakernel_backward.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.spath_megakernel_backward.restype = i32
+    lib.spath_megakernel_backward_grid.argtypes = [i32]
+    lib.spath_megakernel_backward_grid.restype = i32
     lib.spath_error_string.argtypes = [i32]
     lib.spath_error_string.restype = ctypes.c_char_p
     return lib

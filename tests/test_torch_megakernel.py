@@ -167,16 +167,38 @@ def test_build_flags_and_rebuild_hash(tmp_path, monkeypatch):
     cmd = build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in cmd and "-fmad=false" in cmd
     assert not any("fast_math" in f or "fast-math" in f for f in cmd)
-    assert [p.name for p in build.sources()] == ["megakernel.cu"]
+    assert [p.name for p in build.sources()] == ["megakernel.cu",
+                                                 "megakernel_grad.cu"]
+    assert [p.name for p in build.hashed_files()] == [
+        "megakernel.cu", "megakernel_common.cuh", "megakernel_grad.cu"]
     assert build.LIBRARY.parent.parts[-2:] == ("build", "kernels")
     monkeypatch.setattr(build, "SOURCE_DIR", tmp_path)
-    (tmp_path / "k.cu").write_text("// one\n")
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    (tmp_path / "k.cuh").write_text("// one\n")
+    (tmp_path / "notes.txt").write_text("not a source\n")
     h1 = build.source_hash()
-    (tmp_path / "k.cu").write_text("// two\n")
-    assert build.source_hash() != h1
+    (tmp_path / "notes.txt").write_text("edited\n")
+    assert build.source_hash() == h1
+    (tmp_path / "k.cuh").write_text("// two\n")       # a header edit
+    h2 = build.source_hash()
+    assert h2 != h1
+    (tmp_path / "k.h").write_text("// three\n")       # a new header
+    h3 = build.source_hash()
+    assert h3 != h2
+    (tmp_path / "k.cu").write_text("// four\n")
+    assert build.source_hash() not in (h1, h2, h3)
+    assert [p.name for p in build.sources()] == ["k.cu"]
 
 
-def test_kernel_source_names_what_it_replaces():
-    src = (build.SOURCE_DIR / "megakernel.cu").read_text()
-    assert "spath_tpu/ops/pallas/megakernel.py::_megakernel" in src
-    assert 'extern "C" int spath_megakernel_forward' in src
+@pytest.mark.parametrize("source, replaces, entry", [
+    ("megakernel.cu", "spath_tpu/ops/pallas/megakernel.py::_megakernel",
+     "spath_megakernel_forward"),
+    ("megakernel_grad.cu",
+     "spath_tpu/ops/pallas/megakernel_grad.py::_mega_bwd_kernel",
+     "spath_megakernel_backward"),
+])
+def test_kernel_source_names_what_it_replaces(source, replaces, entry):
+    src = (build.SOURCE_DIR / source).read_text()
+    assert replaces in src
+    assert f'extern "C" int {entry}(' in src
+    assert '#include "megakernel_common.cuh"' in src

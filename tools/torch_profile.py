@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Where the device time of the port's two paths goes, on one CUDA card.
+
+    python3 tools/torch_profile.py [--calls 5] [--out build/profile]
+
+At 1920x1080, 64 spp, 5 bounces on the default scene, after warm-up,
+traces ``--calls`` calls of each path with ``torch.profiler``:
+
+- serving: ``render_pt_fast``;
+- training: ``make_train_step`` with the CLI's perturbation and
+  optimizer (``param_group_optimizer(freeze_pose=True)``), fixed seed.
+
+For each path it prints one JSON line: CUDA-event ms per call around the
+traced calls, the device's busy ms per call (the union of the kernels'
+intervals), the idle share (1 - busy / event time), and the kernels
+grouped by name with their count and ms per call, largest first. The
+chrome traces go under ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HEADLINE = dict(width=1920, height=1080, spp=64, max_bounces=5)
+
+
+def busy_and_kernels(trace: dict, calls: int):
+    """Union of kernel intervals (ms per call) and per-name totals."""
+    kernels = [e for e in trace["traceEvents"]
+               if e.get("cat") == "kernel" and "dur" in e]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        name = e["name"][:80]
+        rec = by_name.setdefault(name, [0, 0.0])
+        rec[0] += 1
+        rec[1] += e["dur"]
+    table = sorted(((n, c / calls, us / 1e3 / calls)
+                    for n, (c, us) in by_name.items()),
+                   key=lambda r: -r[2])
+    return busy / 1e3 / calls, table
+
+
+def profile(name: str, fn, calls: int, out: Path) -> dict:
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    path = out / f"{name}.json"
+    prof.export_chrome_trace(str(path))
+    busy, table = busy_and_kernels(json.loads(path.read_text()), calls)
+    ms = start.elapsed_time(end) / calls
+    return dict(path=name, ms_per_call=ms, busy_ms_per_call=busy,
+                idle_share=1.0 - busy / ms,
+                kernels=[dict(name=n, count=c, ms=t) for n, c, t in table])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--calls", type=int, default=5)
+    ap.add_argument("--out", default="build/profile")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from spath_tpu_torch.camera import Camera
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.models.inverse import (
+        InverseParams, init_state, make_train_step, param_group_optimizer,
+    )
+    from spath_tpu_torch.models.pathtracer import render_pt_fast
+    from spath_tpu_torch.models.renderer import forward_renderer
+    from spath_tpu_torch.scene import default_scene
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    dev = torch.device("cuda", 0)
+    scene, cam = default_scene(dev), Camera.default(dev)
+    cfg = RenderConfig(**HEADLINE)
+    print(json.dumps(profile(
+        "serving", lambda: render_pt_fast(scene, cam, cfg, 0), args.calls,
+        out)), flush=True)
+
+    target = forward_renderer(scene, cfg).render_radiance(scene, cam, cfg, 0)
+    albedo = scene.albedo.cpu().numpy()
+    bad = np.clip(albedo + np.random.default_rng(1).uniform(
+        -0.4, 0.4, albedo.shape).astype(np.float32), 0.05, 1.0)
+    state = [init_state(
+        param_group_optimizer(freeze_pose=True, albedo_lr=2e-2),
+        InverseParams(cam.pos, cam.angle, cam.focal,
+                      torch.from_numpy(bad).to(dev)))]
+    step = make_train_step(scene, cfg, fixed_seed=0)
+
+    def train():
+        state[0], _ = step(state[0], target)
+
+    print(json.dumps(profile("training", train, args.calls, out)),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
