@@ -6,8 +6,9 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``spath_tpu_torch/csrc`` and drives the
-port's serving path and training path through the entry points a user
-calls, in ten phases; any failure exits non-zero before a result is
+port's serving and training paths, conformance estimator (phases 1-10:
+K1, K2) and quality estimator (phases 11-17: K3, K4), through the entry
+points a user calls; any failure exits non-zero before a result is
 printed.
 
 1. Device: the card's name and power limit, and the kernel build.
@@ -38,6 +39,42 @@ printed.
    error.
 10. At 1080p64: K2 and its plain version timed in turns, and the walk's
     sweeps and hits counted by the plain replay for the kernels' bounds.
+11. The light distribution kernel (the quality table's prob and cdf)
+    against its plain version, bit for bit, on the default, 25-triangle,
+    1024-triangle, all-dark and wall-and-light scenes. K3 against its
+    plain version ``quality_plain`` on the same rays and keys: the
+    default and 25-triangle scenes at 320x240, 8 spp, for (nee, mis,
+    rr_start, stratify) = (T, T, 0, F), (F, F, 0, F), (T, T, 2, T), and a
+    1024-triangle procedural scene at 64x48, 2 spp; the bounds of phase 2.
+12. The quality serving slice at full width: ``render_pt_fast`` in the
+    CLI's quality config (hash, cosine, NEE, MIS) at 1920x1080, 64 spp,
+    5 bounces through the light distribution kernel and K3, against the
+    plain wavefront ``render_pt``.
+13. K4 against ``quality_bwd_plain`` on the same rays and cotangent at the
+    shapes of phase 11 and at 1080p64: normal, albedo, emission and area
+    within 1e-5 of their own max, v0/e1/e2 within 1e-4, the camera-ray
+    adjoint within 1e-5 of its max, prob and cdf exactly zero, two
+    launches bitwise equal.
+14. The gradient entry point ``render_radiance_fastgrad`` at 320x240, 8
+    spp, quality config: vertex, albedo, emission and camera-position
+    gradients against autograd of the plain wavefront.
+15. The quality training slice at full width: 3 steps of
+    ``make_train_step`` at 1080p64 with the albedo perturbed and the pose
+    group enabled at rate 0 (see QUALITY_POSE_LR); each step launches the
+    light distribution kernel, K3 and K4 once each, the loss falls, the
+    camera gradient is finite and non-zero. Why rate 0, without K4: K3's
+    frames at the true camera and at the camera moved EDGE_MOVE along x
+    differ in some pixels, and the plain wavefront's moved frame equals
+    K3's. Then pose recovery at 1080p64: on a scene with no silhouette in
+    view, the camera 0.4 behind the truth, 3 steps with only the pose
+    group free (rate POSE_RECOVERY_LR) launch K3 and K4 once each, lower
+    the loss and move the camera toward the truth.
+16. The CLI: ``render --mode quality`` and ``invert --mode quality`` at
+    640x480.
+17. At 1080p64: K3 and K4 and their plain versions timed in turns, and
+    the quality walk's sweeps, hits and light-choice steps counted by the
+    plain replay for the kernels' bounds; the light distribution kernel
+    and its plain version timed on the default scene.
 
 The last three lines of standard output are the kernels' JSON record,
 the card as ``nvidia-smi`` names it, and ``{"ok": true, "device": ...}``.
@@ -45,6 +82,7 @@ the card as ``nvidia-smi`` names it, and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -86,6 +124,52 @@ MT_OPS, K1_HIT_OPS, K2_HIT_OPS = 46, 44, 81
 #: fuse: they cannot do float32 work faster than half the peak,
 #: NOFMA_OPS, reported beside the bound as a second ceiling.
 PEAK_OPS, PEAK_BYTES, NOFMA_OPS = 67e12, 3.35e12, 67e12 / 2
+#: The quality estimator as the CLI's --mode quality builds it.
+QUALITY = dict(rng="hash", sampler="cosine", nee=True, mis=True)
+#: The pose group's rate in the headline quality train steps: the group is
+#: enabled, so its gradient (K4's camera-ray adjoint through
+#: generate_rays) is computed, at rate 0. The camera starts at the truth,
+#: where the paths of some pixels run exactly along edges that two
+#: triangles of the symmetric default scene share; a move of the camera by
+#: any amount sends them onto the other triangle, a jump the gradient
+#: without vis_grad does not see, so at any rate the loss rises after the
+#: first pose step (tests/test_torch_quality.py holds the port's wavefront
+#: to the JAX package there). EDGE_MOVE is the move of the witness. Pose
+#: recovery runs on a scene without silhouettes (tests/test_inverse.py's
+#: test_pose_recovery) at POSE_RECOVERY_LR, from the true camera moved
+#: POSE_OFFSET along z.
+QUALITY_POSE_LR, POSE_RECOVERY_LR, POSE_OFFSET = 0.0, 1e-2, -0.4
+EDGE_MOVE = 1e-6
+#: The light distribution's work per triangle (csrc/light_cdf.cu): the
+#: weight (2 adds, 1 multiply), the total, the divide, the scan's adds in
+#: and across blocks of 16; emission and area read, cdf and prob written.
+LIGHT_OPS, LIGHT_BYTES = 7, 24
+#: (label, estimator) of the K3/K4 comparisons
+QUALITY_GRID = [
+    ("nee+mis", dict(QUALITY)),
+    ("bsdf only", dict(QUALITY, nee=False, mis=False)),
+    ("nee+mis rr2 strat", dict(QUALITY, rr_start=2, stratify=True)),
+]
+#: K4 against its plain version (float64 sums): each column group of the
+#: (T, 19) adjoint within its bound of its own max|plain|; the vertex and
+#: edge groups sum terms of both signs, hence the looser bound
+QGRAD_GROUPS = {"v0": (slice(0, 3), 1e-4), "e1": (slice(3, 6), 1e-4),
+                "e2": (slice(6, 9), 1e-4), "normal": (slice(9, 12), 1e-5),
+                "albedo": (slice(12, 15), 1e-5),
+                "emission": (slice(15, 18), 1e-5),
+                "area": (slice(18, 19), 1e-5)}
+#: Operations of the quality walk, counted from csrc/quality_walk.cuh
+#: (compares, selects, loads and integer hash work not counted): a
+#: shadow-ray test that shares its origin terms with the next bounce's
+#: sweep (nearest2) skips 17 of MT_OPS; a hit costs K3 ~160 more (hit
+#: point, flip, emitter term with its MIS weight, the cosine frame and
+#: direction with 2 square roots and 2 trig calls, the light point, r²,
+#: ω, both cosines, G, A/q, the MIS weight, radiance, throughput and the
+#: next pdf), and the light choice 1 compare per emissive row. K4 replays
+#: the walk and adds ~155 per hit (emitter, albedo and Moller-Trumbore
+#: adjoints, the origin chain, 18 accumulating adds) and ~206 per lane
+#: whose NEE term counted (its geometry again and its adjoint, 16 adds).
+SHARED_MT_OPS, K3_HIT_OPS, K4_HIT_OPS, K4_NEE_OPS = MT_OPS - 17, 160, 315, 206
 
 
 class SmokeFailure(Exception):
@@ -149,6 +233,23 @@ def scene_25(device):
                         for k in range(3)), device)
 
 
+def wall_and_light_scene(device):
+    """tests/test_nee.py's silhouette-free scene: a wall far wider than the
+    view and a large area light behind the camera, so the frame is a
+    smooth function of the camera pose."""
+    import numpy as np
+
+    from spath_tpu_torch.scene import make_scene
+
+    verts = np.array([[[-500.0, -500.0, 1.0], [500.0, -500.0, 1.0],
+                       [0.0, 800.0, 1.0]],
+                      [[-3.0, -3.0, -8.0], [3.0, -3.0, -8.0],
+                       [0.0, 4.0, -8.0]]], np.float32)
+    albedo = np.array([[0.6, 0.5, 0.4], [0.0, 0.0, 0.0]], np.float32)
+    emission = np.array([[0.0, 0.0, 0.0], [5.0, 5.0, 5.0]], np.float32)
+    return make_scene(verts, albedo, emission, device)
+
+
 def event_ms(torch, fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -158,6 +259,30 @@ def event_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(torch, fn, reps: int, kernel: str) -> float:
+    """Device ms of one launch of the kernel whose name holds ``kernel``,
+    from a ``torch.profiler`` trace of ``reps`` calls of ``fn``: CUDA
+    events around back-to-back launches of a few microseconds time the
+    host's launch rate, not the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    durs = [e["dur"] for e in events if e.get("cat") == "kernel"
+            and kernel in e.get("name", "") and "dur" in e]
+    check(len(durs) == reps, f"{len(durs)} {kernel} kernels traced in "
+          f"{reps} calls")
+    return sum(durs) / 1e3 / reps
 
 
 def bound(ops: float, nbytes: float):
@@ -254,8 +379,6 @@ def gradient_entry(torch, dev, cam, scene) -> str:
 
 def training(torch, dev, cam, scene, cfg) -> dict:
     """Phase 8: three train steps at full width through K1 and K2."""
-    import dataclasses
-
     import numpy as np
 
     from spath_tpu_torch.models.inverse import (
@@ -321,6 +444,311 @@ def cli_invert(cli) -> str:
     check(rc == 0 and m is not None, f"cli invert: rc {rc}, {text!r}")
     check(float(m[2]) < float(m[1]), f"albedo error did not fall: {text!r}")
     return text.strip()
+
+
+def light_cdf_vs_plain(torch, scene, name: str) -> dict:
+    """Phase 11: the light distribution kernel against its plain version
+    on the scene's emission and areas, to the bit (a discrete choice reads
+    the cdf)."""
+    from spath_tpu_torch.ops import nee
+    from spath_tpu_torch.ops.kernels import light_cdf as lc
+
+    emission, area = scene.emission, nee.triangle_areas(scene)
+    cdf, prob = lc.light_cdf_call(emission, area)
+    torch.cuda.synchronize()
+    want_cdf, want_prob = lc.light_cdf_plain(emission, area)
+    err = max((cdf - want_cdf).abs().max().item(),
+              (prob - want_prob).abs().max().item())
+    check(torch.equal(cdf, want_cdf) and torch.equal(prob, want_prob),
+          f"{name}: the light distribution kernel is off its plain version "
+          f"by {err:.6g}")
+    return dict(n_tris=scene.n_tris, max_abs_err=err, bit_exact=True,
+                lit=bool(want_prob.any().item()))
+
+
+def quality_vs_plain(torch, cam, scene, cfg, name: str) -> dict:
+    """Phase 11: K3 against ``quality_plain`` on the same rays and keys."""
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+
+    o, d, keys = mq.pack_rays(cam, cfg, 0)
+    tri, rows = mq.quality_table(scene), mq.light_rows(scene)
+    got = mq.quality_call(o, d, keys, tri, rows, cfg)
+    torch.cuda.synchronize()
+    want = mq.quality_plain(o, d, keys, tri, rows, cfg)
+    return check_against_plain(torch, got, want, name)
+
+
+def quality_backward_vs_plain(torch, o, d, keys, tri, rows, cfg, name: str):
+    """K4 against ``quality_bwd_plain`` on the same rays and a cotangent
+    uniform in [0.1, 1) from seed 3: each column group within its
+    QGRAD_GROUPS bound of its own max|plain| (exactly equal where the
+    plain group is zero), the camera-ray adjoint within 1e-5 of its max,
+    the table cotangent's prob and cdf exactly zero, two launches bitwise
+    equal. Returns the comparison and the cotangent."""
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+    from spath_tpu_torch.ops.kernels import megakernel_quality_grad as mqg
+
+    gen = torch.Generator().manual_seed(3)
+    gbar = (torch.rand((o.shape[0], 3), generator=gen) * 0.9
+            + 0.1).to(o.device)
+    got, gray = mqg.quality_bwd_call(o, d, keys, tri, rows, gbar, cfg)
+    again, gray_again = mqg.quality_bwd_call(o, d, keys, tri, rows, gbar,
+                                             cfg)
+    torch.cuda.synchronize()
+    want, want_gray = mqg.quality_bwd_plain(o, d, keys, tri, rows, gbar, cfg)
+    check(torch.isfinite(got).all().item()
+          and torch.isfinite(gray).all().item(), f"{name}: K4 not finite")
+    check(want.abs().max().item() > 0.0, f"{name}: the plain adjoint is "
+          "zero")
+    rel = {}
+    for group, (cols, bound) in QGRAD_GROUPS.items():
+        scale = want[:, cols].abs().max().item()
+        err = (got[:, cols] - want[:, cols]).abs().max().item()
+        check(err <= bound * scale, f"{name}: K4's {group} adjoint off "
+              f"its plain version by {err:.6g}, max|plain| {scale:.6g}")
+        rel[group] = err / scale if scale else 0.0
+    rscale = want_gray.abs().max().item()
+    rerr = (gray - want_gray).abs().max().item()
+    check(rerr <= GRAD_RTOL * rscale, f"{name}: K4's ray adjoint off by "
+          f"{rerr:.6g}, max|plain| {rscale:.6g}")
+    rel["rays"] = rerr / rscale if rscale else 0.0
+    table = mqg.grad_table_from_gtab19(got)
+    check(not table[:, [mq.COL_PROB, mq.COL_CDF]].any().item(),
+          f"{name}: prob/cdf cotangent not zero")
+    check(torch.equal(got, again) and torch.equal(gray, gray_again),
+          f"{name}: two launches differ")
+    return dict(max_abs_err=(got - want).abs().max().item(),
+                rel_err_by_group=rel,
+                rays_bit_exact=bool(torch.equal(gray, want_gray)),
+                deterministic=True), gbar
+
+
+def quality_gradient_entry(torch, dev, cam, scene) -> str:
+    """Phase 14: ``render_radiance_fastgrad`` in the quality config on the
+    card against autograd of the plain wavefront, camera position
+    included."""
+    from spath_tpu_torch.camera import Camera
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.models.pathtracer import (
+        render_radiance, render_radiance_fastgrad,
+    )
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+    from spath_tpu_torch.ops.kernels import megakernel_quality_grad as mqg
+    from spath_tpu_torch.scene import Scene
+
+    cfg = RenderConfig(width=320, height=240, spp=8, max_bounces=5,
+                       **QUALITY)
+    gen = torch.Generator().manual_seed(7)
+    wts = (torch.rand((cfg.height, cfg.width, 3), generator=gen) * 0.9
+           + 0.1).to(dev)
+
+    def grads(render):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (scene.vertices, scene.albedo, scene.emission,
+                            cam.pos)]
+        img = render(Scene(*leaves[:3], scene.light_idx),
+                     Camera(leaves[3], cam.angle, cam.focal), cfg, 0)
+        return torch.autograd.grad((img * wts).sum(), leaves)
+
+    mq.quality_call.launches = mqg.quality_bwd_call.launches = 0
+    got = grads(render_radiance_fastgrad)
+    torch.cuda.synchronize()
+    k3, k4 = mq.quality_call.launches, mqg.quality_bwd_call.launches
+    check(k3 > 0 and k4 > 0, f"render_radiance_fastgrad launched K3 {k3} "
+          f"and K4 {k4} times")
+    want = grads(render_radiance)
+    errs = {}
+    for name, g, w in zip(("vertices", "albedo", "emission", "camera"), got,
+                          want):
+        scale = w.abs().max().item()
+        errs[name] = (g - w).abs().max().item() / scale
+        check(scale > 0.0, f"{name}: zero gradient")
+        check(errs[name] <= ENTRY_RTOL, f"{name} gradient off the "
+              f"wavefront's by {errs[name]:.3g} of its max")
+    return (f"K3 {k3} and K4 {k4} launches; gradient error / max: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+
+
+def quality_training(torch, dev, cam, scene, cfg) -> dict:
+    """Phase 15: three train steps at full width through the light
+    distribution kernel, K3 and K4, the albedo perturbed and the pose
+    group enabled at rate 0."""
+    import numpy as np
+
+    from spath_tpu_torch.models.inverse import (
+        InverseParams, init_state, make_train_step, param_group_optimizer,
+        render_loss,
+    )
+    from spath_tpu_torch.models.renderer import forward_renderer
+    from spath_tpu_torch.ops.kernels import light_cdf as lc
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+    from spath_tpu_torch.ops.kernels import megakernel_quality_grad as mqg
+
+    target = forward_renderer(scene, cfg).render_radiance(scene, cam, cfg, 0)
+    true_albedo = scene.albedo.cpu().numpy()
+    rng = np.random.default_rng(1)
+    bad = np.clip(true_albedo + rng.uniform(-0.4, 0.4, true_albedo.shape)
+                  .astype(np.float32), 0.05, 1.0)
+    params = InverseParams(cam_pos=cam.pos, cam_angle=cam.angle,
+                           cam_focal=cam.focal,
+                           albedo=torch.from_numpy(bad).to(dev))
+    state = init_state(param_group_optimizer(
+        freeze_pose=False, pose_lr=QUALITY_POSE_LR, albedo_lr=2e-2), params)
+    step = make_train_step(scene, cfg, fixed_seed=0)
+    torch.cuda.synchronize()
+
+    mq.quality_call.launches = mqg.quality_bwd_call.launches = 0
+    lc.light_cdf_call.launches = 0
+    losses, step_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, aux = step(state, target)
+        losses.append(float(aux["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    k3, k4 = mq.quality_call.launches, mqg.quality_bwd_call.launches
+    light = lc.light_cdf_call.launches
+    check(k3 == 3 and k4 == 3 and light == 3, f"3 train steps launched the "
+          f"light distribution kernel {light}, K3 {k3} and K4 {k4} times")
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+    leaves = state.params.leaves()
+
+    def fwd_bwd():
+        loss = render_loss(leaves, scene, target, cfg, 0)
+        return torch.autograd.grad(loss, [leaves.cam_pos, leaves.albedo])
+
+    g_pos, _ = fwd_bwd()
+    check(torch.isfinite(g_pos).all().item() and g_pos.abs().max() > 0,
+          f"camera gradient {g_pos.tolist()}")
+    ms = event_ms(torch, fwd_bwd, 3)
+    return dict(k3=k3, k4=k4, light=light, losses=losses, step_s=step_s,
+                fwd_bwd_ms=ms, cam_grad=g_pos.tolist())
+
+
+def edge_witness(torch, cam, scene, cfg) -> dict:
+    """Phase 15, why the pose rate is 0, with no gradient involved: K3's
+    frame at the camera moved EDGE_MOVE along x differs from the frame at
+    the true camera in some pixels by more than 1e-3, and the plain
+    wavefront's moved frame equals K3's within the flip budget."""
+    from spath_tpu_torch.camera import Camera
+    from spath_tpu_torch.models.pathtracer import render_radiance
+    from spath_tpu_torch.models.renderer import forward_renderer
+
+    serve = forward_renderer(scene, cfg).render_radiance
+    true = serve(scene, cam, cfg, 0)
+    pos = cam.pos.clone()
+    pos[0] += EDGE_MOVE
+    moved_cam = Camera(pos, cam.angle, cam.focal)
+    moved = serve(scene, moved_cam, cfg, 0)
+    plain = render_radiance(scene, moved_cam, cfg, 0)
+    changed = ((moved - true).abs() > 1e-3).any(-1)
+    check(changed.any().item(), f"no pixel changed when the camera moved "
+          f"{EDGE_MOVE}")
+    c = check_against_plain(torch, moved.reshape(-1, 3), plain.reshape(-1, 3),
+                            "moved camera")
+    return dict(pixels_changed=int(changed.sum().item()),
+                mse=((moved - true) ** 2).mean().item(),
+                vs_plain_bit_exact=c["bit_exact"],
+                vs_plain_flipped=c["flipped"])
+
+
+def pose_recovery(torch, dev, cam, cfg) -> dict:
+    """Phase 15, pose: 3 train steps through K3 and K4 with only the pose
+    group free, from the true camera moved POSE_OFFSET along z, on the
+    silhouette-free scene: the loss falls and every step moves the camera
+    toward the truth."""
+    import numpy as np
+
+    from spath_tpu_torch.models.inverse import (
+        InverseParams, init_state, make_train_step, param_group_optimizer,
+    )
+    from spath_tpu_torch.models.renderer import forward_renderer
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+    from spath_tpu_torch.ops.kernels import megakernel_quality_grad as mqg
+
+    scene = wall_and_light_scene(dev)
+    target = forward_renderer(scene, cfg).render_radiance(scene, cam, cfg, 0)
+    true_z = cam.pos[2].item()
+    start = cam.pos.clone()
+    start[2] += POSE_OFFSET
+    params = InverseParams(cam_pos=start, cam_angle=cam.angle,
+                           cam_focal=cam.focal, albedo=scene.albedo)
+    state = init_state(param_group_optimizer(
+        freeze_pose=False, freeze_albedo=True, pose_lr=POSE_RECOVERY_LR),
+        params)
+    step = make_train_step(scene, cfg, fixed_seed=0)
+    torch.cuda.synchronize()
+
+    mq.quality_call.launches = mqg.quality_bwd_call.launches = 0
+    losses, z_err = [], [abs(POSE_OFFSET)]
+    for _ in range(3):
+        state, aux = step(state, target)
+        losses.append(float(aux["loss"]))
+        z_err.append(abs(state.params.cam_pos[2].item() - true_z))
+    k3, k4 = mq.quality_call.launches, mqg.quality_bwd_call.launches
+    check(k3 == 3 and k4 == 3, f"3 pose steps launched K3 {k3} and K4 "
+          f"{k4} times")
+    check(all(np.isfinite(losses)), f"pose losses {losses}")
+    check(losses[-1] < losses[0], f"pose loss did not fall: {losses}")
+    check(all(b < a for a, b in zip(z_err, z_err[1:])),
+          f"the camera did not move toward the truth: |z error| {z_err}")
+    return dict(k3=k3, k4=k4, losses=losses, z_err=z_err)
+
+
+def quality_cli(cli) -> str:
+    """Phase 16: ``render --mode quality`` writes a lit PNG; ``invert
+    --mode quality`` returns 0 and lowers the albedo error."""
+    import contextlib
+    import io
+    import re
+
+    from spath_tpu_torch.utils.image import read_png
+
+    w, h = CLI_SIZE
+    with tempfile.TemporaryDirectory() as tmp:
+        png = Path(tmp) / "quality.png"
+        check(cli.main(["render", "--mode", "quality", "--size", f"{w}x{h}",
+                        "--spp", "16", "--out", str(png)]) == 0,
+              "cli render --mode quality failed")
+        img = read_png(str(png))
+        check(img.shape == (h, w, 3) and img.max() > 200,
+              "quality PNG is wrong")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["invert", "--mode", "quality", "--size", f"{w}x{h}",
+                       "--spp", "16", "--steps", "5"])
+    text = out.getvalue()
+    m = re.search(r"albedo error ([0-9.]+) -> ([0-9.]+)", text)
+    check(rc == 0 and m is not None, f"cli invert: rc {rc}, {text!r}")
+    check(float(m[2]) < float(m[1]), f"albedo error did not fall: {text!r}")
+    return f"render wrote {w}x{h} PNG; invert: {text.strip()}"
+
+
+def quality_walk_counts(torch, o, d, keys, tri, rows, cfg) -> dict:
+    """The quality walk's work at these inputs, counted with the plain
+    replay: MT tests of the camera and next-bounce sweeps, of the shadow
+    sweeps (fused with the next bounce's, or alone at the last bounce),
+    hits, light-choice steps and the lanes whose NEE term counted."""
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+
+    n, n_tris = o.shape[0], tri.shape[0]
+    n_rows = n_tris if rows is None else rows.shape[0]
+    hits_before_last = hits_last = oks = 0
+    with torch.no_grad():
+        for _, saved in mq.quality_replay(o, d, keys, tri, rows, cfg):
+            per_bounce = torch.stack([sv["hit"].sum() for sv in saved])
+            hits_before_last += int(per_bounce[:-1].sum())
+            hits_last += int(per_bounce[-1])
+            oks += int(sum(sv["ok"].sum() for sv in saved if "ok" in sv))
+    hits = hits_before_last + hits_last
+    sweeps = n + hits_before_last
+    shadow = n_tris if cfg.nee else 0
+    return dict(sweep_tests=sweeps * n_tris,
+                fused_shadow_tests=hits_before_last * shadow,
+                last_shadow_tests=hits_last * shadow, hits=hits,
+                select_steps=hits * n_rows if cfg.nee else 0, nee_lanes=oks)
 
 
 def run() -> None:
@@ -510,6 +938,186 @@ def run() -> None:
         f"{k2_ops / NOFMA_OPS * 1e3:.4f} ms")
     check(k2_ms > 0 and p2_ms > 0, "timing failed")
 
+    # 11. K3 against its plain version on the same rays and keys
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+    from spath_tpu_torch.ops.kernels import megakernel_quality_grad as mqg
+
+    from spath_tpu_torch.ops.kernels import light_cdf as lc
+
+    small_scenes = (("default", default_scene(dev)),
+                    ("25 triangles", scene_25(dev)))
+    big = procedural_scene(mq.MAX_TRIS, seed=1, device=dev)
+    dark = default_scene(dev)
+    for name, lscene in (*small_scenes, (f"{mq.MAX_TRIS} triangles", big),
+                         ("all dark", dataclasses.replace(
+                             dark, emission=torch.zeros_like(dark.emission))),
+                         ("wall and light", wall_and_light_scene(dev))):
+        log(f"[11] light distribution vs plain, {name}: "
+            f"{light_cdf_vs_plain(torch, lscene, name)}")
+    for name, qscene in small_scenes:
+        for label, est in QUALITY_GRID:
+            qcfg = small.replace(**est)
+            c = quality_vs_plain(torch, cam, qscene, qcfg,
+                                 f"K3 {name} {label}")
+            log(f"[11] K3 vs plain, {name}, {label}, 320x240 spp8: {c}")
+    big_cfg = largest.replace(**QUALITY)
+    c = quality_vs_plain(torch, cam, big, big_cfg,
+                         f"K3 {mq.MAX_TRIS} triangles")
+    log(f"[11] K3 vs plain, {mq.MAX_TRIS} triangles "
+        f"({len(big.light_idx)} lights), 64x48 spp2: {c}")
+
+    # 12. the quality serving path at full width, through K3
+    qcfg = cfg.replace(**QUALITY)
+    mq.quality_call.launches = lc.light_cdf_call.launches = 0
+    t0 = time.perf_counter()
+    qimg = render_pt_fast(scene, cam, qcfg, 0)
+    torch.cuda.synchronize()
+    q_first_s = time.perf_counter() - t0
+    q_launches = mq.quality_call.launches
+    l_launches = lc.light_cdf_call.launches
+    check(q_launches > 0 and l_launches > 0, f"render_pt_fast launched the "
+          f"light distribution kernel {l_launches} and K3 {q_launches} times")
+    check(tuple(qimg.shape) == (cfg.height, cfg.width, 3),
+          f"shape {tuple(qimg.shape)}")
+    check(torch.isfinite(qimg).all().item(), "quality frame not finite")
+    t0 = time.perf_counter()
+    qplain = render_pt(scene, cam, qcfg, 0)
+    torch.cuda.synchronize()
+    qplain_s = time.perf_counter() - t0
+    m, pm = qimg.mean().item(), qplain.mean().item()
+    flipped = ((qimg - qplain).abs() > FLIP_ATOL).any(-1).float().mean().item()
+    log(f"[12] render_pt_fast quality {frame}: K3 {q_launches} and light "
+        f"distribution {l_launches} launch(es), "
+        f"first call {q_first_s:.3f} s, mean {m:.6f}; plain render_pt "
+        f"{qplain_s:.3f} s, mean {pm:.6f}; pixels off >1e-4: {flipped:.6f}; "
+        f"bit-exact {torch.equal(qimg, qplain)}")
+    check(flipped < FLIP_MAX, f"{flipped:.6f} of the quality frame's pixels "
+          "differ from the plain wavefront")
+    check(abs(m - pm) <= SLICE_MEAN_RTOL * abs(pm), "quality slice mean "
+          "differs from the plain wavefront")
+    check(m > 0.01, "quality frame is black")
+    del qimg, qplain
+
+    # 13. K4 against its plain version
+    for name, qscene in small_scenes:
+        for label, est in QUALITY_GRID:
+            qs = small.replace(**est)
+            c, _ = quality_backward_vs_plain(
+                torch, *mq.pack_rays(cam, qs, 0), mq.quality_table(qscene),
+                mq.light_rows(qscene), qs, f"K4 {name} {label}")
+            log(f"[13] K4 vs plain, {name}, {label}, 320x240 spp8: {c}")
+    c, _ = quality_backward_vs_plain(
+        torch, *mq.pack_rays(cam, big_cfg, 0), mq.quality_table(big),
+        mq.light_rows(big), big_cfg, f"K4 {mq.MAX_TRIS} triangles")
+    log(f"[13] K4 vs plain, {mq.MAX_TRIS} triangles, 64x48 spp2: {c}")
+    qo, qd, qkeys = mq.pack_rays(cam, qcfg, 0)
+    qtri, qrows = mq.quality_table(scene), mq.light_rows(scene)
+    qbwd_headline, qgbar = quality_backward_vs_plain(
+        torch, qo, qd, qkeys, qtri, qrows, qcfg, f"K4 {frame}")
+    log(f"[13] K4 vs plain, default scene, quality {frame}: {qbwd_headline}")
+    got = mq.quality_call(qo, qd, qkeys, qtri, qrows, qcfg)
+    torch.cuda.synchronize()
+    want = mq.quality_plain(qo, qd, qkeys, qtri, qrows, qcfg)
+    qheadline = check_against_plain(torch, got, want, f"K3 {frame}")
+    log(f"[13] K3 vs plain, default scene, quality {frame}: {qheadline}")
+    del got, want
+
+    # 14. the quality gradient entry point
+    log(f"[14] render_radiance_fastgrad quality 320x240 spp8: "
+        f"{quality_gradient_entry(torch, dev, cam, default_scene(dev))}")
+
+    # 15. the quality training slice at full width, pose free
+    qtr = quality_training(torch, dev, cam, scene, qcfg)
+    log(f"[15] 3 quality train steps {frame} {cfg.max_bounces} bounces, "
+        f"pose group at rate {QUALITY_POSE_LR}, on {smi}: light distribution "
+        f"{qtr['light']}, K3 {qtr['k3']} and K4 {qtr['k4']} launches, "
+        f"losses {qtr['losses']}, step s "
+        f"{[round(x, 6) for x in qtr['step_s']]}; camera gradient "
+        f"{qtr['cam_grad']}; "
+        f"render_radiance_fastgrad forward+backward {qtr['fwd_bwd_ms']:.3f} "
+        f"ms, {segs / (qtr['fwd_bwd_ms'] / 1e3):.4e} rays/s")
+    log(f"[15] the camera moved {EDGE_MOVE} along x, quality {frame}: "
+        f"{edge_witness(torch, cam, scene, qcfg)}")
+    pose = pose_recovery(torch, dev, cam, qcfg)
+    log(f"[15] pose recovery {frame}, silhouette-free scene, pose group "
+        f"free at rate {POSE_RECOVERY_LR}: K3 {pose['k3']} and K4 "
+        f"{pose['k4']} launches, losses {pose['losses']}, |z error| "
+        f"{pose['z_err']}")
+
+    # 16. the CLI in quality mode
+    log(f"[16] cli --mode quality {CLI_SIZE[0]}x{CLI_SIZE[1]} spp16: "
+        f"{quality_cli(cli)}")
+
+    # 17. at 1080p64: K3 and K4 and their plain versions timed in turns
+    def k3():
+        mq.quality_call(qo, qd, qkeys, qtri, qrows, qcfg)
+
+    def k3_plain():
+        mq.quality_plain(qo, qd, qkeys, qtri, qrows, qcfg)
+
+    def k4():
+        mqg.quality_bwd_call(qo, qd, qkeys, qtri, qrows, qgbar, qcfg)
+
+    def k4_plain():
+        mqg.quality_bwd_plain(qo, qd, qkeys, qtri, qrows, qgbar, qcfg)
+
+    timed = {}
+    for key, fn, plain, reps in (("k3", k3, k3_plain, 5),
+                                 ("k4", k4, k4_plain, 3)):
+        plain_times = [event_ms(torch, plain, 1)]
+        times = [event_ms(torch, fn, reps), event_ms(torch, fn, reps)]
+        plain_times.append(event_ms(torch, plain, 1))
+        timed[key] = (times, plain_times)
+        check(min(times) > 0 and min(plain_times) > 0, "timing failed")
+    q_slice_ms = event_ms(torch, lambda: render_pt_fast(scene, cam, qcfg, 0),
+                          3)
+    walk = quality_walk_counts(torch, qo, qd, qkeys, qtri, qrows, qcfg)
+    k3_ops = (walk["sweep_tests"] * MT_OPS
+              + walk["fused_shadow_tests"] * SHARED_MT_OPS
+              + walk["last_shadow_tests"] * MT_OPS
+              + walk["hits"] * K3_HIT_OPS + walk["select_steps"])
+    k4_ops = (k3_ops + walk["hits"] * (K4_HIT_OPS - K3_HIT_OPS)
+              + walk["nee_lanes"] * K4_NEE_OPS)
+    n_rows = len(scene.light_idx)
+    q_bytes = n * (24 + 8) + n_tris * 21 * 4 + n_rows * 4
+    k3_bound = bound(k3_ops, q_bytes + n * 12)
+    k4_bound = bound(k4_ops, q_bytes + n * 12 + n * 24 + n_tris * 19 * 4)
+    k3_ms = sum(timed["k3"][0]) / 2
+    k4_ms = sum(timed["k4"][0]) / 2
+
+    # the light distribution on the main path's scene: the kernel, and the
+    # plain version, which takes the card's tensors through the host
+    from spath_tpu_torch.ops import nee
+
+    emission, area = scene.emission, nee.triangle_areas(scene)
+
+    def light():
+        lc.light_cdf_call(emission, area)
+
+    def light_plain():
+        lc.light_cdf_plain(emission, area)
+
+    light_plain_ms = [event_ms(torch, light_plain, 20)]
+    light_ms = [kernel_device_ms(torch, light, 50, "light_cdf"),
+                kernel_device_ms(torch, light, 50, "light_cdf")]
+    light_call_ms = event_ms(torch, light, 200)
+    light_plain_ms.append(event_ms(torch, light_plain, 20))
+    check(min(light_ms) > 0 and min(light_plain_ms) > 0, "timing failed")
+    light_bound = bound(LIGHT_OPS * n_tris, LIGHT_BYTES * n_tris)
+    log(f"[17] light distribution, {n_tris} triangles, on {smi}: kernel "
+        f"{light_ms} ms on the device, {light_call_ms:.6f} ms a call "
+        f"back to back; plain {light_plain_ms} ms; bound "
+        f"{light_bound[0]:.4g} ms ({light_bound[1]})")
+    log(f"[17] quality {frame} on {smi}: K3 {timed['k3'][0]} ms, plain "
+        f"{timed['k3'][1]} ms; K4 {timed['k4'][0]} ms, plain "
+        f"{timed['k4'][1]} ms; render_pt_fast {q_slice_ms:.3f} ms; K3 "
+        f"{segs / (k3_ms / 1e3):.4e} rays/s, serving path "
+        f"{segs / (q_slice_ms / 1e3):.4e} rays/s; the walk: {walk}; "
+        f"operations K3 {k3_ops:.4e}, K4 {k4_ops:.4e}; bound K3 "
+        f"{k3_bound[0]:.4f} ms, K4 {k4_bound[0]:.4f} ms ({k3_bound[1]}); "
+        f"without FMA: K3 {k3_ops / NOFMA_OPS * 1e3:.4f} ms, K4 "
+        f"{k4_ops / NOFMA_OPS * 1e3:.4f} ms")
+
     print(json.dumps({"kernels": [{
         "name": "megakernel_forward",
         "route": "cuda",
@@ -535,6 +1143,49 @@ def run() -> None:
         "plain_ms": p2_ms,
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "light_cdf",
+        "route": "cuda",
+        "source": "spath_tpu_torch/csrc/light_cdf.cu",
+        "replaces": "spath_tpu/ops/nee.py:60",
+        "replaces_note": "the XLA prologue of K3's table "
+                         "(megakernel_quality.py:573 quality_table); no "
+                         "Pallas kernel computes it",
+        "launches": qtr["light"],
+        "launches_by_path": {"serving": l_launches, "training": qtr["light"]},
+        "max_abs_err": 0.0,
+        "ms": sum(light_ms) / 2,
+        "call_ms": light_call_ms,
+        "plain_ms": sum(light_plain_ms) / 2,
+        "bound_ms": light_bound[0],
+        "bound_by": light_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "quality_forward",
+        "route": "cuda",
+        "source": "spath_tpu_torch/csrc/megakernel_quality.cu",
+        "replaces": "spath_tpu/ops/pallas/megakernel_quality.py:535",
+        "launches": qtr["k3"],
+        "launches_by_path": {"serving": q_launches, "training": qtr["k3"]},
+        "max_abs_err": qheadline["max_abs_err"],
+        "ms": k3_ms,
+        "plain_ms": sum(timed["k3"][1]) / 2,
+        "bound_ms": k3_bound[0],
+        "bound_by": k3_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "quality_backward",
+        "route": "cuda",
+        "source": "spath_tpu_torch/csrc/megakernel_quality_grad.cu",
+        "replaces": "spath_tpu/ops/pallas/megakernel_quality_grad.py:322",
+        "launches": qtr["k4"],
+        "launches_by_path": {"serving": 0, "training": qtr["k4"]},
+        "max_abs_err": qbwd_headline["max_abs_err"],
+        "ms": k4_ms,
+        "plain_ms": sum(timed["k4"][1]) / 2,
+        "bound_ms": k4_bound[0],
+        "bound_by": k4_bound[1],
         "library_ms": None,
     }]}))
     print(smi)

@@ -1,13 +1,20 @@
 """spath_tpu_torch: the PyTorch and CUDA port of spath_tpu.
 
-The conformance estimator — the reference's per-pixel LCG and
-angle-uniform sampler on its 7-triangle scene — renders and trains on an
-NVIDIA Hopper card through two hand-written CUDA kernels: the fused
-forward (``ops/kernels/megakernel.py``, ``csrc/megakernel.cu``) and its
-reverse sweep (``ops/kernels/megakernel_grad.py``,
-``csrc/megakernel_grad.cu``); on the CPU through the plain PyTorch
-wavefront and autograd. The JAX package ``spath_tpu`` is the reference it
-is tested against; this package imports neither it nor JAX.
+Two estimators render and train on an NVIDIA Hopper card through
+hand-written CUDA kernels, each a fused forward and its reverse sweep:
+
+- conformance, the reference's per-pixel LCG and angle-uniform sampler:
+  K1 (``ops/kernels/megakernel.py``, ``csrc/megakernel.cu``) and K2
+  (``ops/kernels/megakernel_grad.py``, ``csrc/megakernel_grad.cu``);
+- quality, the hash stream, cosine sampler, next-event estimation with
+  MIS, Russian roulette and stratification: K3
+  (``ops/kernels/megakernel_quality.py``, ``csrc/megakernel_quality.cu``)
+  and K4 (``ops/kernels/megakernel_quality_grad.py``,
+  ``csrc/megakernel_quality_grad.cu``).
+
+On the CPU both run through the plain PyTorch wavefront and autograd.
+The JAX package ``spath_tpu`` is the reference it is tested against; this
+package imports neither it nor JAX.
 """
 
 from spath_tpu_torch.camera import Camera, generate_rays

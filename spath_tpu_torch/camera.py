@@ -16,6 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from spath_tpu_torch.ops.fp import sqrt_rn
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
@@ -82,7 +84,7 @@ def generate_rays(camera: Camera, width: int, height: int):
 
     dz = plane[..., 2] + camera.focal
     dx, dy = plane[..., 0], plane[..., 1]
-    norm = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    norm = sqrt_rn(dx * dx + dy * dy + dz * dz)
     d = torch.stack([dx / norm, dy / norm, dz / norm], dim=-1)
 
     origins = camera.rotate(plane) + camera.pos

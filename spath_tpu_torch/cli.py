@@ -1,15 +1,21 @@
-"""Command-line interface of the port, conformance mode.
+"""Command-line interface of the port.
 
   render   one frame of the reference's 7-triangle scene → PNG/PPM
   invert   recover the scene's albedo from a rendered target
 
-The clamped frame goes through ``render_pt_fast``, the serving path (the
-fused CUDA kernel on a CUDA device); ``--flat`` renders the flat debug
-view. ``invert`` trains through ``render_radiance_fastgrad`` (the fused
-kernel forward and its reverse sweep backward on a CUDA device).
-Examples::
+``--mode conformance`` (the default) is the reference's estimator, LCG
+and angle sampler; ``--mode quality`` is the cosine sampler with
+next-event estimation and MIS on the counter-based ``hash`` stream, with
+``--rr-start`` (Russian roulette) and ``--stratify``, as the JAX
+package's CLI builds it. The clamped frame goes through
+``render_pt_fast``, the serving path (the fused CUDA kernel of the mode,
+K1 or K3, on a CUDA device); ``--flat`` renders the flat debug view.
+``invert`` trains through ``render_radiance_fastgrad`` (the fused kernel
+forward and its reverse sweep backward, K1+K2 or K3+K4, on a CUDA
+device). Examples::
 
   python -m spath_tpu_torch.cli render --size 640x480 --spp 128 --out frame.png
+  python -m spath_tpu_torch.cli render --mode quality --spp 32 --out q.png
   python -m spath_tpu_torch.cli render --flat --device cpu --out flat.png
   python -m spath_tpu_torch.cli invert --size 640x480 --spp 16 --steps 100
 """
@@ -63,12 +69,59 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="cuda (the fused kernels) or cpu (the plain "
                         "wavefront); a missing card is an error")
+    p.add_argument("--mode", choices=["conformance", "quality"],
+                   default="conformance",
+                   help="conformance = reference LCG+angle sampler; "
+                        "quality = cosine+NEE+MIS (counter-based RNG)")
+    p.add_argument("--rng", choices=["hash", "threefry", "table"],
+                   default="hash",
+                   help="quality-mode RNG: 'hash' (default, the fused "
+                        "quality kernels) or 'threefry' (not ported yet); "
+                        "conformance mode is always the reference LCG, "
+                        "except '--rng table', the reference's debug "
+                        "table stream (not ported yet)")
+    p.add_argument("--rr-start", type=int, default=0,
+                   help="Russian-roulette start bounce (0 = off; quality "
+                        "mode only)")
+    p.add_argument("--stratify", action="store_true",
+                   help="stratify first-bounce sampling across spp "
+                        "(quality mode only)")
+
+
+def _config(args):
+    """The ``RenderConfig`` of the arguments, with the JAX CLI's refusals
+    (``spath_tpu/cli.py::_build``)."""
+    from spath_tpu_torch.config import RenderConfig
+
+    w, h = args.size
+    base = dict(width=w, height=h, spp=args.spp, max_bounces=args.bounces)
+    if args.mode == "quality":
+        if args.rng == "table":
+            raise SystemExit(
+                "--rng table is a conformance-mode debug RNG (quality "
+                "mode's NEE needs a counter-based stream)")
+        if args.rng == "threefry":
+            raise NotImplementedError(
+                "--rng threefry: the threefry stream is not ported yet "
+                "(ROADMAP queue 1, item 2); use --rng hash")
+        return RenderConfig(**base, rng=args.rng, sampler="cosine",
+                            nee=True, rr_start=args.rr_start,
+                            stratify=args.stratify)
+    if args.rr_start or args.stratify:
+        raise SystemExit(
+            "--rr-start/--stratify need --mode quality (the conformance "
+            "LCG stream layout has no slot for them)")
+    if args.rng == "table":
+        raise NotImplementedError(
+            "--rng table: the vec_dist table stream is not ported yet "
+            "(ROADMAP queue 1, item 2)")
+    return RenderConfig(**base, rng="lcg", sampler="angle")
 
 
 def cmd_render(args) -> int:
+    cfg = _config(args)
     device = _device(args.device)
 
-    from spath_tpu_torch.config import RenderConfig
     from spath_tpu_torch.convert import camera_from_numpy
     from spath_tpu_torch.models.flat import render_flat
     from spath_tpu_torch.models.pathtracer import render_pt_fast
@@ -79,8 +132,6 @@ def cmd_render(args) -> int:
     cam = camera_from_numpy(args.camera_pos, args.camera_angle, args.focal,
                             device=device)
     w, h = args.size
-    cfg = RenderConfig(width=w, height=h, spp=args.spp,
-                       max_bounces=args.bounces, rng="lcg", sampler="angle")
     t0 = time.perf_counter()
     if args.flat:
         img = render_flat(scene, cam, cfg)
@@ -101,16 +152,16 @@ def cmd_render(args) -> int:
 
 
 def cmd_invert(args) -> int:
-    """Albedo recovery in conformance mode, as the JAX package's
-    ``invert``: render the target at the true scene, perturb the albedo
-    (``default_rng(1)`` uniform ±0.4, clipped to [0.05, 1]) and descend
-    with the pose frozen and the target's seed fixed."""
+    """Albedo recovery, as the JAX package's ``invert``: render the target
+    at the true scene, perturb the albedo (``default_rng(1)`` uniform
+    ±0.4, clipped to [0.05, 1]) and descend with the pose frozen and the
+    target's seed fixed."""
+    cfg = _config(args)
     device = _device(args.device)
 
     import numpy as np
     import torch
 
-    from spath_tpu_torch.config import RenderConfig
     from spath_tpu_torch.convert import camera_from_numpy
     from spath_tpu_torch.models.inverse import (
         InverseParams, param_group_optimizer, recover,
@@ -121,12 +172,9 @@ def cmd_invert(args) -> int:
     scene = default_scene(device)
     cam = camera_from_numpy(args.camera_pos, args.camera_angle, args.focal,
                             device=device)
-    w, h = args.size
-    cfg = RenderConfig(width=w, height=h, spp=args.spp,
-                       max_bounces=args.bounces, rng="lcg", sampler="angle")
     print("rendering target...", file=sys.stderr)
     # render_radiance's value, through the serving path's renderer (the
-    # fused kernel on a CUDA device, bit-identical to the wavefront)
+    # fused kernel on a CUDA device)
     target = forward_renderer(scene, cfg).render_radiance(scene, cam, cfg,
                                                           args.seed)
 

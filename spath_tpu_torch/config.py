@@ -2,10 +2,11 @@
 
 The same frozen dataclass, fields and defaults as the JAX package's
 ``spath_tpu/config.py``, copied rather than imported so the port never
-pulls in JAX. Only the conformance estimator (``rng="lcg"``,
-``sampler="angle"``) is implemented so far; the renderers raise
-``NotImplementedError`` for the other settings instead of rendering
-something else.
+pulls in JAX. The ``lcg`` and ``hash`` streams are implemented, with
+every sampler, NEE, MIS, Russian roulette and stratification; the
+renderers raise ``NotImplementedError`` for the ``threefry`` and
+``table`` streams and for ``vis_grad`` instead of rendering something
+else.
 """
 
 from __future__ import annotations

@@ -1,7 +1,10 @@
 // The conformance walk's pieces shared by the forward kernel K1
 // (megakernel.cu) and the backward kernel K2 (megakernel_grad.cu), so
 // that K2's replay of K1's walk compiles from one source and takes the
-// same hits, draws and directions bit for bit.
+// same hits, draws and directions bit for bit. The nearest-hit sweeps
+// take the table's row stride as a template argument: 18 columns for the
+// conformance table, 21 for the quality table of K3 and K4
+// (quality_walk.cuh).
 //
 // Numerics: every file that includes this header is built with
 // -fmad=false and without --use_fast_math (ops/kernels/build.py), so each
@@ -29,43 +32,90 @@ struct Hit {
   int idx;
 };
 
-// Nearest hit of the ray o + t d against every triangle of the table:
-// Moller-Trumbore with the epsilon bounds, the source-triangle exclusion
-// and a strict `<`, so the lowest index wins ties. idx is -1 on a miss.
+// The origin terms of the ray from o against row r (v0, e1, e2):
+// s = o - v0, q = s x e1 and e2q = e2 . q, shared by every direction from o.
+struct OriginTerms {
+  float sx, sy, sz, qx, qy, qz, e2q;
+};
+
+__device__ __forceinline__ OriginTerms origin_terms(const float* __restrict__ r,
+                                                    float ox, float oy,
+                                                    float oz) {
+  OriginTerms o;
+  o.sx = ox - __ldg(r + 0);
+  o.sy = oy - __ldg(r + 1);
+  o.sz = oz - __ldg(r + 2);
+  const float e1x = __ldg(r + 3), e1y = __ldg(r + 4), e1z = __ldg(r + 5);
+  o.qx = o.sy * e1z - o.sz * e1y;
+  o.qy = o.sz * e1x - o.sx * e1z;
+  o.qz = o.sx * e1y - o.sy * e1x;
+  o.e2q = __ldg(r + 6) * o.qx + __ldg(r + 7) * o.qy + __ldg(r + 8) * o.qz;
+  return o;
+}
+
+// One Moller-Trumbore test of direction d against triangle t (row r)
+// from the origin terms o: the epsilon bounds, the source-triangle
+// exclusion and a strict `<`, so the lowest index wins ties. Updates
+// `best`.
+__device__ __forceinline__ void mt_test(const float* __restrict__ r, int t,
+                                        const OriginTerms& o, float dx,
+                                        float dy, float dz, int src,
+                                        Hit& best) {
+  const float e1x = __ldg(r + 3), e1y = __ldg(r + 4), e1z = __ldg(r + 5);
+  const float e2x = __ldg(r + 6), e2y = __ldg(r + 7), e2z = __ldg(r + 8);
+  // h = d x e2
+  const float hx = dy * e2z - dz * e2y;
+  const float hy = dz * e2x - dx * e2z;
+  const float hz = dx * e2y - dy * e2x;
+  const float a = e1x * hx + e1y * hy + e1z * hz;
+  const bool nondeg = fabsf(a) >= kEps;
+  const float f = 1.0f / (nondeg ? a : 1.0f);
+  const float u = f * (o.sx * hx + o.sy * hy + o.sz * hz);
+  const float v = f * (dx * o.qx + dy * o.qy + dz * o.qz);
+  const float dist = f * o.e2q;
+  const bool ok = nondeg && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
+                  u + v <= 1.0f && dist > kEps && dist < kInvEps &&
+                  src != t && dist < best.dist;
+  if (ok) {
+    best.dist = dist;
+    best.idx = t;
+  }
+}
+
+// Nearest hit of the ray o + t d against every triangle of the table
+// (rows of kStride floats starting v0, e1, e2). idx is -1 on a miss.
+template <int kStride = kCols>
 __device__ __forceinline__ Hit nearest(const float* __restrict__ tri,
                                        int n_tris, float ox, float oy,
                                        float oz, float dx, float dy, float dz,
                                        int src) {
   Hit best{kBig, -1};
   for (int t = 0; t < n_tris; ++t) {
-    const float* r = tri + t * kCols;
-    const float v0x = __ldg(r + 0), v0y = __ldg(r + 1), v0z = __ldg(r + 2);
-    const float e1x = __ldg(r + 3), e1y = __ldg(r + 4), e1z = __ldg(r + 5);
-    const float e2x = __ldg(r + 6), e2y = __ldg(r + 7), e2z = __ldg(r + 8);
-    // h = d x e2
-    const float hx = dy * e2z - dz * e2y;
-    const float hy = dz * e2x - dx * e2z;
-    const float hz = dx * e2y - dy * e2x;
-    const float a = e1x * hx + e1y * hy + e1z * hz;
-    const bool nondeg = fabsf(a) >= kEps;
-    const float f = 1.0f / (nondeg ? a : 1.0f);
-    const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-    const float u = f * (sx * hx + sy * hy + sz * hz);
-    // q = s x e1
-    const float qx = sy * e1z - sz * e1y;
-    const float qy = sz * e1x - sx * e1z;
-    const float qz = sx * e1y - sy * e1x;
-    const float v = f * (dx * qx + dy * qy + dz * qz);
-    const float dist = f * (e2x * qx + e2y * qy + e2z * qz);
-    const bool ok = nondeg && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-                    u + v <= 1.0f && dist > kEps && dist < kInvEps &&
-                    src != t && dist < best.dist;
-    if (ok) {
-      best.dist = dist;
-      best.idx = t;
-    }
+    const float* r = tri + t * kStride;
+    mt_test(r, t, origin_terms(r, ox, oy, oz), dx, dy, dz, src, best);
   }
   return best;
+}
+
+// Two nearest-hit sweeps of rays sharing the origin o (a shadow ray d1
+// and the next bounce's ray d2) in one walk of the table: the origin
+// terms are computed once per triangle. Each result is bit-equal to its
+// own `nearest` call.
+template <int kStride>
+__device__ __forceinline__ void nearest2(const float* __restrict__ tri,
+                                         int n_tris, float ox, float oy,
+                                         float oz, float d1x, float d1y,
+                                         float d1z, float d2x, float d2y,
+                                         float d2z, int src, Hit& h1,
+                                         Hit& h2) {
+  h1 = Hit{kBig, -1};
+  h2 = Hit{kBig, -1};
+  for (int t = 0; t < n_tris; ++t) {
+    const float* r = tri + t * kStride;
+    const OriginTerms o = origin_terms(r, ox, oy, oz);
+    mt_test(r, t, o, d1x, d1y, d1z, src, h1);
+    mt_test(r, t, o, d2x, d2y, d2z, src, h2);
+  }
 }
 
 // The reference's LCG: advance the seed, return ((seed >> 16) & 0x7FFF)

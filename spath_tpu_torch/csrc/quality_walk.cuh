@@ -1,0 +1,304 @@
+// The quality estimator's walk, shared by the forward kernel K3
+// (megakernel_quality.cu) and the backward kernel K4
+// (megakernel_quality_grad.cu): K4 replays K3's walk from this one source,
+// so it takes the same hits, draws, lights and directions bit for bit.
+//
+// It is the port of spath_tpu/ops/pallas/megakernel_quality.py::
+// _sample_walk for one ray: the counter-based hash draws (_hash_draws),
+// the emitter term with the MIS partner weight, the cosine-weighted
+// direction in the Duff et al. frame, next-event estimation (the light
+// choice by a walk of the cdf column over the emissive rows, the
+// barycentric light point, the shadow ray swept together with the next
+// bounce's ray from their shared origin, the power-heuristic weight),
+// Russian roulette and the MIS pdf of the next bounce. Every expression
+// keeps the JAX kernel's order of operations; the files that include this
+// header are built with -fmad=false and without --use_fast_math.
+//
+// A masked TPU lane becomes a thread that leaves its loop: once a path
+// misses or loses the roulette, every later term of the masked walk is
+// zero, so stopping is exact.
+
+#pragma once
+
+#include "megakernel_common.cuh"
+
+namespace spath {
+
+// Columns of the (T, 21) quality table: v0, e1, e2, normal, albedo,
+// emission, prob (18), area (19), cdf (20).
+constexpr int kQCols = 21;
+constexpr int kColProb = 18;
+constexpr int kColArea = 19;
+constexpr int kColCdf = 20;
+
+// float32 values equal to the JAX package's np.float32 constants.
+constexpr float kInvPi = 0x1.45f306p-2f;  // float32(1 / pi)
+constexpr float kTiny20 = 0x1.79ca10p-67f;  // float32(1e-20)
+constexpr float kTiny12 = 0x1.197998p-40f;  // float32(1e-12)
+constexpr float kTiny30 = 0x1.4484c0p-100f;  // float32(1e-30)
+constexpr float kTiny6 = 0x1.0c6f7ap-20f;  // float32(1e-6)
+constexpr float kMillion = 0x1.e84800p+19f;  // float32(1e6)
+constexpr float kRrMin = 0x1.99999ap-5f;  // float32(0.05)
+
+// The hash stream's constants (spath_tpu/ops/rng.py).
+constexpr uint32_t kM1 = 0x85EBCA6Bu;
+constexpr uint32_t kM2 = 0xC2B2AE35u;
+constexpr uint32_t kC1 = 0x27D4EB2Fu;
+constexpr uint32_t kC2 = 0x165667B1u;
+constexpr uint32_t kC3 = 0xD3A2646Cu;
+
+__device__ __forceinline__ uint32_t fmix(uint32_t h) {
+  h ^= h >> 16;
+  h *= kM1;
+  h ^= h >> 13;
+  h *= kM2;
+  return h ^ (h >> 16);
+}
+
+// Draw `d` of bounce `b` for a ray whose first-round hash is h1 = fmix(key)
+// and whose sample counter is folded in as sc = sample * C1.
+__device__ __forceinline__ float draw(uint32_t h1, uint32_t sc, int b, int d) {
+  const uint32_t c = kC2 * static_cast<uint32_t>(b) +
+                     kC3 * static_cast<uint32_t>(d);
+  const uint32_t h = fmix(h1 + (sc + c));
+  return static_cast<float>(static_cast<int>(h >> 8)) * 0x1p-24f;
+}
+
+// What the walk reads besides the ray.
+struct QualityArgs {
+  const float* tri;  // (T, 21)
+  const int* rows;   // the rows the light choice walks, ascending
+  int n_tris, n_rows, spp, max_bounces, rr_start, n_draws;
+  bool nee, mis, stratify;  // mis here means nee && mis
+  float inv_spp;            // float32(1 / spp)
+};
+
+// The arguments of a launch; flags: bit 0 nee, bit 1 mis (with nee),
+// bit 2 stratify.
+inline QualityArgs make_args(const float* tri, const int* rows, int n_tris,
+                             int n_rows, int spp, int max_bounces,
+                             int rr_start, int flags, float inv_spp) {
+  QualityArgs a;
+  a.tri = tri;
+  a.rows = rows;
+  a.n_tris = n_tris;
+  a.n_rows = n_rows;
+  a.spp = spp;
+  a.max_bounces = max_bounces;
+  a.rr_start = rr_start;
+  a.nee = (flags & 1) != 0;
+  a.mis = a.nee && (flags & 2) != 0;
+  a.stratify = (flags & 4) != 0;
+  a.n_draws = (a.nee ? 5 : 2) + (rr_start ? 1 : 0);
+  a.inv_spp = inv_spp;
+  return a;
+}
+
+// The light choice: the literal walk of _select_gather_light_static over
+// `rows`, a crossing of the cdf column past u taken, then the clip to the
+// last row when u lies at or above every cdf value walked.
+__device__ __forceinline__ int select_light(const QualityArgs& a, float u) {
+  int li = 0;
+  bool prev_le = true;
+  for (int k = 0; k < a.n_rows; ++k) {
+    const int t = __ldg(a.rows + k);
+    const bool le = __ldg(a.tri + t * kQCols + kColCdf) <= u;
+    if (prev_le && !le) li = t;
+    prev_le = le;
+  }
+  if (prev_le) li = a.n_tris - 1;
+  return li;
+}
+
+// One bounce as K4's reverse sweep needs it: the ray before the bounce,
+// the hit, the throughput before the bounce, the emitter term's MIS
+// weight, the light (-1 unless its term counted) with its MIS weight,
+// and the roulette's survival probability q when a 1/q reweight followed
+// the bounce (0 otherwise).
+struct Bounce {
+  float ox, oy, oz, dx, dy, dz, dist;
+  int idx;
+  float tr, tg, tb;
+  float w_b, misw;
+  int li;
+  float rrq;
+};
+
+// Does nothing: K3 keeps no state.
+struct NoSave {
+  __device__ __forceinline__ void operator()(int, const Bounce&) const {}
+};
+
+// One sample's walk for one ray: adds its radiance to (rad_r, rad_g,
+// rad_b) and hands each bounce that hit to `save`. Returns the number of
+// bounces that hit.
+template <class Save>
+__device__ __forceinline__ int quality_sample(
+    const QualityArgs& a, float ox, float oy, float oz, float dx, float dy,
+    float dz, Hit h, uint32_t h1, int s, float& rad_r, float& rad_g,
+    float& rad_b, Save save) {
+  const float* __restrict__ tri = a.tri;
+  const uint32_t sc = static_cast<uint32_t>(s) * kC1;
+  int src = -1;
+  float tr = 1.0f, tg = 1.0f, tb = 1.0f;
+  float prev_pdf = 0.0f;
+  int len = 0;
+  for (int b = 0; b < a.max_bounces; ++b) {
+    const bool last = b == a.max_bounces - 1;
+    if (b > 0 && !a.nee) {
+      h = nearest<kQCols>(tri, a.n_tris, ox, oy, oz, dx, dy, dz, src);
+    }
+    if (h.idx < 0) break;
+    const float* r = tri + h.idx * kQCols;
+    const float nx = __ldg(r + 9), ny = __ldg(r + 10), nz = __ldg(r + 11);
+    const float ar = __ldg(r + 12), ag = __ldg(r + 13), ab = __ldg(r + 14);
+    const float er = __ldg(r + 15), eg = __ldg(r + 16), eb = __ldg(r + 17);
+    const float px = ox + h.dist * dx;
+    const float py = oy + h.dist * dy;
+    const float pz = oz + h.dist * dz;
+    const bool flip = nx * dx + ny * dy + nz * dz > 0.0f;
+    const float anx = flip ? -nx : nx;
+    const float any_ = flip ? -ny : ny;
+    const float anz = flip ? -nz : nz;
+
+    // emitter-hit term (BSDF strategy)
+    float w_b = 1.0f;
+    if (a.nee) {
+      if (b > 0) {
+        if (a.mis) {
+          const float cos_l_hit = fabsf(nx * dx + ny * dy + nz * dz);
+          const float dmin = fminf(h.dist, kMillion);
+          const float p_here =
+              __ldg(r + kColProb) / fmaxf(__ldg(r + kColArea), kTiny20) *
+              dmin * dmin / fmaxf(cos_l_hit, kTiny6);
+          w_b = prev_pdf * prev_pdf /
+                fmaxf(prev_pdf * prev_pdf + p_here * p_here, kTiny30);
+        } else {
+          w_b = 0.0f;  // pure NEE drops BSDF-sampled emitter hits
+        }
+      }
+      rad_r = rad_r + tr * er * w_b;
+      rad_g = rad_g + tg * eg * w_b;
+      rad_b = rad_b + tb * eb * w_b;
+    } else {
+      rad_r = rad_r + tr * er;
+      rad_g = rad_g + tg * eg;
+      rad_b = rad_b + tb * eb;
+    }
+
+    // cosine-weighted direction (ops/sampling.py)
+    float u0 = draw(h1, sc, b, 0);
+    const float u1 = draw(h1, sc, b, 1);
+    if (a.stratify && b == 0) {
+      u0 = (static_cast<float>(s) + u0) * a.inv_spp;
+    }
+    const float phi = u0 * kTwoPi;
+    const float rr = sqrtf(fmaxf(1.0f - u1, 0.0f));
+    const float z = sqrtf(u1);
+    const float sgn = anz >= 0.0f ? 1.0f : -1.0f;
+    const float fa = -1.0f / (sgn + anz);
+    const float fb = anx * any_ * fa;
+    const float tx = 1.0f + sgn * anx * anx * fa;
+    const float ty = sgn * fb;
+    const float tz = -sgn * anx;
+    const float btx = fb;
+    const float bty = sgn + any_ * any_ * fa;
+    const float btz = -any_;
+    const float cp = cosf(phi) * rr;
+    const float sp = sinf(phi) * rr;
+    const float ndx = tx * cp + btx * sp + anx * z;
+    const float ndy = ty * cp + bty * sp + any_ * z;
+    const float ndz = tz * cp + btz * sp + anz * z;
+
+    // next-event estimation (ops/nee.py::direct_light)
+    Hit next = h;
+    float misw = 1.0f;
+    int li_ok = -1;
+    if (a.nee) {
+      const int li = select_light(a, draw(h1, sc, b, 2));
+      const float* l = tri + li * kQCols;
+      const float su1 = sqrtf(draw(h1, sc, b, 3));
+      const float b1 = 1.0f - su1;
+      const float b2 = draw(h1, sc, b, 4) * su1;
+      const float yx = __ldg(l + 0) + b1 * __ldg(l + 3) + b2 * __ldg(l + 6);
+      const float yy = __ldg(l + 1) + b1 * __ldg(l + 4) + b2 * __ldg(l + 7);
+      const float yz = __ldg(l + 2) + b1 * __ldg(l + 5) + b2 * __ldg(l + 8);
+      const float delx = yx - px, dely = yy - py, delz = yz - pz;
+      const float r2 = delx * delx + dely * dely + delz * delz;
+      const float rl = sqrtf(fmaxf(r2, kTiny20));
+      const float omx = delx / rl, omy = dely / rl, omz = delz / rl;
+      const float cos_s = anx * omx + any_ * omy + anz * omz;
+      const float cos_l =
+          fabsf(__ldg(l + 9) * omx + __ldg(l + 10) * omy + __ldg(l + 11) * omz);
+      // the shadow ray and, pipelined, the next bounce's nearest hit
+      int occ;
+      if (last) {
+        occ = nearest<kQCols>(tri, a.n_tris, px, py, pz, omx, omy, omz, h.idx)
+                  .idx;
+      } else {
+        Hit shadow;
+        nearest2<kQCols>(tri, a.n_tris, px, py, pz, omx, omy, omz, ndx, ndy,
+                         ndz, h.idx, shadow, next);
+        occ = shadow.idx;
+      }
+      const float lprob = __ldg(l + kColProb);
+      const float larea = __ldg(l + kColArea);
+      const bool valid = occ == li && lprob > 0.0f && cos_s > 0.0f &&
+                         li != h.idx;
+      const float g = cos_s * cos_l / fmaxf(r2, kTiny12);
+      const float wgt = larea / fmaxf(lprob, kTiny20);
+      float scale = g * wgt * kInvPi;
+      if (a.mis) {
+        const float p_nee = lprob / fmaxf(larea, kTiny20) * fminf(r2, kBig) /
+                            fmaxf(cos_l, kTiny6);
+        const float p_bsdf = fmaxf(cos_s, 0.0f) * kInvPi;
+        misw = p_nee * p_nee /
+               fmaxf(p_nee * p_nee + p_bsdf * p_bsdf, kTiny30);
+      }
+      scale = scale * misw;
+      if (valid) {
+        rad_r = rad_r + tr * ar * __ldg(l + 15) * scale;
+        rad_g = rad_g + tg * ag * __ldg(l + 16) * scale;
+        rad_b = rad_b + tb * ab * __ldg(l + 17) * scale;
+        li_ok = li;
+      }
+    }
+
+    Bounce st{ox, oy, oz, dx, dy, dz, h.dist, h.idx, tr, tg, tb,
+              w_b, misw, li_ok, 0.0f};
+    len = b + 1;
+
+    // advance (cosine weight 1: the pdf cancels BRDF * cos)
+    tr = tr * ar;
+    tg = tg * ag;
+    tb = tb * ab;
+    ox = px;
+    oy = py;
+    oz = pz;
+    dx = ndx;
+    dy = ndy;
+    dz = ndz;
+    src = h.idx;
+    if (a.rr_start && b >= a.rr_start && !last) {
+      // Russian roulette on the continuation: survive with probability
+      // q = max throughput component, reweight by 1/q
+      const float q = fminf(fmaxf(fmaxf(fmaxf(tr, tg), tb), kRrMin), 1.0f);
+      if (!(draw(h1, sc, b, a.n_draws - 1) < q)) {
+        save(b, st);
+        break;
+      }
+      tr = tr / q;
+      tg = tg / q;
+      tb = tb / q;
+      st.rrq = q;
+    }
+    save(b, st);
+    if (a.mis) {
+      prev_pdf = fmaxf(ndx * anx + ndy * any_ + ndz * anz, 0.0f) * kInvPi;
+    }
+    h = next;
+  }
+  return len;
+}
+
+}  // namespace spath

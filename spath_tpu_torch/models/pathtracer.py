@@ -1,33 +1,45 @@
-"""Wavefront Monte-Carlo path tracer, conformance estimator.
+"""Wavefront Monte-Carlo path tracer (``spath_tpu/models/pathtracer.py``).
 
-The PyTorch counterpart of the ``rng="lcg"``, ``sampler="angle"`` branch
-of ``spath_tpu/models/pathtracer.py``. Every pixel's ray is in flight at
-once, in the forward-throughput form::
+Every pixel's ray is in flight at once, in the forward-throughput form::
 
-    L        = Σ_b  throughput_b · emittance[hit_b]
+    L        = Σ_b  throughput_b · (emitted_b + direct_b)
     thru_0   = 1
-    thru_b+1 = thru_b · albedo[hit_b] · 2·cosθ_b
+    thru_b+1 = thru_b · albedo[hit_b] · w_b
 
 Dead rays are masked lanes, not branches. The camera rays' first hit is
-the same for every sample, so it is computed once and shared; the
-per-pixel LCG advances (twice) only where a ray hit. Attributes of the
-hit triangle are gathered by plain indexing.
+the same for every sample, so it is computed once and shared. Attributes
+of the hit triangle are gathered by plain indexing.
+
+Two estimators are ported:
+
+- **conformance** (``rng="lcg"``, ``sampler="angle"``): the reference's
+  per-pixel LCG, advanced twice and only where a ray hit, and its
+  angle-uniform sampler, ``w_b = 2·cosθ``;
+- **quality** (``rng="hash"``): the counter-based hash stream keyed by
+  (seed, pixel, sample, bounce, draw), the cosine (``w_b = 1``), uniform
+  or angle sampler, and with ``nee`` next-event estimation
+  (``ops/nee.py``): camera-ray emitter hits count fully, later
+  BSDF-sampled ones carry the MIS partner weight (``mis``) or are dropped;
+  ``rr_start`` Russian roulette on the continuation, survival
+  q = max throughput component with a 1/q reweight, its draw at the fixed
+  index 5 with NEE and 2 without; ``stratify`` spreads the first
+  bounce's azimuth over the spp samples.
 
 The walk is written over the scene's geometry ``(v0, e1, e2, normals,
-albedo, emission)``, so the fused kernel's plain version
+albedo, emission)``, so the fused kernel K1's plain version
 (``ops/kernels/megakernel.py::megakernel_plain``) runs the same code on
 the columns of its packed table.
 
 Differentiability (detached sampling, as the JAX package): sampled
-directions and hit indices are constants of the backward pass; the
-weight ``2·cosθ`` is recomputed against the detached direction, so its
-gradient flows through the shading normal only. ``render_radiance`` is
-differentiable with respect to the scene's vertices, albedo and emission
-and the camera under ``torch.autograd``; ``render_radiance_fastgrad``
-gives the same gradients through the fused kernels' hand-written
-backward on a CUDA device. The quality estimator (NEE, MIS, Russian
-roulette, stratification, other RNGs and samplers) and visibility
-gradients are not ported yet and raise ``NotImplementedError``.
+directions, hit indices, the light choice, the roulette decision and the
+MIS weights are constants of the backward pass; a recomputed ``2·cosθ``
+weight keeps its gradient through the shading normal. ``render_radiance``
+is differentiable with respect to the scene's vertices, albedo and
+emission and the camera under ``torch.autograd``;
+``render_radiance_fastgrad`` gives the same gradients through the fused
+kernels' hand-written backward on a CUDA device. The ``threefry`` and
+``table`` streams and visibility gradients (``vis_grad``) are not ported
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,38 +49,69 @@ import torch
 
 from spath_tpu_torch.camera import Camera, generate_rays
 from spath_tpu_torch.config import RenderConfig
+from spath_tpu_torch.ops import nee
 from spath_tpu_torch.ops.intersect import check_method, nearest_hit_edges
-from spath_tpu_torch.ops.rng import lcg_next, pixel_seeds
-from spath_tpu_torch.ops.sampling import angle_sample, dot3
+from spath_tpu_torch.ops.rng import fmix32, hash_keys, key_uniforms, lcg_next
+from spath_tpu_torch.ops.sampling import dot3, hemisphere_sample
 from spath_tpu_torch.scene import Scene
 
+#: What is not ported, and where the ROADMAP queues it.
+_MISSING = {
+    "threefry": "the threefry stream (ROADMAP queue 1, item 2)",
+    "table": "the vec_dist table stream (ROADMAP queue 1, item 2)",
+}
 
-def _unported(cfg: RenderConfig) -> list[str]:
-    unported = []
+
+def _conformance_gaps(cfg: RenderConfig) -> list[str]:
+    gaps = []
     if cfg.rng != "lcg":
-        unported.append(f"rng={cfg.rng!r}")
+        gaps.append(f"rng={cfg.rng!r}")
     if cfg.sampler != "angle":
-        unported.append(f"sampler={cfg.sampler!r}")
+        gaps.append(f"sampler={cfg.sampler!r}")
     for flag in ("nee", "rr_start", "stratify", "vis_grad"):
         if getattr(cfg, flag):
-            unported.append(f"{flag}={getattr(cfg, flag)!r}")
-    return unported
+            gaps.append(f"{flag}={getattr(cfg, flag)!r}")
+    return gaps
 
 
 def is_conformance(cfg: RenderConfig) -> bool:
-    """Is ``cfg`` the conformance estimator, the one this port renders?"""
-    return not _unported(cfg)
+    """Is ``cfg`` the conformance estimator, the one K1 and K2 take?"""
+    return not _conformance_gaps(cfg)
 
 
 def require_conformance(cfg: RenderConfig) -> None:
     """Raise ``NotImplementedError`` for any setting outside the
     conformance estimator."""
-    unported = _unported(cfg)
-    if unported:
+    gaps = _conformance_gaps(cfg)
+    if gaps:
         raise NotImplementedError(
-            "only the conformance estimator (rng='lcg', sampler='angle', "
-            "no nee/rr_start/stratify/vis_grad) is ported; got "
-            + ", ".join(unported))
+            "this kernel takes the conformance estimator only (rng='lcg', "
+            "sampler='angle', no nee/rr_start/stratify/vis_grad); got "
+            + ", ".join(gaps))
+
+
+def unported(cfg: RenderConfig) -> list[str]:
+    """What of ``cfg`` the port cannot render, in words."""
+    missing = []
+    if cfg.rng in _MISSING:
+        missing.append(f"rng={cfg.rng!r}: {_MISSING[cfg.rng]}")
+    if cfg.vis_grad:
+        missing.append("vis_grad=True: visibility gradients (ops/warp.py "
+                       "and the hit export K11, ROADMAP queue 1, item 8)")
+    return missing
+
+
+def require_ported(cfg: RenderConfig) -> None:
+    """Raise ``NotImplementedError`` naming what is missing when the port
+    has no estimator for ``cfg``, and ``ValueError`` for the settings the
+    JAX package refuses."""
+    missing = unported(cfg)
+    if missing:
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+    if cfg.nee and cfg.rng == "lcg":
+        raise ValueError("cfg.nee requires rng='threefry' or 'hash'")
+    if (cfg.rr_start or cfg.stratify) and cfg.rng == "lcg":
+        raise ValueError("rr_start/stratify require rng='threefry'/'hash'")
 
 
 def scene_geometry(scene: Scene):
@@ -78,16 +121,35 @@ def scene_geometry(scene: Scene):
             scene.albedo, scene.emission)
 
 
-def trace_geometry(geom, origins, directions, seeds, cfg: RenderConfig,
-                   first_hit=None):
+def geometry_lights(geom) -> tuple[nee.Lights, torch.Tensor]:
+    """The light choice over ``geom`` and the triangles' areas."""
+    return nee.make_lights(*geom[:3], geom[5])
+
+
+def n_draws(cfg: RenderConfig) -> int:
+    """Uniforms a hash-stream bounce draws: direction (2), light choice
+    and point (3) with NEE, roulette (1)."""
+    return (5 if cfg.nee else 2) + (1 if cfg.rr_start else 0)
+
+
+def trace_geometry(geom, origins, directions, rng, cfg: RenderConfig,
+                   first_hit=None, lights=None, sample: int = 0):
     """Trace one sample per ray through ``geom`` (``scene_geometry``).
 
-    ``seeds`` are the rays' int64 LCG states. Returns ``(radiance (N, 3),
-    seeds)``.
-    """
+    ``rng`` is the rays' stream: for ``rng="lcg"`` their int64 LCG states,
+    for ``rng="hash"`` their first-round hashes ``fmix32(keys)``, the same
+    for every sample. ``lights`` (``geometry_lights``) is needed with NEE;
+    ``sample`` is the sample's counter. Returns ``(radiance (N, 3),
+    rng)``."""
     v0, e1, e2, normals, albedo, emission = geom
     n = origins.shape[0]
     device = origins.device
+    use_mis = cfg.nee and cfg.mis and cfg.sampler != "angle"
+    if cfg.nee:
+        lights, area = lights
+        if use_mis:
+            hit_tables = (lights.prob, area.detach())
+            prev_pdf = torch.zeros(n, dtype=torch.float32, device=device)
     o, d = origins, directions
     throughput = torch.ones((n, 3), dtype=torch.float32, device=device)
     radiance = torch.zeros((n, 3), dtype=torch.float32, device=device)
@@ -108,64 +170,128 @@ def trace_geometry(geom, origins, directions, seeds, cfg: RenderConfig,
         flip = dot3(nrm, d) > 0.0
         adj_n = torch.where(flip[:, None], -nrm, nrm)
 
-        # two LCG draws; the state advances only where the ray hit
-        s1, u1 = lcg_next(seeds)
-        s2, u2 = lcg_next(s1)
-        seeds = torch.where(hit, s2, seeds)
-        next_d, _ = angle_sample(adj_n, u1, u2)
+        if cfg.rng == "lcg":
+            # two draws; the state advances only where the ray hit
+            s1, u1 = lcg_next(rng)
+            s2, u2 = lcg_next(s1)
+            rng = torch.where(hit, s2, rng)
+            us = (u1, u2)
+        else:
+            us = key_uniforms(rng, sample, bounce, n_draws(cfg))
+        u_az = us[0]
+        if cfg.stratify and bounce == 0:
+            u_az = (float(np.float32(sample)) + u_az) \
+                * float(np.float32(1.0 / cfg.spp))
+        next_d, weight = hemisphere_sample(cfg.sampler, adj_n, u_az, us[1])
         # Detached sampling: the direction is a constant of the backward
-        # pass, and the weight is recomputed against it so that its
+        # pass; a 2·cosθ weight is recomputed against it so that its
         # gradient flows through the normal only.
         next_d = next_d.detach()
-        weight = 2.0 * dot3(next_d, adj_n)
+        if cfg.sampler in ("angle", "uniform"):
+            weight = 2.0 * dot3(next_d, adj_n)
 
-        radiance = radiance + torch.where(hit3, throughput * emi, 0.0)
+        if cfg.nee:
+            # Camera-ray emitter hits count fully; deeper BSDF-sampled
+            # ones carry the MIS partner weight or (pure NEE) are dropped.
+            if bounce == 0:
+                radiance = radiance + torch.where(hit3, throughput * emi, 0.0)
+            elif use_mis:
+                cos_l = torch.abs(dot3(nrm, d))
+                p_here = nee.nee_pdf_of_hit(hit_tables[0][safe],
+                                            hit_tables[1][safe], dist, cos_l)
+                w_b = (prev_pdf * prev_pdf / torch.clamp_min(
+                    prev_pdf * prev_pdf + p_here * p_here, 1e-30)).detach()
+                radiance = radiance + torch.where(
+                    hit3, throughput * emi * w_b[:, None], 0.0)
+            direct = nee.direct_light(lights, point, adj_n, safe, us[2],
+                                      us[3], us[4], cfg, hit_albedo=alb)
+            radiance = radiance + torch.where(hit3, throughput * direct, 0.0)
+        else:
+            radiance = radiance + torch.where(hit3, throughput * emi, 0.0)
         throughput = torch.where(hit3, throughput * alb * weight[:, None],
                                  throughput)
         o = torch.where(hit3, point, o)
         d = torch.where(hit3, next_d, d)
         src = torch.where(hit, idx, src)
         alive = hit
-    return radiance, seeds
+        if cfg.rr_start and cfg.rr_start <= bounce < cfg.max_bounces - 1:
+            # Russian roulette on the continuation: survive with
+            # probability q, reweight by 1/q; the decision is detached.
+            q = torch.clamp(throughput.max(dim=-1).values, 0.05, 1.0).detach()
+            survive = us[5 if cfg.nee else 2] < q
+            throughput = torch.where((hit & survive)[:, None],
+                                     throughput / q[:, None], throughput)
+            alive = hit & survive
+        if use_mis:
+            prev_pdf = nee.bsdf_pdf(cfg.sampler,
+                                    dot3(next_d, adj_n)).detach()
+    return radiance, rng
 
 
-def mean_radiance_geometry(geom, origins, directions, seeds,
-                           cfg: RenderConfig):
-    """Mean of ``cfg.spp`` samples per ray → ``(N, 3)``. The camera rays'
-    nearest hit is the same for every sample and is computed once."""
-    require_conformance(cfg)
+def mean_radiance_geometry(geom, origins, directions, rng,
+                           cfg: RenderConfig, lights=None):
+    """Mean of ``cfg.spp`` samples per ray → ``(N, 3)``; ``rng`` and
+    ``lights`` as ``trace_geometry`` takes them. The camera rays' nearest
+    hit is the same for every sample and is computed once."""
+    require_ported(cfg)
     v0, e1, e2 = geom[:3]
     src = torch.full((origins.shape[0],), -1, dtype=torch.int64,
                      device=origins.device)
     first_hit = nearest_hit_edges(origins, directions, v0, e1, e2, src,
                                   cfg.tri_block)
+    if cfg.nee and lights is None:
+        lights = geometry_lights(geom)
     accum = torch.zeros((origins.shape[0], 3), dtype=torch.float32,
                         device=origins.device)
-    for _ in range(cfg.spp):
-        rad, seeds = trace_geometry(geom, origins, directions, seeds, cfg,
-                                    first_hit)
+    for s in range(cfg.spp):
+        rad, rng = trace_geometry(geom, origins, directions, rng, cfg,
+                                  first_hit, lights, s)
         accum = accum + rad
     return accum * float(np.float32(1.0) / np.float32(cfg.spp))
 
 
+def _pixel_ids(n: int, pixel_ids, device):
+    if pixel_ids is None:
+        return torch.arange(n, dtype=torch.int64, device=device)
+    return pixel_ids.to(torch.int64)
+
+
 def trace_radiance(scene: Scene, origins, directions, cfg: RenderConfig,
-                   rng_state):
-    """Trace ONE sample per ray. Returns ``(radiance (N, 3), rng_state)``;
-    ``rng_state`` holds the rays' int64 LCG seeds."""
-    require_conformance(cfg)
+                   rng_state, pixel_ids=None, sample_idx: int = 0):
+    """Trace ONE sample per ray. Returns ``(radiance (N, 3), rng_state)``:
+    for ``rng="lcg"`` ``rng_state`` holds the rays' int64 LCG seeds and
+    advances; for ``rng="hash"`` it is the frame seed, keyed with the
+    rays' global ``pixel_ids`` (default ``arange(N)``) and the counter
+    ``sample_idx``."""
+    require_ported(cfg)
     check_method(cfg.intersect)
-    return trace_geometry(scene_geometry(scene), origins, directions,
-                          rng_state, cfg)
+    geom = scene_geometry(scene)
+    lights = geometry_lights(geom) if cfg.nee else None
+    if cfg.rng == "lcg":
+        return trace_geometry(geom, origins, directions, rng_state, cfg,
+                              lights=lights)
+    ids = _pixel_ids(origins.shape[0], pixel_ids, origins.device)
+    h1 = fmix32(hash_keys(int(rng_state), ids))
+    rad, _ = trace_geometry(geom, origins, directions, h1, cfg,
+                            lights=lights, sample=sample_idx)
+    return rad, rng_state
 
 
 def trace_mean_radiance(scene: Scene, origins, directions,
-                        cfg: RenderConfig, seed: int = 0):
-    """Average ``cfg.spp`` samples per ray → ``(N, 3)``. Each ray's LCG
-    starts at its pixel index plus ``seed``."""
+                        cfg: RenderConfig, seed: int = 0, pixel_ids=None):
+    """Average ``cfg.spp`` samples per ray → ``(N, 3)``. LCG streams start
+    at each ray's pixel index plus ``seed``; hash streams are keyed by
+    ``seed`` and the pixel index."""
+    require_ported(cfg)
     check_method(cfg.intersect)
-    seeds = pixel_seeds(origins.shape[0], seed, device=origins.device)
+    n, device = origins.shape[0], origins.device
+    ids = _pixel_ids(n, pixel_ids, device)
+    if cfg.rng == "lcg":
+        rng = (ids + seed) & 0xFFFFFFFF
+    else:
+        rng = fmix32(hash_keys(seed, ids))
     return mean_radiance_geometry(scene_geometry(scene), origins,
-                                  directions, seeds, cfg)
+                                  directions, rng, cfg)
 
 
 def _check_devices(scene: Scene, camera: Camera) -> None:
@@ -196,10 +322,10 @@ def render_radiance_fastgrad(scene: Scene, camera: Camera,
     """Differentiable unclamped radiance ``(H, W, 3)``: the same value and
     the same detached-sampling gradients as ``render_radiance``, from the
     fastest backend with a gradient path (``models/renderer.py``). On a
-    CUDA device the forward is the fused kernel K1 and the backward its
-    hand-written reverse sweep K2; on the CPU, autograd of the wavefront.
-    A scene or config that no ported kernel differentiates raises
-    ``NotImplementedError``."""
+    CUDA device the forward is a fused kernel (K1, or K3 for the quality
+    estimator) and the backward its hand-written reverse sweep (K2, K4);
+    on the CPU, autograd of the wavefront. A scene or config that no
+    ported kernel differentiates raises ``NotImplementedError``."""
     from spath_tpu_torch.models.renderer import grad_renderer
 
     _check_devices(scene, camera)
@@ -210,9 +336,10 @@ def render_radiance_fastgrad(scene: Scene, camera: Camera,
 def render_pt_fast(scene: Scene, camera: Camera, cfg: RenderConfig,
                    seed: int = 0) -> torch.Tensor:
     """The serving path: the clamped frame from the fastest renderer that
-    renders ``(scene, cfg)`` exactly (``models/renderer.py``): the fused
-    CUDA kernel on a CUDA device, the wavefront on the CPU. A scene or
-    config that no ported kernel takes raises ``NotImplementedError``."""
+    renders ``(scene, cfg)`` exactly (``models/renderer.py``): a fused
+    CUDA kernel on a CUDA device (K1 conformance, K3 quality), the
+    wavefront on the CPU. A scene or config that no ported kernel takes
+    raises ``NotImplementedError``."""
     from spath_tpu_torch.models.renderer import forward_renderer
 
     _check_devices(scene, camera)

@@ -4,12 +4,14 @@
 ``REGISTRY`` lists the backends fastest first; ``forward_renderer`` takes
 the first that renders ``(scene, cfg)`` exactly and ``grad_renderer`` the
 first that differentiates it, so every entry point agrees on which
-kernel a config runs on. So far the port has two: the fused CUDA kernels
-for the conformance estimator (K1 forward, K2 backward), and the plain
-wavefront, with autograd, for CPU tensors. On a CUDA device a frame or a
-gradient goes through a kernel or raises: a scene or config no ported
-kernel takes is not handed to the plain version. The compacted, quality
-and streamed renderers are not registered yet.
+kernel a config runs on. So far the port has three: the fused CUDA
+kernels for the conformance estimator (K1 forward, K2 backward), those
+for the quality estimator in its hash+cosine form (K3 forward, K4
+backward), and the plain wavefront, with autograd, for CPU tensors. On a
+CUDA device a frame or a gradient goes through a kernel or raises: a
+scene or config no ported kernel takes is not handed to the plain
+version. The compacted, streamed and visibility-gradient renderers are
+not registered yet.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import torch
 from spath_tpu_torch.camera import Camera
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.models import pathtracer
-from spath_tpu_torch.ops.kernels import megakernel, megakernel_grad
+from spath_tpu_torch.ops.kernels import (
+    megakernel, megakernel_grad, megakernel_quality, megakernel_quality_grad,
+)
 from spath_tpu_torch.scene import Scene
 
 
@@ -60,7 +64,7 @@ class Renderer:
 
 
 class WavefrontRenderer(Renderer):
-    """Plain PyTorch wavefront, for CPU tensors."""
+    """Plain PyTorch wavefront, for CPU tensors: every ported estimator."""
 
     name = "wavefront"
 
@@ -107,38 +111,97 @@ class MegakernelRenderer(Renderer):
         return megakernel_grad.render_radiance_mega(scene, camera, cfg, seed)
 
 
+class QualityMegakernelRenderer(Renderer):
+    """The fused CUDA kernels, quality estimator (hash RNG, cosine
+    sampler, NEE/MIS, Russian roulette, stratification), T <= 1024: K3
+    forward, and K3 with its reverse sweep K4 for gradients.
+
+    The JAX package hands scenes above 128 triangles to its streamed
+    quality kernels (K9, K10), a crossover measured on a TPU v5e; until
+    those are ported these kernels take every scene they can hold."""
+
+    name = "quality"
+
+    def available(self, scene) -> bool:
+        return scene.device.type == "cuda"
+
+    def supports(self, scene, cfg) -> bool:
+        return (self.available(scene)
+                and megakernel_quality.supported(scene, cfg))
+
+    def supports_grad(self, scene, cfg) -> bool:
+        return (self.available(scene)
+                and megakernel_quality_grad.supported_grad(scene, cfg))
+
+    def render_radiance(self, scene, camera, cfg, seed=0):
+        return megakernel_quality.render_radiance_quality_megakernel(
+            scene, camera, cfg, seed)
+
+    def render_radiance_grad(self, scene, camera, cfg, seed=0):
+        return megakernel_quality_grad.render_radiance_quality_grad(
+            scene, camera, cfg, seed)
+
+
 #: All backends, fastest first: selection takes the first match.
 REGISTRY: tuple[Renderer, ...] = (
     MegakernelRenderer(),
+    QualityMegakernelRenderer(),
     WavefrontRenderer(),
 )
+
+
+def _estimator(cfg: RenderConfig) -> str:
+    return (f"rng={cfg.rng!r}, sampler={cfg.sampler!r}, nee={cfg.nee}, "
+            f"rr_start={cfg.rr_start}, stratify={cfg.stratify}")
+
+
+def _no_kernel(scene: Scene, cfg: RenderConfig, grad: bool) -> str:
+    """Why no ported kernel takes ``(scene, cfg)`` on the scene's device."""
+    pathtracer.require_ported(cfg)
+    what = "differentiates" if grad else "renders"
+    head = f"no ported kernel {what} {_estimator(cfg)} with " \
+           f"{scene.n_tris} triangles on {scene.device}: "
+    if pathtracer.is_conformance(cfg):
+        if scene.n_tris > megakernel.MAX_TRIS:
+            return head + (
+                f"the fused kernels take T <= {megakernel.MAX_TRIS}; "
+                "larger scenes need the streamed kernels "
+                + ("K6 and K8 (spath_tpu/ops/pallas/megakernel_bigscene.py, "
+                   "megakernel_bigscene_grad.py)" if grad else
+                   "K6 (spath_tpu/ops/pallas/megakernel_bigscene.py)")
+                + ", not ported yet")
+        return head + (f"the fused backward K2 takes max_bounces <= "
+                       f"{megakernel_grad.MAX_BOUNCES}")
+    if cfg.rng == "hash" and cfg.sampler == "cosine":
+        if scene.n_tris > megakernel_quality.MAX_TRIS:
+            return head + (
+                f"the fused quality kernels take T <= "
+                f"{megakernel_quality.MAX_TRIS}; larger scenes need the "
+                "streamed quality kernels K9 and K10 "
+                "(spath_tpu/ops/pallas/megakernel_bigscene_quality.py), "
+                "not ported yet")
+        return head + (f"the fused quality backward K4 takes max_bounces "
+                       f"<= {megakernel_quality_grad.MAX_BOUNCES}")
+    return head + ("the fused kernels take rng='lcg' with sampler='angle' "
+                   "(K1, K2) or rng='hash' with sampler='cosine' (K3, K4); "
+                   "other estimators run on CPU tensors only")
 
 
 def forward_renderer(scene: Scene, cfg: RenderConfig) -> Renderer:
     """The fastest backend that renders ``(scene, cfg)`` exactly; raises
     ``NotImplementedError`` when no ported backend does."""
+    pathtracer.require_ported(cfg)
     for r in REGISTRY:
         if r.supports(scene, cfg):
             return r
-    pathtracer.require_conformance(cfg)
-    raise NotImplementedError(
-        f"no ported kernel renders {scene.n_tris} triangles on "
-        f"{scene.device}: the fused kernel takes T <= {megakernel.MAX_TRIS}; "
-        "larger scenes need the streamed kernel K6 "
-        "(spath_tpu/ops/pallas/megakernel_bigscene.py), not ported yet")
+    raise NotImplementedError(_no_kernel(scene, cfg, grad=False))
 
 
 def grad_renderer(scene: Scene, cfg: RenderConfig) -> Renderer:
     """The fastest backend that differentiates ``(scene, cfg)``; raises
     ``NotImplementedError`` when no ported backend does."""
+    pathtracer.require_ported(cfg)
     for r in REGISTRY:
         if r.supports_grad(scene, cfg):
             return r
-    pathtracer.require_conformance(cfg)
-    raise NotImplementedError(
-        f"no ported kernel differentiates {scene.n_tris} triangles and "
-        f"{cfg.max_bounces} bounces on {scene.device}: the fused backward "
-        f"K2 takes T <= {megakernel_grad.GRAD_MAX_TRIS} and max_bounces <= "
-        f"{megakernel_grad.MAX_BOUNCES}; larger scenes need the streamed "
-        "backward K8 (spath_tpu/ops/pallas/megakernel_bigscene_grad.py), "
-        "not ported yet")
+    raise NotImplementedError(_no_kernel(scene, cfg, grad=True))

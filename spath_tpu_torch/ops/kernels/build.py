@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-On first use, ``nvcc`` compiles every ``spath_tpu_torch/csrc/*.cu`` into
-one shared library with a plain C interface,
+On first use, ``nvcc`` compiles every ``spath_tpu_torch/csrc/*.cu`` (one
+compiler process per source, all started together) and links the objects
+into one shared library with a plain C interface,
 ``build/kernels/libspath_kernels.so`` at the root of the checkout, which
 ``ctypes`` loads. The library is rebuilt when the hash of the compiler
 flags or of any file under ``csrc/`` changes, the headers the kernels
@@ -30,10 +31,11 @@ SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 LIBRARY = BUILD_DIR / "libspath_kernels.so"
 
+#: Flags of each source's compilation; the link adds ``-shared``.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -66,9 +68,13 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def nvcc_command(output: Path) -> list[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(output),
-            *map(str, sources())]
+def compile_command(source: Path, obj: Path) -> list[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(source)]
+
+
+def link_command(objs: list[Path], output: Path) -> list[str]:
+    return [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-shared", "-o", str(output), *map(str, objs)]
 
 
 def source_hash() -> str:
@@ -90,14 +96,33 @@ def build() -> Path:
             and stamp.read_text().strip() == digest:
         return LIBRARY
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libspath_kernels.{os.getpid()}.so"
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True,
-                          check=False)
-    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    pid = os.getpid()
+    tmp = BUILD_DIR / f"libspath_kernels.{pid}.so"
+    objs = [BUILD_DIR / f"{src.stem}.{pid}.o" for src in sources()]
+    procs = [subprocess.Popen(compile_command(src, obj),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    log, failed = [], []
+    for src, proc in zip(sources(), procs):
+        out, _ = proc.communicate()
+        log.append(f"== {src.name} (exit {proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if not failed:
+        proc = subprocess.run(link_command(objs, tmp), capture_output=True,
+                              text=True, check=False)
+        log.append(f"== link (exit {proc.returncode})\n"
+                   f"{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    (BUILD_DIR / "build.log").write_text("".join(log))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                           + "".join(log))
     os.replace(tmp, LIBRARY)
     stamp.write_text(digest + "\n")
     return LIBRARY
@@ -116,6 +141,19 @@ def library() -> ctypes.CDLL:
     lib.spath_megakernel_backward.restype = i32
     lib.spath_megakernel_backward_grid.argtypes = [i32]
     lib.spath_megakernel_backward_grid.restype = i32
+    # K3 and K4: rays, keys, table, rows, ..., n, n_tris, n_rows, spp,
+    # max_bounces, rr_start, flags, inv_spp
+    quality = [i32] * 7 + [ctypes.c_float]
+    lib.spath_quality_forward.argtypes = [ptr] * 6 + quality + [ptr]
+    lib.spath_quality_forward.restype = i32
+    lib.spath_quality_backward.argtypes = (
+        [ptr] * 8 + quality + [ptr])
+    lib.spath_quality_backward.restype = i32
+    lib.spath_quality_backward_grid.argtypes = [i32, i32]
+    lib.spath_quality_backward_grid.restype = i32
+    # the light choice's distribution: emission, area, cdf, prob, T
+    lib.spath_light_cdf.argtypes = [ptr] * 4 + [i32, ptr]
+    lib.spath_light_cdf.restype = i32
     lib.spath_error_string.argtypes = [i32]
     lib.spath_error_string.restype = ctypes.c_char_p
     return lib

@@ -13,6 +13,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from spath_tpu_torch.ops.fp import sqrt_rn
+from spath_tpu_torch.ops.sampling import cross3
+
 
 @dataclasses.dataclass(frozen=True)
 class Scene:
@@ -57,15 +60,9 @@ class Scene:
         Component arithmetic in the JAX package's order; zero-area
         triangles divide by the 1e-30 guard instead of by zero.
         """
-        e1 = self.v1 - self.v0
-        e2 = self.v2 - self.v0
-        n = torch.stack([
-            e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
-            e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
-            e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0],
-        ], dim=1)
-        norm = torch.sqrt(n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1]
-                          + n[:, 2] * n[:, 2])
+        n = cross3(self.v1 - self.v0, self.v2 - self.v0)
+        norm = sqrt_rn(n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1]
+                       + n[:, 2] * n[:, 2])
         return n / torch.clamp_min(norm, 1e-30)[:, None]
 
 

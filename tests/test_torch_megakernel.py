@@ -167,10 +167,13 @@ def test_build_flags_and_rebuild_hash(tmp_path, monkeypatch):
     cmd = build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in cmd and "-fmad=false" in cmd
     assert not any("fast_math" in f or "fast-math" in f for f in cmd)
-    assert [p.name for p in build.sources()] == ["megakernel.cu",
-                                                 "megakernel_grad.cu"]
+    assert [p.name for p in build.sources()] == [
+        "light_cdf.cu", "megakernel.cu", "megakernel_grad.cu",
+        "megakernel_quality.cu", "megakernel_quality_grad.cu"]
     assert [p.name for p in build.hashed_files()] == [
-        "megakernel.cu", "megakernel_common.cuh", "megakernel_grad.cu"]
+        "light_cdf.cu", "megakernel.cu", "megakernel_common.cuh",
+        "megakernel_grad.cu", "megakernel_quality.cu",
+        "megakernel_quality_grad.cu", "quality_walk.cuh"]
     assert build.LIBRARY.parent.parts[-2:] == ("build", "kernels")
     monkeypatch.setattr(build, "SOURCE_DIR", tmp_path)
     (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
@@ -196,9 +199,29 @@ def test_build_flags_and_rebuild_hash(tmp_path, monkeypatch):
     ("megakernel_grad.cu",
      "spath_tpu/ops/pallas/megakernel_grad.py::_mega_bwd_kernel",
      "spath_megakernel_backward"),
+    ("megakernel_quality.cu",
+     "spath_tpu/ops/pallas/megakernel_quality.py::_quality_kernel",
+     "spath_quality_forward"),
+    ("megakernel_quality_grad.cu",
+     "spath_tpu/ops/pallas/megakernel_quality_grad.py::_qbwd_kernel",
+     "spath_quality_backward"),
 ])
 def test_kernel_source_names_what_it_replaces(source, replaces, entry):
+    """Each source names its TPU kernel and entry point, and the walk it
+    shares with its twin: K1/K2 the conformance header, K3/K4 the quality
+    walk (which includes the conformance header's sweeps)."""
     src = (build.SOURCE_DIR / source).read_text()
     assert replaces in src
     assert f'extern "C" int {entry}(' in src
-    assert '#include "megakernel_common.cuh"' in src
+    header = "quality_walk.cuh" if "quality" in source \
+        else "megakernel_common.cuh"
+    assert f'#include "{header}"' in src
+
+
+def test_light_cdf_source_names_what_it_computes():
+    """The light distribution kernel names the JAX function whose columns
+    it builds, its entry point, and the order it sums in."""
+    src = (build.SOURCE_DIR / "light_cdf.cu").read_text()
+    assert "spath_tpu/ops/nee.py::light_cdf" in src
+    assert 'extern "C" int spath_light_cdf(' in src
+    assert "blocks of 16" in src and "-fmad=false" in src

@@ -4,11 +4,16 @@
     python3 tools/torch_profile.py [--calls 5] [--out build/profile]
 
 At 1920x1080, 64 spp, 5 bounces on the default scene, after warm-up,
-traces ``--calls`` calls of each path with ``torch.profiler``:
+traces ``--calls`` calls of each path with ``torch.profiler``, for the
+conformance estimator (K1, K2) and for the quality estimator as the CLI's
+``--mode quality`` builds it (K3, K4):
 
 - serving: ``render_pt_fast``;
 - training: ``make_train_step`` with the CLI's perturbation and
-  optimizer (``param_group_optimizer(freeze_pose=True)``), fixed seed.
+  optimizer (``param_group_optimizer(freeze_pose=True)``), fixed seed;
+  in the quality estimator the pose group is enabled at rate 0, as
+  ``chip_smoke.py`` phase 15 runs it, so the step also carries the
+  camera's gradient.
 
 For each path it prints one JSON line: CUDA-event ms per call around the
 traced calls, the device's busy ms per call (the union of the kernels'
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 HEADLINE = dict(width=1920, height=1080, spp=64, max_bounces=5)
+QUALITY = dict(rng="hash", sampler="cosine", nee=True, mis=True)
 
 
 def busy_and_kernels(trace: dict, calls: int):
@@ -97,26 +103,30 @@ def main() -> int:
     out.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
     scene, cam = default_scene(dev), Camera.default(dev)
-    cfg = RenderConfig(**HEADLINE)
-    print(json.dumps(profile(
-        "serving", lambda: render_pt_fast(scene, cam, cfg, 0), args.calls,
-        out)), flush=True)
-
-    target = forward_renderer(scene, cfg).render_radiance(scene, cam, cfg, 0)
     albedo = scene.albedo.cpu().numpy()
     bad = np.clip(albedo + np.random.default_rng(1).uniform(
         -0.4, 0.4, albedo.shape).astype(np.float32), 0.05, 1.0)
-    state = [init_state(
-        param_group_optimizer(freeze_pose=True, albedo_lr=2e-2),
-        InverseParams(cam.pos, cam.angle, cam.focal,
-                      torch.from_numpy(bad).to(dev)))]
-    step = make_train_step(scene, cfg, fixed_seed=0)
+    for prefix, cfg, optimizer in (
+            ("", RenderConfig(**HEADLINE),
+             param_group_optimizer(freeze_pose=True, albedo_lr=2e-2)),
+            ("quality_", RenderConfig(**HEADLINE, **QUALITY),
+             param_group_optimizer(freeze_pose=False, pose_lr=0.0,
+                                   albedo_lr=2e-2))):
+        print(json.dumps(profile(
+            prefix + "serving", lambda: render_pt_fast(scene, cam, cfg, 0),
+            args.calls, out)), flush=True)
 
-    def train():
-        state[0], _ = step(state[0], target)
+        target = forward_renderer(scene, cfg).render_radiance(scene, cam,
+                                                              cfg, 0)
+        state = [init_state(optimizer, InverseParams(
+            cam.pos, cam.angle, cam.focal, torch.from_numpy(bad).to(dev)))]
+        step = make_train_step(scene, cfg, fixed_seed=0)
 
-    print(json.dumps(profile("training", train, args.calls, out)),
-          flush=True)
+        def train():
+            state[0], _ = step(state[0], target)
+
+        print(json.dumps(profile(prefix + "training", train, args.calls,
+                                 out)), flush=True)
     return 0
 
 
