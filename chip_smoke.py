@@ -7,8 +7,9 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 It builds the CUDA kernels from ``spath_tpu_torch/csrc`` and drives the
 port's serving and training paths, conformance estimator (phases 1-10:
-K1, K2) and quality estimator (phases 11-17: K3, K4), through the entry
-points a user calls; any failure exits non-zero before a result is
+K1, K2), quality estimator (phases 11-17: K3, K4) and conformance
+estimator on large scenes (phases 18-25: K6, K8 and K7), through the
+entry points a user calls; any failure exits non-zero before a result is
 printed.
 
 1. Device: the card's name and power limit, and the kernel build.
@@ -75,6 +76,38 @@ printed.
     the quality walk's sweeps, hits and light-choice steps counted by the
     plain replay for the kernels' bounds; the light distribution kernel
     and its plain version timed on the default scene.
+18. The stream scatter K7 against its float64 plain version on synthetic
+    events (T = 2^20 and 1000; half the events on 4 hot triangles, a
+    tenth -1): each column within 1e-5 of its max, two launches bitwise
+    equal.
+19. K6 against K1, to the bit, on the default, 25-triangle and
+    1024-triangle scenes at phase 2's and phase 6's shapes; against its
+    plain version (phase 2's bounds) on the 1150-triangle combined scene
+    at 320x240x8, procedural_scene(10_000) at 64x48x2 and
+    procedural_scene(2^20) at 32x16x1, 3 bounces.
+20. K8 with K7 against ``mega_bwd_plain`` (phase 6's bounds, columns 0-8
+    zero, two launches bitwise equal) at phase 19's shapes, and within
+    1e-5 of K2 at T <= 1024.
+21. The large-scene serving slice at full width: ``render_pt_fast`` on
+    procedural_scene(10_000, seed=0) at 1920x1080, 64 spp, 5 bounces
+    through one K6 launch and no other kernel; the frame's rows 536-543
+    against the plain version on the same rays and seeds, and against K6
+    launched on those rows alone; then procedural_scene(100_000) at 2 spp.
+22. The gradient entry point on the 1150-triangle scene at 320x240x8
+    through K6, K8 and K7, against autograd of the plain wavefront, and
+    emission linearity.
+23. The large-scene training slice: 3 steps of ``make_train_step`` on
+    procedural_scene(10_000) at 1920x1080, 8 spp, 5 bounces; each step
+    launches K6 once and K8 and K7 once a chunk of samples; the loss falls.
+24. The CLI: ``render --scene procedural:10000`` and ``invert --scene
+    procedural:2000`` at 640x480.
+25. The routing crossover table (K1 vs K6, K1+K2 vs K6+K8+K7 at T = 64 to
+    1024, 320x240x8); K6 timed at phase 21's shape, K8 and K7 at phase
+    23's (CUDA events; K8's time is the backward call's less its K7
+    calls), the plain versions on
+    rows 536-543 in turns with the kernel on the same rows, ``index_add_``
+    beside K7, and the walk counted on rows spread over the frame for the
+    bounds.
 
 The last three lines of standard output are the kernels' JSON record,
 the card as ``nvidia-smi`` names it, and ``{"ok": true, "device": ...}``.
@@ -170,6 +203,32 @@ QGRAD_GROUPS = {"v0": (slice(0, 3), 1e-4), "e1": (slice(3, 6), 1e-4),
 #: adjoints, the origin chain, 18 accumulating adds) and ~206 per lane
 #: whose NEE term counted (its geometry again and its adjoint, 16 adds).
 SHARED_MT_OPS, K3_HIT_OPS, K4_HIT_OPS, K4_NEE_OPS = MT_OPS - 17, 160, 315, 206
+#: The large-scene cells (BASELINE config 4, bench.py:292-310): serving on
+#: procedural_scene(BIG_T, seed=0) at the headline shape, and on
+#: procedural_scene(HUGE_T, seed=0) at HUGE_SPP samples (cut from 64 for
+#: time, as bench.py cuts it); training on the first at BIG_TRAIN_SPP
+#: samples (cut from 64 for time).
+BIG_T, HUGE_T, HUGE_SPP, BIG_TRAIN_SPP = 10_000, 100_000, 2, 8
+#: The scene of the streamed kernels' checks: the default scene and
+#: procedural_scene(COMBINED_EXTRA, seed=0, emissive_fraction=0.05),
+#: 1150 triangles (tests/test_bigscene.py).
+COMBINED_EXTRA = 1143
+#: Rows of the full-width frames held to the plain version (rays are
+#: independent, so a band of rows is the same rays and seeds), and rows
+#: spread over the frame whose walk the plain replay counts for the
+#: bounds, scaled to the frame.
+BAND_ROWS, COUNT_ROWS = range(536, 544), range(67, 1080, 135)
+#: K7 against its plain version (float64 sums) on synthetic events
+#: (T, E): within SCATTER_RTOL of each column's max|plain|.
+SCATTER_CASES, SCATTER_RTOL = ((1 << 20, 1 << 20), (1000, 1 << 16)), 1e-5
+#: The routing crossover table: procedural scenes of these sizes at
+#: 320x240, 8 spp.
+CROSSOVER_T = (64, 128, 256, 512, 1024)
+#: A launch longer than this (ms) is timed once, else twice.
+LONG_LAUNCH_MS = 20e3
+#: Per hit, K8 does K2's work but the 9 accumulating adds, which K7 does
+#: per event.
+K8_HIT_OPS, K7_EVENT_OPS = K2_HIT_OPS - 9, 9
 
 
 class SmokeFailure(Exception):
@@ -265,23 +324,28 @@ def kernel_device_ms(torch, fn, reps: int, kernel: str) -> float:
     """Device ms of one launch of the kernel whose name holds ``kernel``,
     from a ``torch.profiler`` trace of ``reps`` calls of ``fn``: CUDA
     events around back-to-back launches of a few microseconds time the
-    host's launch rate, not the kernel."""
+    host's launch rate, not the kernel. The trace must hold all ``reps``
+    launches; on an H100 the profiler once missed one launch of 50 (in
+    eight runs), so a short trace is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-    durs = [e["dur"] for e in events if e.get("cat") == "kernel"
-            and kernel in e.get("name", "") and "dur" in e]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        durs = [e["dur"] for e in events if e.get("cat") == "kernel"
+                and kernel in e.get("name", "") and "dur" in e]
+        if len(durs) == reps:
+            break
     check(len(durs) == reps, f"{len(durs)} {kernel} kernels traced in "
-          f"{reps} calls")
+          f"{reps} calls (the last of 3 traces)")
     return sum(durs) / 1e3 / reps
 
 
@@ -291,46 +355,84 @@ def bound(ops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def backward_vs_plain(torch, o, d, seeds, tri, cfg, name: str):
-    """K2 against ``mega_bwd_plain`` on the same rays and a cotangent
-    drawn uniform in [0.1, 1) from seed 3: each column group within
-    GRAD_RTOL of its own max|plain| (exactly equal where the plain group
-    is zero), columns 0-8 exactly zero, two launches bitwise equal.
-    Returns the comparison and the cotangent."""
+def backward_vs_plain(torch, o, d, seeds, tri, cfg, name: str,
+                      streamed: bool = False, tri_block: int = 512):
+    """K2 (or, ``streamed``, K8 with K7) against ``mega_bwd_plain`` on the
+    same rays and a cotangent drawn uniform in [0.1, 1) from seed 3: each
+    column group within GRAD_RTOL of its own max|plain| (exactly equal
+    where the plain group is zero), columns 0-8 exactly zero, two
+    launches bitwise equal; K8 also within GRAD_RTOL of K2 where K2 takes
+    the scene. Returns the comparison and the cotangent."""
+    from spath_tpu_torch.ops.kernels import bigscene_grad as bg
     from spath_tpu_torch.ops.kernels import megakernel_grad as mg
 
+    call = bg.bigscene_bwd_call if streamed else mg.mega_bwd_call
     gen = torch.Generator().manual_seed(3)
     gbar = (torch.rand((o.shape[0], 3), generator=gen) * 0.9
             + 0.1).to(o.device)
-    got = mg.mega_bwd_call(o, d, seeds, tri, gbar, cfg)
-    again = mg.mega_bwd_call(o, d, seeds, tri, gbar, cfg)
+    got = call(o, d, seeds, tri, gbar, cfg)
+    again = call(o, d, seeds, tri, gbar, cfg)
     torch.cuda.synchronize()
-    want = mg.mega_bwd_plain(o, d, seeds, tri, gbar, cfg)
-    check(torch.isfinite(got).all().item(), f"{name}: K2 not finite")
+    want = mg.mega_bwd_plain(o, d, seeds, tri, gbar,
+                             cfg.replace(tri_block=tri_block))
+    check(torch.isfinite(got).all().item(), f"{name}: kernel not finite")
     check(want.abs().max().item() > 0.0, f"{name}: the plain adjoint is "
           "zero")
     rel = {}
     for group, cols in GRAD_GROUPS.items():
         scale = want[:, cols].abs().max().item()
         err = (got[:, cols] - want[:, cols]).abs().max().item()
-        check(err <= GRAD_RTOL * scale, f"{name}: K2's {group} adjoint off "
+        check(err <= GRAD_RTOL * scale, f"{name}: the {group} adjoint off "
               f"its plain version by {err:.6g}, max|plain| {scale:.6g}")
         rel[group] = err / scale if scale else 0.0
     check(bool((got[:, :9] == 0).all()), f"{name}: columns 0-8 not zero")
     check(torch.equal(got, again), f"{name}: two launches differ")
+    if streamed and tri.shape[0] <= mg.GRAD_MAX_TRIS:
+        k2 = mg.mega_bwd_call(o, d, seeds, tri, gbar, cfg)
+        for group, cols in GRAD_GROUPS.items():
+            scale = k2[:, cols].abs().max().item()
+            err = (got[:, cols] - k2[:, cols]).abs().max().item()
+            check(err <= GRAD_RTOL * scale, f"{name}: K8's {group} adjoint "
+                  f"off K2's by {err:.6g}, max|K2| {scale:.6g}")
+            rel[f"{group} vs K2"] = err / scale if scale else 0.0
     return dict(max_abs_err=(got - want).abs().max().item(),
                 rel_err_by_group=rel, deterministic=True), gbar
 
 
-def gradient_entry(torch, dev, cam, scene) -> str:
-    """Phase 7: ``render_radiance_fastgrad`` on the card against autograd
-    of the plain wavefront, then emission linearity through K1 twice."""
+def counts(kernels: dict) -> dict:
+    """The launch counts of ``{name: wrapper}``."""
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def zero_counts(kernels: dict) -> None:
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def conformance_kernels(big: bool) -> dict:
+    """The wrappers of the conformance path: the fused K1/K2 or the
+    streamed K6/K8/K7."""
+    from spath_tpu_torch.ops.kernels import bigscene as bs
+    from spath_tpu_torch.ops.kernels import bigscene_grad as bg
+    from spath_tpu_torch.ops.kernels import megakernel as mk
+    from spath_tpu_torch.ops.kernels import megakernel_grad as mg
+    from spath_tpu_torch.ops.kernels import stream_scatter as ss
+
+    if big:
+        return {"K6": bs.bigscene_call, "K8": bg.bigscene_bwd_call,
+                "K7": ss.stream_scatter_call}
+    return {"K1": mk.mega_call, "K2": mg.mega_bwd_call}
+
+
+def gradient_entry(torch, dev, cam, scene, big: bool = False) -> str:
+    """Phase 7 (and 22 with ``big``): ``render_radiance_fastgrad`` on the
+    card against autograd of the plain wavefront, then emission linearity
+    through the forward kernel twice. Every kernel of the path launches,
+    the other path's kernels do not."""
     from spath_tpu_torch.config import RenderConfig
     from spath_tpu_torch.models.pathtracer import (
         render_radiance, render_radiance_fastgrad,
     )
-    from spath_tpu_torch.ops.kernels import megakernel as mk
-    from spath_tpu_torch.ops.kernels import megakernel_grad as mg
     from spath_tpu_torch.scene import Scene
 
     cfg = RenderConfig(width=320, height=240, spp=8, max_bounces=5)
@@ -344,12 +446,14 @@ def gradient_entry(torch, dev, cam, scene) -> str:
         loss = (render(Scene(*leaves), cam, cfg, 0) * wts).sum()
         return torch.autograd.grad(loss, leaves)
 
-    mk.mega_call.launches = mg.mega_bwd_call.launches = 0
+    path, other = conformance_kernels(big), conformance_kernels(not big)
+    zero_counts({**path, **other})
     got = grads(render_radiance_fastgrad)
     torch.cuda.synchronize()
-    k1, k2 = mk.mega_call.launches, mg.mega_bwd_call.launches
-    check(k1 > 0 and k2 > 0, f"render_radiance_fastgrad launched K1 {k1} "
-          f"and K2 {k2} times")
+    launched = counts({**path, **other})
+    check(all(launched[k] > 0 for k in path)
+          and not any(launched[k] for k in other),
+          f"render_radiance_fastgrad launched {launched}")
     want = grads(render_radiance)
     errs = {}
     for name, g, w in zip(("vertices", "albedo", "emission"), got, want):
@@ -371,14 +475,16 @@ def gradient_entry(torch, dev, cam, scene) -> str:
     want_d, got_d = f1 - loss.item(), (g * direction).sum().item()
     check(abs(got_d - want_d) <= LINEARITY_RTOL * max(abs(want_d), 1e-6),
           f"emission linearity: <g, dir> {got_d} against {want_d}")
-    return (f"K1 {k1} and K2 {k2} launches; gradient error / max: "
+    return (f"launches {launched}; gradient error / max: "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
             + f"; emission <g, dir> {got_d:.7g} vs L(e+dir) - L(e) "
             f"{want_d:.7g}")
 
 
-def training(torch, dev, cam, scene, cfg) -> dict:
-    """Phase 8: three train steps at full width through K1 and K2."""
+def training(torch, dev, cam, scene, cfg, per_step=None) -> dict:
+    """Phase 8 (and 23): three train steps at full width through K1 and
+    K2, or, given ``per_step`` ({kernel: launches a step}), through the
+    streamed K6, K8 and K7; the other path's kernels do not launch."""
     import numpy as np
 
     from spath_tpu_torch.models.inverse import (
@@ -386,8 +492,6 @@ def training(torch, dev, cam, scene, cfg) -> dict:
     )
     from spath_tpu_torch.models.pathtracer import render_radiance_fastgrad
     from spath_tpu_torch.models.renderer import forward_renderer
-    from spath_tpu_torch.ops.kernels import megakernel as mk
-    from spath_tpu_torch.ops.kernels import megakernel_grad as mg
 
     target = forward_renderer(scene, cfg).render_radiance(scene, cam, cfg, 0)
     true_albedo = scene.albedo.cpu().numpy()
@@ -402,7 +506,10 @@ def training(torch, dev, cam, scene, cfg) -> dict:
     step = make_train_step(scene, cfg, fixed_seed=0)
     torch.cuda.synchronize()
 
-    mk.mega_call.launches = mg.mega_bwd_call.launches = 0
+    big = per_step is not None
+    per_step = per_step or {"K1": 1, "K2": 1}
+    path, other = conformance_kernels(big), conformance_kernels(not big)
+    zero_counts({**path, **other})
     losses, step_s = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -410,9 +517,10 @@ def training(torch, dev, cam, scene, cfg) -> dict:
         losses.append(float(aux["loss"]))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    k1, k2 = mk.mega_call.launches, mg.mega_bwd_call.launches
-    check(k1 == 3 and k2 == 3, f"3 train steps launched K1 {k1} and K2 "
-          f"{k2} times")
+    launched = counts({**path, **other})
+    check(launched == {**{k: 0 for k in other},
+                       **{k: 3 * per_step[k] for k in path}},
+          f"3 train steps launched {launched}")
     check(all(np.isfinite(losses)), f"losses {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
 
@@ -424,8 +532,9 @@ def training(torch, dev, cam, scene, cfg) -> dict:
         torch.autograd.grad(((img - target) ** 2).mean(), [albedo])
 
     fwd_bwd()
-    ms = event_ms(torch, fwd_bwd, 3)
-    return dict(k1=k1, k2=k2, losses=losses, step_s=step_s, fwd_bwd_ms=ms)
+    ms = event_ms(torch, fwd_bwd, 1 if big else 3)
+    return dict(launches=launched, losses=losses, step_s=step_s,
+                fwd_bwd_ms=ms, **{k.lower(): v for k, v in launched.items()})
 
 
 def cli_invert(cli) -> str:
@@ -751,6 +860,255 @@ def quality_walk_counts(torch, o, d, keys, tri, rows, cfg) -> dict:
                 select_steps=hits * n_rows if cfg.nee else 0, nee_lanes=oks)
 
 
+def combined_scene(device):
+    """The default scene and procedural_scene(COMBINED_EXTRA, seed=0,
+    emissive_fraction=0.05): real multi-bounce light on 1150 triangles."""
+    import numpy as np
+
+    from spath_tpu_torch.convert import scene_to_numpy
+    from spath_tpu_torch.scene import default_scene, make_scene, \
+        procedural_scene
+
+    parts = [scene_to_numpy(default_scene("cpu")),
+             scene_to_numpy(procedural_scene(COMBINED_EXTRA, seed=0,
+                                             emissive_fraction=0.05,
+                                             device="cpu"))]
+    return make_scene(*(np.concatenate([p[k] for p in parts])
+                        for k in range(3)), device)
+
+
+def rows_of(torch, width: int, rows, *tensors):
+    """The rays of the given frame rows, contiguous."""
+    idx = torch.cat([torch.arange(r * width, (r + 1) * width)
+                     for r in rows]).to(tensors[0].device)
+    return tuple(t[idx].contiguous() for t in tensors)
+
+
+def walk_counts(torch, o, d, seeds, tri, cfg, cta: int = 128) -> dict:
+    """The conformance walk's work on these rays, from the plain replay:
+    ray sweeps (the camera sweep and one after every hit but the last
+    bounce's), hits, and the sweeps of the streamed kernels' 128-ray CTAs
+    (a CTA sweeps while any of its rays still hits), so the share of
+    their lanes that idle through a sweep."""
+    from spath_tpu_torch.ops.kernels import megakernel_grad as mg
+
+    n = o.shape[0]
+    pad = (-n) % cta
+    sweeps, hits, cta_sweeps = n, 0, (n + pad) // cta
+    with torch.no_grad():
+        for saved in mg.replay(o, d, seeds, tri, cfg):
+            masks = [hit for hit, *_ in saved]
+            per_bounce = torch.stack([m.sum() for m in masks])
+            hits += int(per_bounce.sum())
+            sweeps += int(per_bounce[:-1].sum())
+            for m in masks[:-1]:
+                live = torch.nn.functional.pad(m, (0, pad))
+                cta_sweeps += int(live.view(-1, cta).any(1).sum())
+    return dict(rays=n, sweeps=sweeps, hits=hits, cta_sweeps=cta_sweeps,
+                idle_lane_share=1.0 - sweeps / (cta_sweeps * cta))
+
+
+def scaled(walk: dict, factor: float) -> dict:
+    return {k: (v * factor if k != "idle_lane_share" else v)
+            for k, v in walk.items()}
+
+
+def scatter_vs_plain(torch, dev, n_tris: int, n_events: int) -> dict:
+    """Phase 18: K7 against its float64 plain version on synthetic events
+    from numpy: half on 4 hot triangles, a tenth -1; each column within
+    SCATTER_RTOL of its max|plain|, two launches bitwise equal."""
+    import numpy as np
+
+    from spath_tpu_torch.ops.kernels import stream_scatter as ss
+
+    rng = np.random.default_rng(n_tris)
+    idx = rng.integers(0, n_tris, size=n_events).astype(np.int32)
+    hot = rng.integers(0, n_tris, size=4)
+    on_hot = rng.random(n_events) < 0.5
+    idx[on_hot] = hot[rng.integers(0, 4, size=int(on_hot.sum()))]
+    idx[rng.random(n_events) < 0.1] = -1
+    val = rng.normal(size=(n_events, 9)).astype(np.float32)
+    i, v = torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev)
+
+    def zeros():
+        return torch.zeros((n_tris, 9), dtype=torch.float32, device=dev)
+
+    got = ss.stream_scatter_call(zeros(), i, v)
+    again = ss.stream_scatter_call(zeros(), i, v)
+    torch.cuda.synchronize()
+    want = ss.stream_scatter_plain(zeros(), i, v)
+    scale = want.abs().amax(0)
+    err = (got - want).abs().amax(0)
+    check(torch.isfinite(got).all().item(), "K7 not finite")
+    check(bool((err <= SCATTER_RTOL * scale).all()), f"K7 off its plain "
+          f"version by {err.tolist()}, max|plain| {scale.tolist()}")
+    check(torch.equal(got, again), "K7: two launches differ")
+    return dict(n_tris=n_tris, events=n_events,
+                depth=int(np.bincount(idx[idx >= 0]).max()),
+                max_abs_err=err.max().item(),
+                rel_err=(err / scale).max().item(), deterministic=True)
+
+
+def big_vs_k1(torch, cam, scene, cfg, name: str) -> dict:
+    """Phase 19: K6 equals K1 to the bit on the same rays."""
+    from spath_tpu_torch.ops.kernels import bigscene as bs
+    from spath_tpu_torch.ops.kernels import megakernel as mk
+
+    o, d, seeds = mk.pack_rays(cam, cfg, 0)
+    tri = mk.scene_table(scene)
+    got = bs.bigscene_call(o, d, seeds, tri, cfg)
+    want = mk.mega_call(o, d, seeds, tri, cfg)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"{name}: K6 differs from K1 by "
+          f"{(got - want).abs().max().item():.6g}")
+    return dict(bit_exact=True, mean=got.mean().item())
+
+
+def big_vs_plain(torch, cam, scene, cfg, name: str, tri_block: int) -> dict:
+    """Phase 19: K6 against ``megakernel_plain`` on the same rays, with
+    phase 2's bounds (the plain sweep's ``tri_block`` changes its memory,
+    not its result)."""
+    from spath_tpu_torch.ops.kernels import bigscene as bs
+    from spath_tpu_torch.ops.kernels import megakernel as mk
+
+    o, d, seeds = mk.pack_rays(cam, cfg, 0)
+    tri = mk.scene_table(scene)
+    got = bs.bigscene_call(o, d, seeds, tri, cfg)
+    torch.cuda.synchronize()
+    want = mk.megakernel_plain(o, d, seeds, tri,
+                               cfg.replace(tri_block=tri_block))
+    return check_against_plain(torch, got, want, name)
+
+
+def big_serving(torch, dev, cam, n_tris: int, cfg, tri_block: int) -> dict:
+    """Phase 21: ``render_pt_fast`` on procedural_scene(n_tris, seed=0)
+    at full width through one K6 launch and nothing else; the frame's
+    band of rows against the plain version on the same rays and seeds
+    (phase 2's bounds) and against K6 launched on the band alone (to the
+    bit); the frame not vacuous."""
+    from spath_tpu_torch.models.pathtracer import render_pt_fast
+    from spath_tpu_torch.ops.kernels import bigscene as bs
+    from spath_tpu_torch.ops.kernels import megakernel as mk
+    from spath_tpu_torch.scene import procedural_scene
+
+    scene = procedural_scene(n_tris, seed=0, device=dev)
+    kernels = {**conformance_kernels(True), **conformance_kernels(False)}
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    img = render_pt_fast(scene, cam, cfg, 0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launched = counts(kernels)
+    check(launched == {"K6": 1, "K8": 0, "K7": 0, "K1": 0, "K2": 0},
+          f"render_pt_fast on {n_tris} triangles launched {launched}")
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3),
+          f"shape {tuple(img.shape)}")
+    check(torch.isfinite(img).all().item(), "frame not finite")
+    check(img.min().item() >= 0.0 and img.max().item() <= 1.0,
+          "frame outside [0, 1]")
+    mean = img.mean().item()
+    check(mean > 1e-3, f"vacuous frame: mean {mean}")
+    o, d, seeds = mk.pack_rays(cam, cfg, 0)
+    tri = mk.scene_table(scene)
+    band = rows_of(torch, cfg.width, BAND_ROWS, o, d, seeds)
+    band_k = bs.bigscene_call(*band, tri, cfg)
+    torch.cuda.synchronize()
+    check(torch.equal(img[BAND_ROWS.start:BAND_ROWS.stop].reshape(-1, 3),
+                      band_k.clamp(0.0, 1.0)),
+          "the frame's band differs from K6 launched on the band")
+    band_p = mk.megakernel_plain(*band, tri,
+                                 cfg.replace(tri_block=tri_block))
+    c = check_against_plain(torch, band_k, band_p,
+                            f"{n_tris} triangles, rows {BAND_ROWS}")
+    return dict(launches=launched, first_s=first_s, mean=mean,
+                band_vs_plain=c, rays=(o, d, seeds), band=band, tri=tri,
+                scene=scene)
+
+
+def big_cli(cli) -> str:
+    """Phase 24: ``render --scene procedural:10000`` through K6 alone and
+    ``invert --scene procedural:2000`` through K6, K8 and K7 alone; the
+    albedo error falls."""
+    import contextlib
+    import io
+    import re
+
+    from spath_tpu_torch.utils.image import read_png
+
+    kernels = {**conformance_kernels(True), **conformance_kernels(False)}
+    w, h = CLI_SIZE
+    zero_counts(kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        png = Path(tmp) / "big.png"
+        check(cli.main(["render", "--scene", f"procedural:{BIG_T}",
+                        "--size", f"{w}x{h}", "--spp", "16", "--out",
+                        str(png)]) == 0, "cli render --scene failed")
+        img = read_png(str(png))
+        check(img.shape == (h, w, 3) and img.max() > 0, "scene PNG is black")
+    rendered = counts(kernels)
+    check(rendered == {"K6": 1, "K8": 0, "K7": 0, "K1": 0, "K2": 0},
+          f"cli render --scene launched {rendered}")
+    zero_counts(kernels)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["invert", "--scene", "procedural:2000", "--size",
+                       f"{w}x{h}", "--spp", "16", "--steps", "5"])
+    text = out.getvalue()
+    inverted = counts(kernels)
+    m = re.search(r"albedo error ([0-9.]+) -> ([0-9.]+)", text)
+    check(rc == 0 and m is not None, f"cli invert: rc {rc}, {text!r}")
+    check(float(m[2]) < float(m[1]), f"albedo error did not fall: {text!r}")
+    check(inverted["K1"] == inverted["K2"] == 0
+          and min(inverted["K6"], inverted["K8"], inverted["K7"]) > 0,
+          f"cli invert --scene launched {inverted}")
+    return (f"render launched {rendered}; invert launched {inverted}: "
+            f"{text.strip()}")
+
+
+def bwd_split_ms(torch, call, *args) -> tuple[float, float]:
+    """CUDA-event ms of one ``bigscene_bwd_call(*args)`` split into its
+    K7 calls (events around each) and the rest, which is its K8 launches
+    and a few small fills and copies."""
+    from spath_tpu_torch.ops.kernels import bigscene_grad as bg
+    from spath_tpu_torch.ops.kernels import stream_scatter as ss
+
+    marks = []
+
+    def timed(adj, idx, val):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = ss.stream_scatter_call(adj, idx, val)
+        b.record()
+        marks.append((a, b))
+        return out
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    bg.stream_scatter_call = timed
+    try:
+        start.record()
+        call(*args)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        bg.stream_scatter_call = ss.stream_scatter_call
+    k7 = sum(a.elapsed_time(b) for a, b in marks)
+    return start.elapsed_time(end) - k7, k7
+
+
+def in_turns(torch, kernel, plain, kernel_reps: int = 1):
+    """Plain, kernel, kernel, plain, each timed with CUDA events; the
+    kernel once only where a launch passes LONG_LAUNCH_MS. Returns
+    ``(kernel ms list, plain ms list)``."""
+    plain_ms = [event_ms(torch, plain, 1)]
+    kernel_ms = [event_ms(torch, kernel, kernel_reps)]
+    if kernel_ms[0] < LONG_LAUNCH_MS:
+        kernel_ms.append(event_ms(torch, kernel, kernel_reps))
+    plain_ms.append(event_ms(torch, plain, 1))
+    return kernel_ms, plain_ms
+
+
 def run() -> None:
     import torch
 
@@ -896,7 +1254,7 @@ def run() -> None:
     # 8. the training slice at full width
     tr = training(torch, dev, cam, scene, cfg)
     log(f"[8] 3 train steps {frame} {cfg.max_bounces} bounces on {smi}: "
-        f"K1 {tr['k1']} and K2 {tr['k2']} launches, losses {tr['losses']}, "
+        f"launches {tr['launches']}, losses {tr['losses']}, "
         f"step s {[round(x, 6) for x in tr['step_s']]}; "
         f"render_radiance_fastgrad forward+backward {tr['fwd_bwd_ms']:.3f} "
         f"ms, {segs / (tr['fwd_bwd_ms'] / 1e3):.4e} rays/s")
@@ -916,15 +1274,10 @@ def run() -> None:
     bkernel_ms = [event_ms(torch, backward, 3), event_ms(torch, backward, 3)]
     bplain_ms.append(event_ms(torch, backward_plain, 1))
     k2_ms, p2_ms = sum(bkernel_ms) / 2, sum(bplain_ms) / 2
-    # the walk's work, from the plain replay: one camera sweep per ray,
-    # then a sweep for every bounce after a hit
+    # the walk's work, from the plain replay
     n, n_tris = o.shape[0], tri.shape[0]
-    sweeps, hits = n, 0
-    with torch.no_grad():
-        for saved in mg.replay(o, d, seeds, tri, cfg):
-            per_bounce = torch.stack([hit.sum() for hit, *_ in saved])
-            hits += int(per_bounce.sum())
-            sweeps += int(per_bounce[:-1].sum())
+    walk10 = walk_counts(torch, o, d, seeds, tri, cfg)
+    sweeps, hits = walk10["sweeps"], walk10["hits"]
     ray_bytes = n * (24 + 8) + n_tris * 18 * 4
     k1_ops = sweeps * n_tris * MT_OPS + hits * K1_HIT_OPS
     k2_ops = sweeps * n_tris * MT_OPS + hits * K2_HIT_OPS
@@ -1118,6 +1471,247 @@ def run() -> None:
         f"without FMA: K3 {k3_ops / NOFMA_OPS * 1e3:.4f} ms, K4 "
         f"{k4_ops / NOFMA_OPS * 1e3:.4f} ms")
 
+
+    # ---- large scenes: the streamed kernels K6, K8 and K7 ----
+    from spath_tpu_torch.ops.kernels import bigscene as bs
+    from spath_tpu_torch.ops.kernels import bigscene_grad as bg
+    from spath_tpu_torch.ops.kernels import stream_scatter as ss
+
+    # 18. K7 against its plain version on synthetic events
+    for n_tris_s, n_events in SCATTER_CASES:
+        log(f"[18] K7 vs plain, T={n_tris_s}, {n_events} events: "
+            f"{scatter_vs_plain(torch, dev, n_tris_s, n_events)}")
+
+    # 19. K6 against K1 (to the bit) and against its plain version
+    combined = combined_scene(dev)
+    huge = procedural_scene(bs.BIG_MAX_TRIS, seed=0, device=dev)
+    for name, kscene in (("default", default_scene(dev)),
+                         ("25 triangles", scene_25(dev)),
+                         ("1024 triangles",
+                          procedural_scene(1024, seed=1, device=dev))):
+        for kcfg in (small, largest):
+            log(f"[19] K6 vs K1, {name}, {kcfg.width}x{kcfg.height} "
+                f"spp{kcfg.spp}: {big_vs_k1(torch, cam, kscene, kcfg, name)}")
+    big_shapes = (
+        (f"{combined.n_tris} triangles", combined, small, 512),
+        (f"{BIG_T} triangles", procedural_scene(BIG_T, seed=0, device=dev),
+         largest, 2048),
+        (f"{bs.BIG_MAX_TRIS} triangles", huge,
+         RenderConfig(width=32, height=16, spp=1, max_bounces=3), 8192))
+    for name, kscene, kcfg, block in big_shapes:
+        c = big_vs_plain(torch, cam, kscene, kcfg, name, block)
+        log(f"[19] K6 vs plain, {name}, {kcfg.width}x{kcfg.height} "
+            f"spp{kcfg.spp} {kcfg.max_bounces} bounces: {c}")
+
+    # 20. K8 (with K7) against mega_bwd_plain, and against K2 where K2
+    # takes the scene
+    for name, kscene, kcfg in (("default", default_scene(dev), small),
+                               ("25 triangles", scene_25(dev), small),
+                               ("1024 triangles",
+                                procedural_scene(1024, seed=1, device=dev),
+                                largest)):
+        c, _ = backward_vs_plain(torch, *mk.pack_rays(cam, kcfg, 0),
+                                 mk.scene_table(kscene), kcfg,
+                                 f"K8 {name}", streamed=True)
+        log(f"[20] K8 vs plain and K2, {name}, {kcfg.width}x{kcfg.height} "
+            f"spp{kcfg.spp}: {c}")
+    for name, kscene, kcfg, block in big_shapes:
+        c, _ = backward_vs_plain(torch, *mk.pack_rays(cam, kcfg, 0),
+                                 mk.scene_table(kscene), kcfg, f"K8 {name}",
+                                 streamed=True, tri_block=block)
+        log(f"[20] K8 vs plain, {name}, {kcfg.width}x{kcfg.height} "
+            f"spp{kcfg.spp} {kcfg.max_bounces} bounces: {c}")
+    del huge, big_shapes
+
+    # 21. the large-scene serving slice at full width, through K6 alone
+    big_cfg = RenderConfig(**HEADLINE)
+    serve = big_serving(torch, dev, cam, BIG_T, big_cfg, 2048)
+    big_frame = f"{big_cfg.width}x{big_cfg.height} spp{big_cfg.spp}"
+    log(f"[21] render_pt_fast, {BIG_T} triangles, {big_frame} "
+        f"{big_cfg.max_bounces} bounces: launches {serve['launches']}, first "
+        f"call {serve['first_s']:.3f} s, mean {serve['mean']:.6f}; rows "
+        f"{BAND_ROWS.start}-{BAND_ROWS.stop - 1} vs plain: "
+        f"{serve['band_vs_plain']}; the frame's band equals K6 on the band")
+    huge_cfg = big_cfg.replace(spp=HUGE_SPP)
+    huge_serve = big_serving(torch, dev, cam, HUGE_T, huge_cfg, 2048)
+    log(f"[21] render_pt_fast, {HUGE_T} triangles, {huge_cfg.width}x"
+        f"{huge_cfg.height} spp{huge_cfg.spp} (cut from 64 for time) "
+        f"{huge_cfg.max_bounces} bounces: launches {huge_serve['launches']}, "
+        f"first call {huge_serve['first_s']:.3f} s, mean "
+        f"{huge_serve['mean']:.6f}; band vs plain: "
+        f"{huge_serve['band_vs_plain']}")
+    del huge_serve
+
+    # 22. the gradient entry point on a scene above the crossover
+    log(f"[22] render_radiance_fastgrad, {combined.n_tris} triangles, "
+        f"320x240 spp8: {gradient_entry(torch, dev, cam, combined, big=True)}")
+
+    # 23. the large-scene training slice at full width
+    train_cfg = big_cfg.replace(spp=BIG_TRAIN_SPP)
+    n_full = big_cfg.width * big_cfg.height
+    chunks = -(-train_cfg.spp // bg.chunk_samples(n_full, train_cfg))
+    btr = training(torch, dev, cam, serve["scene"], train_cfg,
+                   per_step={"K6": 1, "K8": chunks, "K7": chunks})
+    log(f"[23] 3 train steps, {BIG_T} triangles, {big_cfg.width}x"
+        f"{big_cfg.height} spp{train_cfg.spp} (cut from 64 for time) "
+        f"{train_cfg.max_bounces} bounces, {chunks} chunks of "
+        f"{bg.chunk_samples(n_full, train_cfg)} samples, on {smi}: launches "
+        f"{btr['launches']}, losses {btr['losses']}, step s "
+        f"{[round(x, 6) for x in btr['step_s']]}; forward+backward "
+        f"{btr['fwd_bwd_ms']:.3f} ms")
+
+    # 24. the CLI on large scenes
+    log(f"[24] cli --scene {CLI_SIZE[0]}x{CLI_SIZE[1]} spp16: {big_cli(cli)}")
+
+    # 25. the routing crossover table, then K6, K8 and K7 timed at the
+    # main path's shapes
+    crossover = []
+    for n_x in CROSSOVER_T:
+        xscene = procedural_scene(n_x, seed=0, device=dev)
+        xo, xd, xs = mk.pack_rays(cam, small, 0)
+        xtri = mk.scene_table(xscene)
+        xg = torch.rand((xo.shape[0], 3), generator=torch.Generator()
+                        .manual_seed(3)).to(dev)
+        fused_f = lambda: mk.mega_call(xo, xd, xs, xtri, small)  # noqa: E731
+        streamed_f = lambda: bs.bigscene_call(  # noqa: E731
+            xo, xd, xs, xtri, small)
+
+        def fused_b():
+            mk.mega_call(xo, xd, xs, xtri, small)
+            mg.mega_bwd_call(xo, xd, xs, xtri, xg, small)
+
+        def streamed_b():
+            bs.bigscene_call(xo, xd, xs, xtri, small)
+            bg.bigscene_bwd_call(xo, xd, xs, xtri, xg, small)
+
+        row = dict(n_tris=n_x)
+        for key, f1, f2 in (("forward", fused_f, streamed_f),
+                            ("forward+backward", fused_b, streamed_b)):
+            f1(), f2()
+            t = [event_ms(torch, f1, 5), event_ms(torch, f2, 5),
+                 event_ms(torch, f2, 5), event_ms(torch, f1, 5)]
+            row[key] = dict(fused_ms=(t[0] + t[3]) / 2,
+                            streamed_ms=(t[1] + t[2]) / 2)
+        crossover.append(row)
+        log(f"[25] crossover, {n_x} triangles, 320x240 spp8, on {smi}: "
+            f"{row}")
+    from spath_tpu_torch.models import renderer as rt
+    log(f"[25] route: K1 up to {rt.SMEM_ROUTE_MAX_TRIS} triangles, K1+K2 "
+        f"up to {rt.GRAD_ROUTE_MAX_TRIS}; the streamed kernels above")
+
+    # K6 at the serving shape: the checked launch was the warm-up
+    bo, bd, bseeds = serve["rays"]
+    btri = serve["tri"]
+    band = serve["band"]
+    k6_ms = [event_ms(torch, lambda: bs.bigscene_call(bo, bd, bseeds, btri,
+                                                      big_cfg), 1)]
+    if k6_ms[0] < LONG_LAUNCH_MS:
+        k6_ms.append(event_ms(torch, lambda: bs.bigscene_call(
+            bo, bd, bseeds, btri, big_cfg), 1))
+    plain_cfg = big_cfg.replace(tri_block=2048)
+    k6_band_ms, k6_plain_ms = in_turns(
+        torch, lambda: bs.bigscene_call(*band, btri, big_cfg),
+        lambda: mk.megakernel_plain(*band, btri, plain_cfg))
+    walk = walk_counts(torch, *rows_of(torch, big_cfg.width, COUNT_ROWS, bo,
+                                       bd, bseeds), btri, plain_cfg)
+    walk = scaled(walk, big_cfg.height / len(COUNT_ROWS))
+    nb_rays, nb_tris = bo.shape[0], btri.shape[0]
+    k6_ms_mean = sum(k6_ms) / len(k6_ms)
+    k6_ops = walk["sweeps"] * nb_tris * MT_OPS + walk["hits"] * K1_HIT_OPS
+    k6_bound = bound(k6_ops, nb_rays * (24 + 8 + 12) + nb_tris * 18 * 4)
+    big_segs = big_cfg.width * big_cfg.height * big_cfg.spp \
+        * big_cfg.max_bounces
+    log(f"[25] K6, {BIG_T} triangles, {big_frame} on {smi}: {k6_ms} ms a "
+        f"frame ({big_segs / (k6_ms_mean / 1e3):.4e} rays/s); on rows "
+        f"{BAND_ROWS.start}-{BAND_ROWS.stop - 1}: K6 {k6_band_ms} ms, plain "
+        f"{k6_plain_ms} ms; the walk (rows {list(COUNT_ROWS)} counted, "
+        f"scaled to the frame): {walk}; operations {k6_ops:.4e}, bound "
+        f"{k6_bound[0]:.4f} ms ({k6_bound[1]})")
+
+    # K8 and K7 at the training shape
+    to, td, tseeds = mk.pack_rays(cam, train_cfg, 0)
+    tgbar = (torch.rand((to.shape[0], 3), generator=torch.Generator()
+                        .manual_seed(3)) * 0.9 + 0.1).to(dev)
+    captured = []
+
+    def capture(adj, idx, val):
+        if not captured:
+            captured.append((idx.clone(), val.clone()))
+        return ss.stream_scatter_call(adj, idx, val)
+
+    bg.stream_scatter_call = capture
+    try:
+        bg.bigscene_bwd_call(to, td, tseeds, btri, tgbar, train_cfg)
+        torch.cuda.synchronize()
+    finally:
+        bg.stream_scatter_call = ss.stream_scatter_call
+    split = [bwd_split_ms(torch, bg.bigscene_bwd_call, to, td, tseeds, btri,
+                          tgbar, train_cfg) for _ in range(2)]
+    k8_ms = [t[0] for t in split]
+    k7_in_call_ms = [t[1] for t in split]
+    tband = rows_of(torch, big_cfg.width, BAND_ROWS, to, td, tseeds, tgbar)
+    tplain_cfg = train_cfg.replace(tri_block=2048)
+    k8_band_ms, k8_plain_ms = in_turns(
+        torch, lambda: bg.bigscene_bwd_call(*tband[:3], btri, tband[3],
+                                            train_cfg),
+        lambda: mg.mega_bwd_plain(*tband[:3], btri, tband[3], tplain_cfg))
+    k8_check, _ = backward_vs_plain(
+        torch, *tband[:3], btri, train_cfg,
+        f"K8 {BIG_T} triangles, rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}",
+        streamed=True, tri_block=2048)
+    log(f"[25] K8 vs plain, {BIG_T} triangles, {big_cfg.width}x"
+        f"{big_cfg.height} spp{train_cfg.spp}, rows {BAND_ROWS.start}-"
+        f"{BAND_ROWS.stop - 1}: {k8_check}")
+    twalk = walk_counts(torch, *rows_of(torch, big_cfg.width, COUNT_ROWS, to,
+                                        td, tseeds), btri, tplain_cfg)
+    twalk = scaled(twalk, big_cfg.height / len(COUNT_ROWS))
+    slots = to.shape[0] * train_cfg.spp * train_cfg.max_bounces
+    k8_ops = twalk["sweeps"] * nb_tris * MT_OPS + twalk["hits"] * K8_HIT_OPS
+    k8_bound = bound(k8_ops, to.shape[0] * (24 + 8 + 12) + nb_tris * 18 * 4
+                     + slots * bg.EVENT_BYTES)
+    log(f"[25] K8, {BIG_T} triangles, {big_cfg.width}x{big_cfg.height} "
+        f"spp{train_cfg.spp} on {smi}: {k8_ms} ms of K8 launches a call "
+        f"({chunks} launches), K7 {k7_in_call_ms} ms a call "
+        f"(CUDA events around each K7 call; K8 the rest of the call); on rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}: "
+        f"K8+K7 {k8_band_ms} ms, plain {k8_plain_ms} ms; the walk: {twalk}; "
+        f"operations {k8_ops:.4e}, bound {k8_bound[0]:.4f} ms "
+        f"({k8_bound[1]})")
+
+    # K7 on the first chunk's events of that call
+    cidx, cval = captured[0]
+    valid = cidx >= 0
+    n_valid = int(valid.sum())
+    lidx, lval = cidx[valid].long(), cval[valid]
+
+    def k7():
+        ss.stream_scatter_call(torch.zeros((nb_tris, 9), device=dev), cidx,
+                               cval)
+
+    def k7_plain():
+        ss.stream_scatter_plain(torch.zeros((nb_tris, 9), device=dev), cidx,
+                                cval)
+
+    lib_adj = torch.zeros((nb_tris, 9), device=dev)
+    k7()
+    k7_ms, k7_plain_ms = in_turns(torch, k7, k7_plain, kernel_reps=3)
+    lib_adj.index_add_(0, lidx, lval)
+    library_ms = [event_ms(torch, lambda: lib_adj.index_add_(0, lidx, lval),
+                           3) for _ in range(2)]
+    got7 = ss.stream_scatter_call(torch.zeros((nb_tris, 9), device=dev), cidx,
+                                  cval)
+    want7 = ss.stream_scatter_plain(torch.zeros((nb_tris, 9), device=dev),
+                                    cidx, cval)
+    k7_err = (got7 - want7).abs().max().item()
+    check(k7_err <= SCATTER_RTOL * want7.abs().max().item(),
+          f"K7 on the training events off its plain version by {k7_err}")
+    k7_bound = bound(K7_EVENT_OPS * n_valid,
+                     cidx.shape[0] * 4 + n_valid * 36 + nb_tris * 72)
+    log(f"[25] K7 on one chunk's events ({cidx.shape[0]} slots, {n_valid} "
+        f"events, {BIG_T} triangles) on {smi}: {k7_ms} ms, plain "
+        f"{k7_plain_ms} ms, index_add_ {library_ms} ms; max error "
+        f"{k7_err:.3g}; bound {k7_bound[0]:.4f} ms ({k7_bound[1]})")
+    del captured, cidx, cval, lidx, lval
+
     print(json.dumps({"kernels": [{
         "name": "megakernel_forward",
         "route": "cuda",
@@ -1186,6 +1780,50 @@ def run() -> None:
         "plain_ms": sum(timed["k4"][1]) / 2,
         "bound_ms": k4_bound[0],
         "bound_by": k4_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "bigscene_forward",
+        "route": "cuda",
+        "source": "spath_tpu_torch/csrc/bigscene.cu",
+        "replaces": "spath_tpu/ops/pallas/megakernel_bigscene.py:410",
+        "launches": btr["k6"],
+        "launches_by_path": {"serving": serve["launches"]["K6"],
+                             "training": btr["k6"]},
+        "max_abs_err": serve["band_vs_plain"]["max_abs_err"],
+        "ms": k6_ms_mean,
+        "band_ms": sum(k6_band_ms) / len(k6_band_ms),
+        "plain_ms": sum(k6_plain_ms) / 2,
+        "plain_at": f"rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}",
+        "bound_ms": k6_bound[0],
+        "bound_by": k6_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "stream_scatter",
+        "route": "cuda",
+        "source": "spath_tpu_torch/csrc/stream_scatter.cu",
+        "replaces": "spath_tpu/ops/pallas/megakernel_bigscene.py:257",
+        "launches": btr["k7"],
+        "launches_by_path": {"serving": 0, "training": btr["k7"]},
+        "max_abs_err": k7_err,
+        "ms": sum(k7_ms) / len(k7_ms),
+        "plain_ms": sum(k7_plain_ms) / 2,
+        "bound_ms": k7_bound[0],
+        "bound_by": k7_bound[1],
+        "library_ms": sum(library_ms) / 2,
+    }, {
+        "name": "bigscene_backward",
+        "route": "cuda",
+        "source": "spath_tpu_torch/csrc/bigscene_grad.cu",
+        "replaces": "spath_tpu/ops/pallas/megakernel_bigscene_grad.py:69",
+        "launches": btr["k8"],
+        "launches_by_path": {"serving": 0, "training": btr["k8"]},
+        "max_abs_err": k8_check["max_abs_err"],
+        "ms": sum(k8_ms) / 2,
+        "band_ms": sum(k8_band_ms) / len(k8_band_ms),
+        "plain_ms": sum(k8_plain_ms) / 2,
+        "plain_at": f"rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}, K8+K7",
+        "bound_ms": k8_bound[0],
+        "bound_by": k8_bound[1],
         "library_ms": None,
     }]}))
     print(smi)

@@ -5,7 +5,12 @@ hand-written CUDA kernels, each a fused forward and its reverse sweep:
 
 - conformance, the reference's per-pixel LCG and angle-uniform sampler:
   K1 (``ops/kernels/megakernel.py``, ``csrc/megakernel.cu``) and K2
-  (``ops/kernels/megakernel_grad.py``, ``csrc/megakernel_grad.cu``);
+  (``ops/kernels/megakernel_grad.py``, ``csrc/megakernel_grad.cu``), and
+  for scenes of up to 2^20 triangles the streamed K6
+  (``ops/kernels/bigscene.py``, ``csrc/bigscene.cu``) and K8
+  (``ops/kernels/bigscene_grad.py``, ``csrc/bigscene_grad.cu``) with the
+  stream scatter K7 (``ops/kernels/stream_scatter.py``,
+  ``csrc/stream_scatter.cu``);
 - quality, the hash stream, cosine sampler, next-event estimation with
   MIS, Russian roulette and stratification: K3
   (``ops/kernels/megakernel_quality.py``, ``csrc/megakernel_quality.cu``)

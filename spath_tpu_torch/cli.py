@@ -1,20 +1,27 @@
 """Command-line interface of the port.
 
-  render   one frame of the reference's 7-triangle scene → PNG/PPM
+  render   one frame of a scene → PNG/PPM
   invert   recover the scene's albedo from a rendered target
+
+``--scene`` picks the scene: ``default`` (the reference's 7 triangles),
+``procedural:N[:seed]`` (N random triangles) or a ``.obj``/``.ply``
+mesh. Conformance scenes of up to 2^20 triangles render and train on a
+CUDA device: the fused kernels K1/K2 take the small ones, the streamed
+kernels K6/K8/K7 the large ones.
 
 ``--mode conformance`` (the default) is the reference's estimator, LCG
 and angle sampler; ``--mode quality`` is the cosine sampler with
 next-event estimation and MIS on the counter-based ``hash`` stream, with
 ``--rr-start`` (Russian roulette) and ``--stratify``, as the JAX
 package's CLI builds it. The clamped frame goes through
-``render_pt_fast``, the serving path (the fused CUDA kernel of the mode,
-K1 or K3, on a CUDA device); ``--flat`` renders the flat debug view.
+``render_pt_fast``, the serving path (the CUDA kernel of the mode, K1,
+K6 or K3, on a CUDA device); ``--flat`` renders the flat debug view.
 ``invert`` trains through ``render_radiance_fastgrad`` (the fused kernel
-forward and its reverse sweep backward, K1+K2 or K3+K4, on a CUDA
+forward and its reverse sweep backward, K1+K2, K6+K8 or K3+K4, on a CUDA
 device). Examples::
 
   python -m spath_tpu_torch.cli render --size 640x480 --spp 128 --out frame.png
+  python -m spath_tpu_torch.cli render --scene procedural:10000 --size 1920x1080 --spp 64
   python -m spath_tpu_torch.cli render --mode quality --spp 32 --out q.png
   python -m spath_tpu_torch.cli render --flat --device cpu --out flat.png
   python -m spath_tpu_torch.cli invert --size 640x480 --spp 16 --steps 100
@@ -63,6 +70,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--bounces", type=int, default=5,
                    help="path length cap (reference: hard 5)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--scene", default="default",
+                   help='"default" (the 7-triangle scene), '
+                        '"procedural:N[:seed]", or a path to a .obj/.ply '
+                        'mesh (MTL Kd/Ke -> albedo/emission)')
     p.add_argument("--camera-pos", type=_parse_vec3, default=[0, 0, -3])
     p.add_argument("--camera-angle", type=_parse_vec3, default=[0, 0, 0])
     p.add_argument("--focal", type=float, default=2.0)
@@ -118,6 +129,28 @@ def _config(args):
     return RenderConfig(**base, rng="lcg", sampler="angle")
 
 
+def _scene(spec: str, device):
+    """The scene ``--scene`` names, on ``device``; an unknown form exits
+    non-zero (``spath_tpu/cli.py::_build``)."""
+    from spath_tpu_torch.scene import default_scene, procedural_scene
+
+    if spec == "default":
+        return default_scene(device)
+    if spec.startswith("procedural:"):
+        parts = spec.split(":")
+        try:
+            n = int(parts[1])
+            seed = int(parts[2]) if len(parts) > 2 else 0
+        except (IndexError, ValueError):
+            raise SystemExit(f"unknown scene {spec!r}") from None
+        return procedural_scene(n, seed=seed, device=device)
+    if spec.lower().endswith((".obj", ".ply")):
+        from spath_tpu_torch.scene_io import load_scene
+
+        return load_scene(spec, device=device)
+    raise SystemExit(f"unknown scene {spec!r}")
+
+
 def cmd_render(args) -> int:
     cfg = _config(args)
     device = _device(args.device)
@@ -125,10 +158,9 @@ def cmd_render(args) -> int:
     from spath_tpu_torch.convert import camera_from_numpy
     from spath_tpu_torch.models.flat import render_flat
     from spath_tpu_torch.models.pathtracer import render_pt_fast
-    from spath_tpu_torch.scene import default_scene
     from spath_tpu_torch.utils.image import write_png, write_ppm
 
-    scene = default_scene(device)
+    scene = _scene(args.scene, device)
     cam = camera_from_numpy(args.camera_pos, args.camera_angle, args.focal,
                             device=device)
     w, h = args.size
@@ -167,9 +199,8 @@ def cmd_invert(args) -> int:
         InverseParams, param_group_optimizer, recover,
     )
     from spath_tpu_torch.models.renderer import forward_renderer
-    from spath_tpu_torch.scene import default_scene
 
-    scene = default_scene(device)
+    scene = _scene(args.scene, device)
     cam = camera_from_numpy(args.camera_pos, args.camera_angle, args.focal,
                             device=device)
     print("rendering target...", file=sys.stderr)

@@ -30,8 +30,9 @@
 // multiply and add rounds on its own as in the plain PyTorch version
 // (megakernel_plain), division is IEEE, and cosf/sinf are the accurate
 // library forms. A 1-ulp difference in any of these flips chaotic paths.
-// The walk's pieces (nearest, lcg, surface) live in megakernel_common.cuh,
-// which the backward kernel K2 (megakernel_grad.cu) replays them from.
+// The walk (sample_walk, through TableSweep) lives in
+// megakernel_common.cuh, which the backward kernel K2 (megakernel_grad.cu)
+// and the streamed kernels K6 and K8 replay it from.
 //
 // Layouts (checked by the Python wrapper ops/kernels/megakernel.py), all
 // row-major and contiguous:
@@ -48,9 +49,6 @@
 namespace {
 
 using spath::Hit;
-using spath::kCols;
-using spath::nearest;
-using spath::Surface;
 
 constexpr int kBlock = 128;
 
@@ -68,41 +66,15 @@ __global__ void __launch_bounds__(kBlock)
   const float dx0 = d[0], dy0 = d[1], dz0 = d[2];
   uint32_t seed = static_cast<uint32_t>(seeds[i]);
 
+  const spath::TableSweep sweep{tri, n_tris};
   // Camera rays are the same for every sample.
-  const Hit first = nearest(tri, n_tris, ox0, oy0, oz0, dx0, dy0, dz0, -1);
-
+  const Hit first = sweep(true, ox0, oy0, oz0, dx0, dy0, dz0, -1);
+  spath::NoRecord rec;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   for (int s = 0; s < spp; ++s) {
-    float ox = ox0, oy = oy0, oz = oz0;
-    float dx = dx0, dy = dy0, dz = dz0;
-    int src = -1;
-    float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
-    float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
-    for (int bounce = 0; bounce < max_bounces; ++bounce) {
-      const Hit h = bounce == 0
-                        ? first
-                        : nearest(tri, n_tris, ox, oy, oz, dx, dy, dz, src);
-      if (h.idx < 0) break;
-      const Surface sf = spath::surface(tri, h.idx, dx, dy, dz, seed);
-      const float* r = tri + h.idx * kCols;
-      const float ar = __ldg(r + 12), ag = __ldg(r + 13), ab = __ldg(r + 14);
-      const float er = __ldg(r + 15), eg = __ldg(r + 16), eb = __ldg(r + 17);
-
-      rad_r = rad_r + thr_r * er;
-      rad_g = rad_g + thr_g * eg;
-      rad_b = rad_b + thr_b * eb;
-      thr_r = thr_r * ar * sf.w;
-      thr_g = thr_g * ag * sf.w;
-      thr_b = thr_b * ab * sf.w;
-
-      ox = ox + h.dist * dx;
-      oy = oy + h.dist * dy;
-      oz = oz + h.dist * dz;
-      dx = sf.sx;
-      dy = sf.sy;
-      dz = sf.sz;
-      src = h.idx;
-    }
+    float rad_r, rad_g, rad_b;
+    spath::sample_walk(tri, sweep, true, ox0, oy0, oz0, dx0, dy0, dz0, first,
+                       max_bounces, seed, rad_r, rad_g, rad_b, rec);
     acc_r = acc_r + rad_r;
     acc_g = acc_g + rad_g;
     acc_b = acc_b + rad_b;

@@ -1,9 +1,12 @@
-// The conformance walk's pieces shared by the forward kernel K1
-// (megakernel.cu) and the backward kernel K2 (megakernel_grad.cu), so
-// that K2's replay of K1's walk compiles from one source and takes the
-// same hits, draws and directions bit for bit. The nearest-hit sweeps
-// take the table's row stride as a template argument: 18 columns for the
-// conformance table, 21 for the quality table of K3 and K4
+// The conformance walk and its pieces, shared by the forward kernels K1
+// (megakernel.cu) and K6 (bigscene.cu) and their backward kernels K2
+// (megakernel_grad.cu) and K8 (bigscene_grad.cu), so that every replay
+// compiles from one source and takes the same hits, draws and directions
+// bit for bit. The walk (sample_walk) is a template over the nearest-hit
+// sweep: TableSweep here for K1 and K2, StreamSweep (stream_sweep.cuh),
+// which stages rows in shared memory, for K6 and K8. The nearest-hit
+// sweeps take the table's row stride as a template argument: 18 columns
+// for the conformance table, 21 for the quality table of K3 and K4
 // (quality_walk.cuh).
 //
 // Numerics: every file that includes this header is built with
@@ -38,18 +41,34 @@ struct OriginTerms {
   float sx, sy, sz, qx, qy, qz, e2q;
 };
 
+// How the sweep helpers read a row's v0, e1, e2: through the read-only
+// cache from the table in global memory (K1-K4), or from a block of rows
+// staged in shared memory (the streamed kernels, stream_sweep.cuh). The
+// arithmetic is the same for both.
+struct GlobalRow {
+  static __device__ __forceinline__ float at(const float* __restrict__ p) {
+    return __ldg(p);
+  }
+};
+struct SharedRow {
+  static __device__ __forceinline__ float at(const float* p) { return *p; }
+};
+
+template <class Load = GlobalRow>
 __device__ __forceinline__ OriginTerms origin_terms(const float* __restrict__ r,
                                                     float ox, float oy,
                                                     float oz) {
   OriginTerms o;
-  o.sx = ox - __ldg(r + 0);
-  o.sy = oy - __ldg(r + 1);
-  o.sz = oz - __ldg(r + 2);
-  const float e1x = __ldg(r + 3), e1y = __ldg(r + 4), e1z = __ldg(r + 5);
+  o.sx = ox - Load::at(r + 0);
+  o.sy = oy - Load::at(r + 1);
+  o.sz = oz - Load::at(r + 2);
+  const float e1x = Load::at(r + 3), e1y = Load::at(r + 4),
+              e1z = Load::at(r + 5);
   o.qx = o.sy * e1z - o.sz * e1y;
   o.qy = o.sz * e1x - o.sx * e1z;
   o.qz = o.sx * e1y - o.sy * e1x;
-  o.e2q = __ldg(r + 6) * o.qx + __ldg(r + 7) * o.qy + __ldg(r + 8) * o.qz;
+  o.e2q = Load::at(r + 6) * o.qx + Load::at(r + 7) * o.qy +
+          Load::at(r + 8) * o.qz;
   return o;
 }
 
@@ -57,12 +76,15 @@ __device__ __forceinline__ OriginTerms origin_terms(const float* __restrict__ r,
 // from the origin terms o: the epsilon bounds, the source-triangle
 // exclusion and a strict `<`, so the lowest index wins ties. Updates
 // `best`.
+template <class Load = GlobalRow>
 __device__ __forceinline__ void mt_test(const float* __restrict__ r, int t,
                                         const OriginTerms& o, float dx,
                                         float dy, float dz, int src,
                                         Hit& best) {
-  const float e1x = __ldg(r + 3), e1y = __ldg(r + 4), e1z = __ldg(r + 5);
-  const float e2x = __ldg(r + 6), e2y = __ldg(r + 7), e2z = __ldg(r + 8);
+  const float e1x = Load::at(r + 3), e1y = Load::at(r + 4),
+              e1z = Load::at(r + 5);
+  const float e2x = Load::at(r + 6), e2y = Load::at(r + 7),
+              e2z = Load::at(r + 8);
   // h = d x e2
   const float hx = dy * e2z - dz * e2y;
   const float hy = dz * e2x - dx * e2z;
@@ -171,6 +193,115 @@ __device__ __forceinline__ Surface surface(const float* __restrict__ tri,
   }
   s.w = 2.0f * (s.sx * s.nx + s.sy * s.ny + s.sz * s.nz);
   return s;
+}
+
+// K1's and K2's sweep: each thread tests its ray against the whole table,
+// read through the cache, on its own. kCtaWide says whether every thread
+// of the CTA must take part in every call (a sweep that synchronises it).
+struct TableSweep {
+  const float* __restrict__ tri;
+  int n_tris;
+
+  static constexpr bool kCtaWide = false;
+  __device__ __forceinline__ Hit operator()(bool, float ox, float oy,
+                                            float oz, float dx, float dy,
+                                            float dz, int src) const {
+    return nearest(tri, n_tris, ox, oy, oz, dx, dy, dz, src);
+  }
+};
+
+// Longest path the backward kernels' saved per-bounce state holds.
+constexpr int kMaxBounces = 16;
+
+// A recorder that keeps nothing (the forward kernels).
+struct NoRecord {
+  __device__ __forceinline__ void operator()(int, int, const Surface&, float,
+                                             float, float) {}
+};
+
+// A recorder of what the reverse sweep needs of each bounce of one sample
+// (K2, K8): the hit index, the flip sign fs, the sampled direction om, the
+// weight w and the throughput tr before the bounce; len is the number of
+// hits.
+struct Saved {
+  int len = 0;
+  int idx[kMaxBounces];
+  float fs[kMaxBounces], w[kMaxBounces];
+  float omx[kMaxBounces], omy[kMaxBounces], omz[kMaxBounces];
+  float tr[kMaxBounces], tg[kMaxBounces], tb[kMaxBounces];
+
+  __device__ __forceinline__ void operator()(int b, int hit, const Surface& s,
+                                             float thr_r, float thr_g,
+                                             float thr_b) {
+    idx[b] = hit;
+    fs[b] = s.fs;
+    w[b] = s.w;
+    omx[b] = s.sx;
+    omy[b] = s.sy;
+    omz[b] = s.sz;
+    tr[b] = thr_r;
+    tg[b] = thr_g;
+    tb[b] = thr_b;
+    len = b + 1;
+  }
+};
+
+// One sample of the conformance walk through `sweep`: the camera ray's
+// hit `first` (swept once for all samples), up to max_bounces segments,
+// two LCG draws only on a hit, the angle sampler, forward throughput and
+// radiance. At every hit it calls rec(bounce, idx, surface, tr, tg, tb)
+// with the throughput before the bounce. `live` is false for a thread
+// without a ray. A path that misses stops: every later term of the
+// masked TPU walk is zero and its seed does not move, so this is exact.
+// With a CTA-wide sweep, a thread whose path ended keeps calling it until
+// no thread of the CTA has a live path; otherwise it leaves the loop at
+// once.
+template <class Sweep, class Rec>
+__device__ __forceinline__ void sample_walk(
+    const float* __restrict__ tri, const Sweep& sweep, bool live, float ox0,
+    float oy0, float oz0, float dx0, float dy0, float dz0, const Hit& first,
+    int max_bounces, uint32_t& seed, float& rad_r, float& rad_g,
+    float& rad_b, Rec& rec) {
+  float ox = ox0, oy = oy0, oz = oz0;
+  float dx = dx0, dy = dy0, dz = dz0;
+  int src = -1;
+  float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
+  rad_r = 0.0f;
+  rad_g = 0.0f;
+  rad_b = 0.0f;
+  bool active = live;
+  for (int bounce = 0; bounce < max_bounces; ++bounce) {
+    Hit h = first;
+    if (bounce > 0) {
+      if (Sweep::kCtaWide && !__syncthreads_or(active)) break;
+      h = sweep(active, ox, oy, oz, dx, dy, dz, src);
+    }
+    if (!active || h.idx < 0) {
+      if (!Sweep::kCtaWide) break;
+      active = false;
+      continue;
+    }
+    const Surface sf = surface(tri, h.idx, dx, dy, dz, seed);
+    const float* r = tri + h.idx * kCols;
+    const float ar = __ldg(r + 12), ag = __ldg(r + 13), ab = __ldg(r + 14);
+    const float er = __ldg(r + 15), eg = __ldg(r + 16), eb = __ldg(r + 17);
+    rec(bounce, h.idx, sf, thr_r, thr_g, thr_b);
+
+    rad_r = rad_r + thr_r * er;
+    rad_g = rad_g + thr_g * eg;
+    rad_b = rad_b + thr_b * eb;
+    thr_r = thr_r * ar * sf.w;
+    thr_g = thr_g * ag * sf.w;
+    thr_b = thr_b * ab * sf.w;
+
+    ox = ox + h.dist * dx;
+    oy = oy + h.dist * dy;
+    oz = oz + h.dist * dz;
+    dx = sf.sx;
+    dy = sf.sy;
+    dz = sf.sz;
+    src = h.idx;
+  }
 }
 
 }  // namespace spath

@@ -61,8 +61,7 @@ namespace {
 
 using spath::Hit;
 using spath::kCols;
-using spath::nearest;
-using spath::Surface;
+using spath::kMaxBounces;
 
 constexpr int kBlock = 128;
 constexpr int kWarps = kBlock / 32;
@@ -71,8 +70,6 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kAdj = 9;
 // A staged contribution: the triangle index (as float bits), 9 adjoints.
 constexpr int kStage = kAdj + 1;
-// Longest path the saved per-bounce state holds.
-constexpr int kMaxBounces = 16;
 // Most blocks a launch uses; larger frames loop (grid-stride).
 constexpr int kMaxGrid = 2048;
 
@@ -99,10 +96,8 @@ __global__ void __launch_bounds__(kBlock)
   __syncwarp();
 
   const float inv = 1.0f / static_cast<float>(spp);
-  int s_idx[kMaxBounces];
-  float s_fs[kMaxBounces], s_w[kMaxBounces];
-  float s_omx[kMaxBounces], s_omy[kMaxBounces], s_omz[kMaxBounces];
-  float s_tr[kMaxBounces], s_tg[kMaxBounces], s_tb[kMaxBounces];
+  const spath::TableSweep sweep{tri, n_tris};
+  spath::Saved sv;
 
   // Every lane of a warp runs the same chunks, samples and reverse steps,
   // so the warp-wide exchanges below see all 32 lanes.
@@ -126,48 +121,16 @@ __global__ void __launch_bounds__(kBlock)
       g_b = gbar[3 * i + 2] * inv;
       seed = static_cast<uint32_t>(seeds[i]);
       // Camera rays are the same for every sample.
-      first = nearest(tri, n_tris, ox0, oy0, oz0, dx0, dy0, dz0, -1);
+      first = sweep(true, ox0, oy0, oz0, dx0, dy0, dz0, -1);
     }
 
     for (int s = 0; s < spp; ++s) {
       // ---- forward replay of K1's walk ----
-      int len = 0;
-      if (live) {
-        float ox = ox0, oy = oy0, oz = oz0;
-        float dx = dx0, dy = dy0, dz = dz0;
-        int src = -1;
-        float tr = 1.0f, tg = 1.0f, tb = 1.0f;
-        for (int b = 0; b < max_bounces; ++b) {
-          const Hit h =
-              b == 0 ? first
-                     : nearest(tri, n_tris, ox, oy, oz, dx, dy, dz, src);
-          if (h.idx < 0) break;
-          const Surface sf = spath::surface(tri, h.idx, dx, dy, dz, seed);
-          const float* r = tri + h.idx * kCols;
-          const float ar = __ldg(r + 12), ag = __ldg(r + 13),
-                      ab = __ldg(r + 14);
-          s_idx[b] = h.idx;
-          s_fs[b] = sf.fs;
-          s_omx[b] = sf.sx;
-          s_omy[b] = sf.sy;
-          s_omz[b] = sf.sz;
-          s_w[b] = sf.w;
-          s_tr[b] = tr;
-          s_tg[b] = tg;
-          s_tb[b] = tb;
-          tr = tr * ar * sf.w;
-          tg = tg * ag * sf.w;
-          tb = tb * ab * sf.w;
-          ox = ox + h.dist * dx;
-          oy = oy + h.dist * dy;
-          oz = oz + h.dist * dz;
-          dx = sf.sx;
-          dy = sf.sy;
-          dz = sf.sz;
-          src = h.idx;
-          len = b + 1;
-        }
-      }
+      sv.len = 0;
+      float rad_r, rad_g, rad_b;
+      spath::sample_walk(tri, sweep, live, ox0, oy0, oz0, dx0, dy0, dz0, first,
+                         max_bounces, seed, rad_r, rad_g, rad_b, sv);
+      const int len = sv.len;
 
       // ---- reverse sweep, the warp's longest path first ----
       const int depth = __reduce_max_sync(kFull, len);
@@ -175,20 +138,20 @@ __global__ void __launch_bounds__(kBlock)
       for (int b = depth - 1; b >= 0; --b) {
         const bool hit = b < len;
         if (hit) {
-          const int idx = s_idx[b];
+          const int idx = sv.idx[b];
           const float* r = tri + idx * kCols;
           const float ar = __ldg(r + 12), ag = __ldg(r + 13),
                       ab = __ldg(r + 14);
           const float er = __ldg(r + 15), eg = __ldg(r + 16),
                       eb = __ldg(r + 17);
-          const float tr = s_tr[b], tg = s_tg[b], tb = s_tb[b];
-          const float w = s_w[b], fs = s_fs[b];
+          const float tr = sv.tr[b], tg = sv.tg[b], tb = sv.tb[b];
+          const float w = sv.w[b], fs = sv.fs[b];
           float* e = stage + lane * kStage;
           e[0] = __int_as_float(idx);
           const float wbar = bb_r * tr * ar + bb_g * tg * ag + bb_b * tb * ab;
-          e[1] = 2.0f * wbar * fs * s_omx[b];
-          e[2] = 2.0f * wbar * fs * s_omy[b];
-          e[3] = 2.0f * wbar * fs * s_omz[b];
+          e[1] = 2.0f * wbar * fs * sv.omx[b];
+          e[2] = 2.0f * wbar * fs * sv.omy[b];
+          e[3] = 2.0f * wbar * fs * sv.omz[b];
           e[4] = bb_r * tr * w;
           e[5] = bb_g * tg * w;
           e[6] = bb_b * tb * w;

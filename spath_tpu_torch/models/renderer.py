@@ -4,14 +4,16 @@
 ``REGISTRY`` lists the backends fastest first; ``forward_renderer`` takes
 the first that renders ``(scene, cfg)`` exactly and ``grad_renderer`` the
 first that differentiates it, so every entry point agrees on which
-kernel a config runs on. So far the port has three: the fused CUDA
-kernels for the conformance estimator (K1 forward, K2 backward), those
-for the quality estimator in its hash+cosine form (K3 forward, K4
-backward), and the plain wavefront, with autograd, for CPU tensors. On a
-CUDA device a frame or a gradient goes through a kernel or raises: a
-scene or config no ported kernel takes is not handed to the plain
-version. The compacted, streamed and visibility-gradient renderers are
-not registered yet.
+kernel a config runs on. So far the port has four: the fused CUDA
+kernels for the conformance estimator (K1 forward, K2 backward), the
+streamed kernels for the conformance estimator on large scenes (K6
+forward, K8 with its scatter K7 backward), those for the quality
+estimator in its hash+cosine form (K3 forward, K4 backward), and the
+plain wavefront, with autograd, for CPU tensors. On a CUDA device a frame
+or a gradient goes through a kernel or raises: a scene or config no
+ported kernel takes is not handed to the plain version. The compacted,
+streamed-quality and visibility-gradient renderers are not registered
+yet.
 """
 
 from __future__ import annotations
@@ -22,9 +24,26 @@ from spath_tpu_torch.camera import Camera
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.models import pathtracer
 from spath_tpu_torch.ops.kernels import (
-    megakernel, megakernel_grad, megakernel_quality, megakernel_quality_grad,
+    bigscene, bigscene_grad, megakernel, megakernel_grad, megakernel_quality,
+    megakernel_quality_grad,
 )
 from spath_tpu_torch.scene import Scene
+
+#: Routing crossovers between the fused kernels, whose threads read the
+#: whole table through the cache (K1; K1+K2 for a gradient), and the
+#: streamed ones, which stage it through shared memory (K6; K6+K8+K7):
+#: the fused kernels take conformance scenes of up to this many
+#: triangles, the streamed ones the larger. Set from the K1/K6 and
+#: K1+K2/K6+K8+K7 timings at T in {64, 128, 256, 512, 1024}, 320x240, 8
+#: spp, on an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase
+#: 25, PERF.md section 6): K1 was no slower than K6 beyond the
+#: run-to-run spread at 64 triangles and 1.1-4.7% faster from 128 to 1024,
+#: so K1 takes every scene it can hold (its cap, ``megakernel.MAX_TRIS``,
+#: which ``megakernel.supported`` tests); K1+K2 was faster than K6+K8+K7
+#: up to 128 triangles, 2.5% slower at 256 and 49% slower at 1024. The JAX
+#: package's 128 and 64 were measured on a TPU v5e.
+SMEM_ROUTE_MAX_TRIS = megakernel.MAX_TRIS
+GRAD_ROUTE_MAX_TRIS = 128
 
 
 class Renderer:
@@ -83,13 +102,9 @@ class WavefrontRenderer(Renderer):
 
 
 class MegakernelRenderer(Renderer):
-    """The fused CUDA kernels, conformance estimator, T <= MAX_TRIS: K1
-    forward, and K1 with its reverse sweep K2 for gradients.
-
-    The JAX package hands scenes above 128 triangles to its streamed
-    kernel (K6), and above 64 to its streamed backward (K8), crossovers
-    measured on a TPU v5e; until those are ported these kernels take
-    every scene they can hold."""
+    """The fused CUDA kernels, conformance estimator: K1 forward for T <=
+    SMEM_ROUTE_MAX_TRIS, and K1 with its reverse sweep K2 for gradients
+    for T <= GRAD_ROUTE_MAX_TRIS."""
 
     name = "megakernel"
 
@@ -100,8 +115,9 @@ class MegakernelRenderer(Renderer):
         return self.available(scene) and megakernel.supported(scene, cfg)
 
     def supports_grad(self, scene, cfg) -> bool:
-        return self.available(scene) and megakernel_grad.supported_grad(
-            scene, cfg)
+        return (self.available(scene)
+                and scene.n_tris <= GRAD_ROUTE_MAX_TRIS
+                and megakernel_grad.supported_grad(scene, cfg))
 
     def render_radiance(self, scene, camera, cfg, seed=0):
         return megakernel.render_radiance_megakernel(scene, camera, cfg,
@@ -109,6 +125,32 @@ class MegakernelRenderer(Renderer):
 
     def render_radiance_grad(self, scene, camera, cfg, seed=0):
         return megakernel_grad.render_radiance_mega(scene, camera, cfg, seed)
+
+
+class BigsceneRenderer(Renderer):
+    """The streamed CUDA kernels, conformance estimator, T <=
+    BIG_MAX_TRIS (2^20): K6 forward, and K6 with its reverse sweep K8 and
+    the stream scatter K7 for gradients. Listed after the fused kernels,
+    so it takes the scenes above the crossovers."""
+
+    name = "bigscene"
+
+    def available(self, scene) -> bool:
+        return scene.device.type == "cuda"
+
+    def supports(self, scene, cfg) -> bool:
+        return self.available(scene) and bigscene.supported(scene, cfg)
+
+    def supports_grad(self, scene, cfg) -> bool:
+        return self.available(scene) and bigscene_grad.supported_grad(
+            scene, cfg)
+
+    def render_radiance(self, scene, camera, cfg, seed=0):
+        return bigscene.render_radiance_bigscene(scene, camera, cfg, seed)
+
+    def render_radiance_grad(self, scene, camera, cfg, seed=0):
+        return bigscene_grad.render_radiance_bigscene_grad(scene, camera,
+                                                           cfg, seed)
 
 
 class QualityMegakernelRenderer(Renderer):
@@ -145,6 +187,7 @@ class QualityMegakernelRenderer(Renderer):
 #: All backends, fastest first: selection takes the first match.
 REGISTRY: tuple[Renderer, ...] = (
     MegakernelRenderer(),
+    BigsceneRenderer(),
     QualityMegakernelRenderer(),
     WavefrontRenderer(),
 )
@@ -162,16 +205,13 @@ def _no_kernel(scene: Scene, cfg: RenderConfig, grad: bool) -> str:
     head = f"no ported kernel {what} {_estimator(cfg)} with " \
            f"{scene.n_tris} triangles on {scene.device}: "
     if pathtracer.is_conformance(cfg):
-        if scene.n_tris > megakernel.MAX_TRIS:
+        if scene.n_tris > bigscene.BIG_MAX_TRIS:
             return head + (
-                f"the fused kernels take T <= {megakernel.MAX_TRIS}; "
-                "larger scenes need the streamed kernels "
-                + ("K6 and K8 (spath_tpu/ops/pallas/megakernel_bigscene.py, "
-                   "megakernel_bigscene_grad.py)" if grad else
-                   "K6 (spath_tpu/ops/pallas/megakernel_bigscene.py)")
-                + ", not ported yet")
-        return head + (f"the fused backward K2 takes max_bounces <= "
-                       f"{megakernel_grad.MAX_BOUNCES}")
+                "the streamed kernels " + ("K6 and K8" if grad else "K6")
+                + f" take T <= {bigscene.BIG_MAX_TRIS} (2^20), as the JAX "
+                "package's BIG_MAX_TRIS")
+        return head + (f"the backward kernels K2 and K8 take max_bounces "
+                       f"<= {megakernel_grad.MAX_BOUNCES}")
     if cfg.rng == "hash" and cfg.sampler == "cosine":
         if scene.n_tris > megakernel_quality.MAX_TRIS:
             return head + (

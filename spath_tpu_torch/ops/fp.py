@@ -5,9 +5,13 @@ PyTorch's CPU kernel for the float32 square root is a vectorised
 approximation, one ulp off on some inputs; the JAX package, numpy
 and the CUDA kernels (``sqrtf`` without fast math) round correctly, and a
 one-ulp difference in a sampled direction or a light's area can flip a
-path or a light choice. The float64 root of a float32, rounded once to
-float32, is the correctly rounded float32 root (53 >= 2·24 + 2 bits), on
-any device, and autograd differentiates through it.
+path or a light choice. PyTorch's CPU float64 root rounded to float32 is
+right almost everywhere but was one ulp off in rare elements of large
+tensors (above PyTorch's parallel grain), so ``sqrt_rn`` checks it with
+one exact step: the result r is right when x lies between the squares
+of the midpoints of r and its float32 neighbours, and those squares are
+exact in float64 (a midpoint has 25 significant bits, its square 50).
+Autograd differentiates through the float64 root.
 """
 
 from __future__ import annotations
@@ -17,4 +21,16 @@ import torch
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded square root of a float32 tensor."""
-    return torch.sqrt(x.double()).to(x.dtype)
+    r = torch.sqrt(x.double()).to(x.dtype)
+    with torch.no_grad():
+        x64, r32 = x.double(), r.detach()
+        up = torch.nextafter(r32, torch.full_like(r32, float("inf")))
+        down = torch.nextafter(r32, torch.zeros_like(r32))
+        hi = (r32.double() + up.double()) * 0.5
+        lo = (r32.double() + down.double()) * 0.5
+        pos = x64 > 0.0
+        step = torch.where(pos & (x64 > hi * hi), up - r32,
+                           torch.where(pos & (x64 < lo * lo), down - r32,
+                                       torch.zeros_like(r32)))
+    # r ± one ulp is exact in float32; the gradient is the root's
+    return r + step

@@ -154,6 +154,19 @@ def library() -> ctypes.CDLL:
     # the light choice's distribution: emission, area, cdf, prob, T
     lib.spath_light_cdf.argtypes = [ptr] * 4 + [i32, ptr]
     lib.spath_light_cdf.restype = i32
+    # K6: K1's arguments
+    lib.spath_bigscene_forward.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.spath_bigscene_forward.restype = i32
+    # K8: rays, seeds, table, gbar, first hit, state, events, n, n_tris,
+    # spp, max_bounces, first sample, samples
+    lib.spath_bigscene_backward.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+    lib.spath_bigscene_backward.restype = i32
+    # K7: idx, val, E, adj, T, hist, starts, order, partial, groups, splits
+    lib.spath_stream_scatter.argtypes = [
+        ptr, ptr, ctypes.c_int64, ptr, i32, ptr, ptr, ptr, ptr, i32, i32,
+        ptr]
+    lib.spath_stream_scatter.restype = i32
     lib.spath_error_string.argtypes = [i32]
     lib.spath_error_string.restype = ctypes.c_char_p
     return lib

@@ -66,12 +66,17 @@ def pack_rays(camera: Camera, cfg: RenderConfig, seed: int = 0):
 def megakernel_plain(origins, directions, seeds, tri, cfg: RenderConfig):
     """The plain PyTorch version of the kernel: the wavefront walk of
     ``models/pathtracer.py`` over the table's columns. Returns
-    ``(n, 3)``."""
+    ``(n, 3)``. It takes a table of any size: it is also the plain
+    version of the streamed kernel K6 (``ops/kernels/bigscene.py``)."""
     geom = tuple(tri[:, k:k + 3] for k in range(0, 18, 3))
     return mean_radiance_geometry(geom, origins, directions, seeds, cfg)
 
 
-def _check(origins, directions, seeds, tri, cfg: RenderConfig) -> None:
+def _check(origins, directions, seeds, tri, cfg: RenderConfig,
+           max_tris: int = MAX_TRIS) -> None:
+    """Raise ``ValueError`` for inputs outside the layouts of the module
+    docstring, a table of more than ``max_tris`` rows included (the
+    streamed kernels share these checks with their own cap)."""
     require_conformance(cfg)
     n = origins.shape[0] if origins.dim() == 2 else -1
     for name, rays in (("origins", origins), ("directions", directions)):
@@ -84,8 +89,8 @@ def _check(origins, directions, seeds, tri, cfg: RenderConfig) -> None:
     if tri.dtype != torch.float32 or tri.dim() != 2 or tri.shape[1] != 18:
         raise ValueError(f"tri must be float32 (T, 18), got {tri.dtype} "
                          f"{tuple(tri.shape)}")
-    if not 1 <= tri.shape[0] <= MAX_TRIS:
-        raise ValueError(f"T={tri.shape[0]} outside [1, {MAX_TRIS}]")
+    if not 1 <= tri.shape[0] <= max_tris:
+        raise ValueError(f"T={tri.shape[0]} outside [1, {max_tris}]")
     if cfg.spp < 1 or cfg.max_bounces < 0:
         raise ValueError(f"spp={cfg.spp}, max_bounces={cfg.max_bounces}")
     if 3 * n >= 2**31:

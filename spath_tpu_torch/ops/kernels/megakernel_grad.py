@@ -58,9 +58,8 @@ ADJ_COLS = slice(9, 18)
 def supported_grad(scene: Scene, cfg: RenderConfig) -> bool:
     """Do K1 and K2 differentiate ``(scene, cfg)``?
 
-    The JAX package routes 64 < T <= 1024 to its streamed backward (K8),
-    a crossover measured on a TPU v5e; until K8 is ported, K2 takes every
-    scene K1 takes."""
+    Which scenes the router gives K2 and which the streamed backward K8
+    is ``models/renderer.py``'s ``GRAD_ROUTE_MAX_TRIS``."""
     return (megakernel.supported(scene, cfg)
             and scene.n_tris <= GRAD_MAX_TRIS
             and cfg.max_bounces <= MAX_BOUNCES)
@@ -108,7 +107,9 @@ def replay(origins, directions, seeds, tri, cfg: RenderConfig):
 
 def mega_bwd_plain(origins, directions, seeds, tri, gbar,
                    cfg: RenderConfig) -> torch.Tensor:
-    """The plain PyTorch version of K2: an explicit reverse sweep over the
+    """The plain PyTorch version of K2, and of the streamed backward K8
+    with its scatter K7 (it takes a table of any size): an explicit
+    reverse sweep over the
     table's columns, vectorised over rays, one sample at a time (the
     forward state from ``replay``), with ``index_add_`` into the
     ``(T, 9)`` adjoint per (sample, bounce), in the order of operations of
@@ -145,19 +146,20 @@ def mega_bwd_plain(origins, directions, seeds, tri, gbar,
         return out
 
 
-def _check(origins, directions, seeds, tri, gbar, cfg: RenderConfig) -> None:
-    megakernel._check(origins, directions, seeds, tri, cfg)
+def _check(origins, directions, seeds, tri, gbar, cfg: RenderConfig,
+           max_tris: int = GRAD_MAX_TRIS) -> None:
+    """K1's checks with a cap of ``max_tris`` rows, the cotangent's and
+    the cap on the path length (the streamed backward K8 shares them)."""
+    megakernel._check(origins, directions, seeds, tri, cfg, max_tris)
     n = origins.shape[0]
     if gbar.dtype != torch.float32 or tuple(gbar.shape) != (n, 3):
         raise ValueError(f"gbar must be float32 ({n}, 3), got {gbar.dtype} "
                          f"{tuple(gbar.shape)}")
     if gbar.device != origins.device:
         raise ValueError("gbar must be on the rays' device")
-    if tri.shape[0] > GRAD_MAX_TRIS:
-        raise ValueError(f"T={tri.shape[0]} above K2's {GRAD_MAX_TRIS}")
     if cfg.max_bounces > MAX_BOUNCES:
-        raise ValueError(f"max_bounces={cfg.max_bounces} above K2's "
-                         f"{MAX_BOUNCES}")
+        raise ValueError(f"max_bounces={cfg.max_bounces} above the "
+                         f"backward kernels' {MAX_BOUNCES}")
 
 
 def mega_bwd_call(origins, directions, seeds, tri, gbar,

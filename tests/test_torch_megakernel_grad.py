@@ -25,6 +25,7 @@ from spath_tpu_torch.models import pathtracer, renderer  # noqa: E402
 from spath_tpu_torch.models.pathtracer import (  # noqa: E402
     render_radiance_fastgrad,
 )
+from spath_tpu_torch.ops.kernels import bigscene_grad as bg  # noqa: E402
 from spath_tpu_torch.ops.kernels import megakernel as mk  # noqa: E402
 from spath_tpu_torch.ops.kernels import megakernel_grad as mg  # noqa: E402
 from spath_tpu_torch.scene import Scene, default_scene  # noqa: E402
@@ -234,27 +235,36 @@ def _as_if_on_cuda(monkeypatch):
         return torch.zeros((cfg.height, cfg.width, 3), requires_grad=True)
 
     monkeypatch.setattr(mg, "render_radiance_mega", kernel)
+    monkeypatch.setattr(bg, "render_radiance_bigscene_grad",
+                        lambda scene, *a, **kw: calls.append(-scene.n_tris)
+                        or torch.zeros((4, 8, 3), requires_grad=True))
     return calls
 
 
 @pytest.mark.parametrize("n_tris", [7, 100, mg.GRAD_MAX_TRIS])
 def test_grad_routing_sends_cuda_scenes_to_the_kernels(monkeypatch, n_tris):
-    """Every scene K2 takes goes to K1+K2 on a CUDA device, above the
-    JAX package's 64-triangle crossover to K8 as well."""
+    """On a CUDA device a scene goes to K1+K2 up to the crossover
+    measured on the H100 (``GRAD_ROUTE_MAX_TRIS``; the JAX package's
+    was 64 triangles, on a TPU) and to the streamed K6+K8+K7 above it,
+    though K2 takes up to 1024 (recorded as -T)."""
     scene = (default_scene(CPU) if n_tris == 7
              else procedural_scene(n_tris, seed=1, device=CPU))
     calls = _as_if_on_cuda(monkeypatch)
     cfg = RenderConfig(width=8, height=4, spp=1)
-    assert renderer.grad_renderer(scene, cfg).name == "megakernel"
+    fused = n_tris <= renderer.GRAD_ROUTE_MAX_TRIS
+    assert renderer.grad_renderer(scene, cfg).name == (
+        "megakernel" if fused else "bigscene")
     out = render_radiance_fastgrad(scene, Camera.default(CPU), cfg)
-    assert out.shape == (4, 8, 3) and calls == [n_tris]
+    assert out.shape == (4, 8, 3)
+    assert calls == [n_tris if fused else -n_tris]
 
 
 def test_grad_routing_raises_for_cuda_scenes_without_a_kernel(monkeypatch):
-    """No silent plain gradient on a CUDA device: a scene above K2's cap
-    names the unported streamed backward K8, a path longer than K2's
-    saved state says so, an unported config says what is not ported."""
-    big = procedural_scene(mg.GRAD_MAX_TRIS + 1, seed=1, device=CPU)
+    """No silent plain gradient on a CUDA device: a scene above every
+    backward kernel's cap (K2's 1024 triangles, the streamed K8's 2^20)
+    names K8's, a path longer than the kernels' saved state says so, an
+    unported config says what is not ported."""
+    big = procedural_scene(bg.GRAD_MAX_TRIS + 1, seed=1, device=CPU)
     small, cam = default_scene(CPU), Camera.default(CPU)
     calls = _as_if_on_cuda(monkeypatch)
     cfg = RenderConfig(width=8, height=4, spp=1)

@@ -29,7 +29,7 @@ from spath_tpu_torch.models.flat import render_flat  # noqa: E402
 from spath_tpu_torch.models.pathtracer import (  # noqa: E402
     render_pt, render_pt_fast, render_radiance, trace_radiance,
 )
-from spath_tpu_torch.ops.kernels import megakernel  # noqa: E402
+from spath_tpu_torch.ops.kernels import bigscene, megakernel  # noqa: E402
 from spath_tpu_torch.ops.rng import pixel_seeds  # noqa: E402
 from spath_tpu_torch.scene import Scene, default_scene  # noqa: E402
 from spath_tpu_torch.scene import procedural_scene  # noqa: E402
@@ -138,8 +138,8 @@ def test_routing_keeps_cpu_tensors_off_the_kernel(monkeypatch):
     mega = renderer.MegakernelRenderer()
     assert not mega.available(scene) and not mega.supports(scene, cfg)
     assert renderer.forward_renderer(scene, cfg).name == "wavefront"
-    assert [r.name for r in renderer.REGISTRY] == ["megakernel", "quality",
-                                                   "wavefront"]
+    assert [r.name for r in renderer.REGISTRY] == ["megakernel", "bigscene",
+                                                   "quality", "wavefront"]
 
     def forbidden(*args, **kw):
         raise AssertionError("mega_call reached with CPU tensors")
@@ -185,10 +185,11 @@ def test_routing_sends_cuda_scenes_to_the_kernel(monkeypatch, n_tris):
 
 
 def test_routing_raises_for_cuda_scenes_without_a_kernel(monkeypatch):
-    """No silent plain render on a CUDA device: a scene too big for the
-    fused kernel names the unported streamed kernel, an unported config
-    says what is not ported."""
-    big = procedural_scene(megakernel.MAX_TRIS + 1, seed=1, device=CPU)
+    """No silent plain render on a CUDA device: a scene too big for every
+    kernel (the fused K1 takes 1024 triangles, the streamed K6 2^20)
+    names the streamed kernel's cap, an unported config says what is not
+    ported."""
+    big = procedural_scene(bigscene.BIG_MAX_TRIS + 1, seed=1, device=CPU)
     small, cam = default_scene(CPU), Camera.default(CPU)
     calls = _as_if_on_cuda(monkeypatch)
     cfg = RenderConfig(width=8, height=4, spp=1)

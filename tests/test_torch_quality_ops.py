@@ -73,19 +73,31 @@ def test_mul32_does_not_overflow():
 
 def test_sqrt_rn_is_correctly_rounded():
     """``sqrt_rn`` gives the correctly rounded float32 root, numpy's and
-    JAX's, to the bit, over uniforms, small values and powers of two. The
-    input stays under PyTorch's CPU grain (32768 elements), so one thread
-    computes it: a larger one was one ulp off in one element in a few
-    runs (ROADMAP queue 3)."""
+    JAX's, to the bit, over uniforms, small and large values, powers of
+    two (subnormals included), zero and infinity: once under PyTorch's
+    CPU grain (32768 elements, one thread) and once over 10^6 elements,
+    many threads, where the float64 root rounded once was one ulp off in
+    rare elements; its correction step makes it exact at any size. (JAX's
+    CPU programs flush subnormal inputs to zero, so they are held to
+    numpy alone.)"""
     from spath_tpu_torch.ops.fp import sqrt_rn
 
     g = np.random.Generator(np.random.Philox(11))
-    x = np.concatenate([g.uniform(size=20_000), g.uniform(size=1000) * 1e-20,
-                        2.0 ** np.arange(-60, 60), [0.0, 1.0, 1e-20]]
-                       ).astype(np.float32)
-    got = sqrt_rn(torch.from_numpy(x)).numpy()
-    np.testing.assert_array_equal(got, np.sqrt(x))
-    np.testing.assert_array_equal(got, np.asarray(jnp.sqrt(jnp.asarray(x))))
+    small = np.concatenate([g.uniform(size=20_000),
+                            g.uniform(size=1000) * 1e-20,
+                            2.0 ** np.arange(-60, 60), [0.0, 1.0, 1e-20]]
+                           ).astype(np.float32)
+    large = np.concatenate([g.uniform(size=1_200_000),
+                            g.uniform(size=100_000) * 1e-20,
+                            g.uniform(size=100_000) * 1e30,
+                            2.0 ** np.arange(-149, 128), [np.inf]]
+                           ).astype(np.float32)
+    for x in (small, large):
+        got = sqrt_rn(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got, np.sqrt(x))
+        normal = (x == 0) | (x >= np.finfo(np.float32).tiny)
+        np.testing.assert_array_equal(
+            got[normal], np.asarray(jnp.sqrt(jnp.asarray(x[normal]))))
 
 
 def _normals_and_uniforms(n=4096):

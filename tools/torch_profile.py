@@ -6,7 +6,10 @@
 At 1920x1080, 64 spp, 5 bounces on the default scene, after warm-up,
 traces ``--calls`` calls of each path with ``torch.profiler``, for the
 conformance estimator (K1, K2) and for the quality estimator as the CLI's
-``--mode quality`` builds it (K3, K4):
+``--mode quality`` builds it (K3, K4); then ``BIG_CALLS`` calls of each
+path on ``procedural_scene(10_000, seed=0)`` in the conformance
+estimator (K6; K6, K8 and K7), serving at 64 spp and training at 8, as
+``chip_smoke.py`` phases 21 and 23 run them:
 
 - serving: ``render_pt_fast``;
 - training: ``make_train_step`` with the CLI's perturbation and
@@ -34,6 +37,9 @@ import torch
 
 HEADLINE = dict(width=1920, height=1080, spp=64, max_bounces=5)
 QUALITY = dict(rng="hash", sampler="cosine", nee=True, mis=True)
+# Traced calls of each large-scene path: one serving frame at 10k
+# triangles takes ~15 s on an H100.
+BIG_CALLS = 1
 
 
 def busy_and_kernels(trace: dict, calls: int):
@@ -97,24 +103,30 @@ def main() -> int:
     )
     from spath_tpu_torch.models.pathtracer import render_pt_fast
     from spath_tpu_torch.models.renderer import forward_renderer
-    from spath_tpu_torch.scene import default_scene
+    from spath_tpu_torch.scene import default_scene, procedural_scene
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
-    scene, cam = default_scene(dev), Camera.default(dev)
-    albedo = scene.albedo.cpu().numpy()
-    bad = np.clip(albedo + np.random.default_rng(1).uniform(
-        -0.4, 0.4, albedo.shape).astype(np.float32), 0.05, 1.0)
-    for prefix, cfg, optimizer in (
-            ("", RenderConfig(**HEADLINE),
-             param_group_optimizer(freeze_pose=True, albedo_lr=2e-2)),
-            ("quality_", RenderConfig(**HEADLINE, **QUALITY),
+    cam = Camera.default(dev)
+    small, big = default_scene(dev), procedural_scene(10_000, seed=0,
+                                                       device=dev)
+    frozen = param_group_optimizer(freeze_pose=True, albedo_lr=2e-2)
+    for prefix, scene, cfg, train_cfg, optimizer, calls in (
+            ("", small, RenderConfig(**HEADLINE), None, frozen, args.calls),
+            ("quality_", small, RenderConfig(**HEADLINE, **QUALITY), None,
              param_group_optimizer(freeze_pose=False, pose_lr=0.0,
-                                   albedo_lr=2e-2))):
+                                   albedo_lr=2e-2), args.calls),
+            ("big_", big, RenderConfig(**HEADLINE),
+             RenderConfig(**dict(HEADLINE, spp=8)), frozen, BIG_CALLS)):
         print(json.dumps(profile(
             prefix + "serving", lambda: render_pt_fast(scene, cam, cfg, 0),
-            args.calls, out)), flush=True)
+            calls, out)), flush=True)
+
+        cfg = train_cfg or cfg
+        albedo = scene.albedo.cpu().numpy()
+        bad = np.clip(albedo + np.random.default_rng(1).uniform(
+            -0.4, 0.4, albedo.shape).astype(np.float32), 0.05, 1.0)
 
         target = forward_renderer(scene, cfg).render_radiance(scene, cam,
                                                               cfg, 0)
@@ -125,7 +137,7 @@ def main() -> int:
         def train():
             state[0], _ = step(state[0], target)
 
-        print(json.dumps(profile(prefix + "training", train, args.calls,
+        print(json.dumps(profile(prefix + "training", train, calls,
                                  out)), flush=True)
     return 0
 
