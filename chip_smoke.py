@@ -7,10 +7,11 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 It builds the CUDA kernels from ``spath_tpu_torch/csrc`` and drives the
 port's serving and training paths, conformance estimator (phases 1-10:
-K1, K2), quality estimator (phases 11-17: K3, K4) and conformance
-estimator on large scenes (phases 18-25: K6, K8 and K7), through the
-entry points a user calls; any failure exits non-zero before a result is
-printed.
+K1, K2), quality estimator (phases 11-17: K3, K4), conformance estimator
+on large scenes (phases 18-25: K6, K8 and K7) and quality estimator on
+large scenes (phases 26-33: the light distribution beyond one block, K9,
+K10 and K7 at 19 columns), through the entry points a user calls; any
+failure exits non-zero before a result is printed.
 
 1. Device: the card's name and power limit, and the kernel build.
 2. Kernel against its plain PyTorch version on the same rays: the
@@ -108,6 +109,42 @@ printed.
     rows 536-543 in turns with the kernel on the same rows, ``index_add_``
     beside K7, and the walk counted on rows spread over the frame for the
     bounds.
+
+26. The light distribution kernel against its plain version, bit for
+    bit, at 8193, 10k, 100k and 2^20 triangles (1% emissive), and K7 at
+    K10's 19 columns against its float64 plain version on phase 18's
+    synthetic events.
+27. K9 against K3, to the bit, at phase 11's shapes and estimator
+    settings; against ``quality_plain`` (phase 2's bounds) on the
+    1150-triangle combined scene at 320x240x8, procedural_scene(10_000,
+    emissive_fraction=0.01) at 64x48x2, procedural_scene(2^20) at
+    32x16x1, 3 bounces (~10.5k lights), and an all-dark 1150-triangle
+    scene, whose frame is black and finite.
+28. K10 with K7 against ``quality_bwd_plain`` at phase 27's shapes with
+    phase 13's bounds, and within 1e-5 of each group's max of K4 at
+    T <= 1024.
+29. The quality serving slice on a large scene: ``render_pt_fast`` in the
+    CLI's quality config on procedural_scene(10_000) at 1920x1080, 16
+    spp (cut from 64 for time), 5 bounces, through one light distribution launch
+    and one K9 launch and no other kernel; rows 536-543 held to the plain
+    version and to K9 on those rows alone; then procedural_scene(100_000)
+    at 1 spp.
+30. The gradient entry point in the quality config on the 1150-triangle
+    scene at 320x240x8 through K9, K10 and K7: vertex, albedo, emission
+    and camera-position gradients against autograd of the plain
+    wavefront, and emission linearity.
+31. Quality training on the large scene: 3 steps of ``make_train_step``
+    at 1920x1080, 4 spp, 5 bounces, the albedo perturbed and the pose
+    group at rate 0; each step launches the light distribution and K9
+    once and K10 and K7 once a chunk; the loss falls.
+32. The CLI: ``render --mode quality --scene procedural:10000`` and
+    ``invert --mode quality --scene procedural:2000`` at 640x480.
+33. The quality crossover table (K3 vs K9, K3+K4 vs K9+K10+K7 at T = 64
+    to 1024, 320x240x8, NEE+MIS); K9 timed at phase 29's shape, K10 and
+    K7 at 19 columns at phase 31's (CUDA events; K10's time is the
+    backward call's less its K7 calls), the plain versions on rows
+    536-543 in turns with the kernel on the same rows, ``index_add_``
+    beside K7, the walk counted for the bounds and the CTAs' idle lanes.
 
 The last three lines of standard output are the kernels' JSON record,
 the card as ``nvidia-smi`` names it, and ``{"ok": true, "device": ...}``.
@@ -228,7 +265,15 @@ CROSSOVER_T = (64, 128, 256, 512, 1024)
 LONG_LAUNCH_MS = 20e3
 #: Per hit, K8 does K2's work but the 9 accumulating adds, which K7 does
 #: per event.
-K8_HIT_OPS, K7_EVENT_OPS = K2_HIT_OPS - 9, 9
+K8_HIT_OPS = K2_HIT_OPS - 9
+#: The quality estimator's large-scene cells: serving on
+#: procedural_scene(BIG_T, seed=0) at the headline shape but BIGQ_SERVE_SPP
+#: samples (cut from 64 to keep the script near 420 s: a 64-sample frame
+#: took 28.4 s on an H100, and with its plain band and timings ~140 s of
+#: the run), and on procedural_scene(HUGE_T, seed=0) at BIGQ_HUGE_SPP (cut
+#: from 64 for time); training on the first at BIGQ_TRAIN_SPP (cut from 64
+#: for time).
+BIGQ_SERVE_SPP, BIGQ_HUGE_SPP, BIGQ_TRAIN_SPP = 16, 1, 4
 
 
 class SmokeFailure(Exception):
@@ -587,55 +632,73 @@ def quality_vs_plain(torch, cam, scene, cfg, name: str) -> dict:
     return check_against_plain(torch, got, want, name)
 
 
-def quality_backward_vs_plain(torch, o, d, keys, tri, rows, cfg, name: str):
-    """K4 against ``quality_bwd_plain`` on the same rays and a cotangent
-    uniform in [0.1, 1) from seed 3: each column group within its
-    QGRAD_GROUPS bound of its own max|plain| (exactly equal where the
-    plain group is zero), the camera-ray adjoint within 1e-5 of its max,
-    the table cotangent's prob and cdf exactly zero, two launches bitwise
-    equal. Returns the comparison and the cotangent."""
+def quality_backward_vs_plain(torch, o, d, keys, tri, rows, cfg, name: str,
+                           streamed: bool = False, tri_block: int = 512):
+    """Phase 13's checks of K4, or (``streamed``) phase 28's of K10 with
+    K7: against ``quality_bwd_plain`` on the same rays and a cotangent
+    uniform in [0.1, 1) from seed 3, each column group within its
+    QGRAD_GROUPS bound of its own max|plain|, the camera-ray adjoint
+    within 1e-5 of its max, prob and cdf zero, two launches bitwise
+    equal; K10 also within 1e-5 of each group's max of K4 where K4 takes
+    the scene."""
+    from spath_tpu_torch.ops.kernels import bigscene_quality_grad as bqg
     from spath_tpu_torch.ops.kernels import megakernel_quality as mq
     from spath_tpu_torch.ops.kernels import megakernel_quality_grad as mqg
 
+    call = bqg.bigq_bwd_call if streamed else mqg.quality_bwd_call
+    kernel = "K10" if streamed else "K4"
     gen = torch.Generator().manual_seed(3)
     gbar = (torch.rand((o.shape[0], 3), generator=gen) * 0.9
             + 0.1).to(o.device)
-    got, gray = mqg.quality_bwd_call(o, d, keys, tri, rows, gbar, cfg)
-    again, gray_again = mqg.quality_bwd_call(o, d, keys, tri, rows, gbar,
-                                             cfg)
+    got, gray = call(o, d, keys, tri, rows, gbar, cfg)
+    again, gray_again = call(o, d, keys, tri, rows, gbar, cfg)
     torch.cuda.synchronize()
-    want, want_gray = mqg.quality_bwd_plain(o, d, keys, tri, rows, gbar, cfg)
+    want, want_gray = mqg.quality_bwd_plain(o, d, keys, tri, rows, gbar,
+                                            cfg.replace(tri_block=tri_block))
     check(torch.isfinite(got).all().item()
-          and torch.isfinite(gray).all().item(), f"{name}: K4 not finite")
+          and torch.isfinite(gray).all().item(), f"{name}: {kernel} not "
+          "finite")
     check(want.abs().max().item() > 0.0, f"{name}: the plain adjoint is "
           "zero")
     rel = {}
-    for group, (cols, bound) in QGRAD_GROUPS.items():
+    for group, (cols, bound_) in QGRAD_GROUPS.items():
         scale = want[:, cols].abs().max().item()
         err = (got[:, cols] - want[:, cols]).abs().max().item()
-        check(err <= bound * scale, f"{name}: K4's {group} adjoint off "
-              f"its plain version by {err:.6g}, max|plain| {scale:.6g}")
+        check(err <= bound_ * scale, f"{name}: {kernel}'s {group} adjoint "
+              f"off its plain version by {err:.6g}, max|plain| {scale:.6g}")
         rel[group] = err / scale if scale else 0.0
     rscale = want_gray.abs().max().item()
     rerr = (gray - want_gray).abs().max().item()
-    check(rerr <= GRAD_RTOL * rscale, f"{name}: K4's ray adjoint off by "
-          f"{rerr:.6g}, max|plain| {rscale:.6g}")
+    check(rerr <= GRAD_RTOL * rscale, f"{name}: {kernel}'s ray adjoint off "
+          f"by {rerr:.6g}, max|plain| {rscale:.6g}")
     rel["rays"] = rerr / rscale if rscale else 0.0
     table = mqg.grad_table_from_gtab19(got)
     check(not table[:, [mq.COL_PROB, mq.COL_CDF]].any().item(),
           f"{name}: prob/cdf cotangent not zero")
     check(torch.equal(got, again) and torch.equal(gray, gray_again),
           f"{name}: two launches differ")
+    if streamed and tri.shape[0] <= mqg.GRAD_MAX_TRIS:
+        k4, _ = mqg.quality_bwd_call(o, d, keys, tri, rows, gbar, cfg)
+        for group, (cols, _) in QGRAD_GROUPS.items():
+            scale = k4[:, cols].abs().max().item()
+            err = (got[:, cols] - k4[:, cols]).abs().max().item()
+            check(err <= GRAD_RTOL * scale, f"{name}: K10's {group} adjoint "
+                  f"off K4's by {err:.6g}, max|K4| {scale:.6g}")
+            rel[f"{group} vs K4"] = err / scale if scale else 0.0
     return dict(max_abs_err=(got - want).abs().max().item(),
                 rel_err_by_group=rel,
                 rays_bit_exact=bool(torch.equal(gray, want_gray)),
                 deterministic=True), gbar
 
 
-def quality_gradient_entry(torch, dev, cam, scene) -> str:
-    """Phase 14: ``render_radiance_fastgrad`` in the quality config on the
-    card against autograd of the plain wavefront, camera position
-    included."""
+def quality_gradient_entry(torch, dev, cam, scene, big: bool = False
+                           ) -> str:
+    """Phase 14 (and 30 with ``big``): ``render_radiance_fastgrad`` in the
+    quality config on the card against autograd of the plain wavefront,
+    camera position included, through K3 and K4 (or the light
+    distribution, K9, K10 and K7 and no other kernel); with ``big`` also
+    emission linearity through K9 twice, along a direction that keeps the
+    light distribution (see below)."""
     from spath_tpu_torch.camera import Camera
     from spath_tpu_torch.config import RenderConfig
     from spath_tpu_torch.models.pathtracer import (
@@ -659,12 +722,16 @@ def quality_gradient_entry(torch, dev, cam, scene) -> str:
                      Camera(leaves[3], cam.angle, cam.focal), cfg, 0)
         return torch.autograd.grad((img * wts).sum(), leaves)
 
-    mq.quality_call.launches = mqg.quality_bwd_call.launches = 0
+    zero_counts(every_kernel())
     got = grads(render_radiance_fastgrad)
     torch.cuda.synchronize()
     k3, k4 = mq.quality_call.launches, mqg.quality_bwd_call.launches
-    check(k3 > 0 and k4 > 0, f"render_radiance_fastgrad launched K3 {k3} "
-          f"and K4 {k4} times")
+    if big:
+        path = launched_only({"light": 1, "K9": 1, "K10": 1, "K7": 1},
+                             "render_radiance_fastgrad quality")
+    else:
+        check(k3 > 0 and k4 > 0, f"render_radiance_fastgrad launched K3 "
+              f"{k3} and K4 {k4} times")
     want = grads(render_radiance)
     errs = {}
     for name, g, w in zip(("vertices", "albedo", "emission", "camera"), got,
@@ -674,14 +741,39 @@ def quality_gradient_entry(torch, dev, cam, scene) -> str:
         check(scale > 0.0, f"{name}: zero gradient")
         check(errs[name] <= ENTRY_RTOL, f"{name} gradient off the "
               f"wavefront's by {errs[name]:.3g} of its max")
-    return (f"K3 {k3} and K4 {k4} launches; gradient error / max: "
-            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    if not big:
+        return (f"K3 {k3} and K4 {k4} launches; gradient error / max: "
+                + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    # Along the emission itself, L(2e) - L(e) against <g, e>: doubling
+    # every emission doubles every weight and the total exactly, so the
+    # light distribution stays bit for bit. The estimator is linear in
+    # emission only while its light choice is fixed (prob and cdf are
+    # detached): along a random direction the frame moved 0.33% off the
+    # first-order change.
+    e = scene.emission.detach().clone().requires_grad_()
+    escene = Scene(scene.vertices, scene.albedo, e, scene.light_idx)
+    loss = render_radiance_fastgrad(escene, cam, cfg, 0).mean()
+    (g,) = torch.autograd.grad(loss, [e])
+    direction = e.detach()
+    with torch.no_grad():
+        f1 = render_radiance_fastgrad(
+            Scene(scene.vertices, scene.albedo, 2.0 * direction,
+                  scene.light_idx), cam, cfg, 0).mean().item()
+    want_d, got_d = f1 - loss.item(), (g * direction).sum().item()
+    check(abs(got_d - want_d) <= LINEARITY_RTOL * max(abs(want_d), 1e-6),
+          f"emission linearity: <g, dir> {got_d} against {want_d}")
+    return (f"launches {path}; gradient error / max: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f"; emission <g, dir> {got_d:.7g} vs L(e+dir) - L(e) "
+            f"{want_d:.7g}")
 
 
-def quality_training(torch, dev, cam, scene, cfg) -> dict:
+def quality_training(torch, dev, cam, scene, cfg, per_step=None) -> dict:
     """Phase 15: three train steps at full width through the light
     distribution kernel, K3 and K4, the albedo perturbed and the pose
-    group enabled at rate 0."""
+    group enabled at rate 0; or (phase 31), given ``per_step`` ({kernel:
+    launches a step}), through exactly those kernels (the light
+    distribution, K9, K10 and K7)."""
     import numpy as np
 
     from spath_tpu_torch.models.inverse import (
@@ -706,8 +798,7 @@ def quality_training(torch, dev, cam, scene, cfg) -> dict:
     step = make_train_step(scene, cfg, fixed_seed=0)
     torch.cuda.synchronize()
 
-    mq.quality_call.launches = mqg.quality_bwd_call.launches = 0
-    lc.light_cdf_call.launches = 0
+    zero_counts(every_kernel())
     losses, step_s = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -717,8 +808,14 @@ def quality_training(torch, dev, cam, scene, cfg) -> dict:
         step_s.append(time.perf_counter() - t0)
     k3, k4 = mq.quality_call.launches, mqg.quality_bwd_call.launches
     light = lc.light_cdf_call.launches
-    check(k3 == 3 and k4 == 3 and light == 3, f"3 train steps launched the "
-          f"light distribution kernel {light}, K3 {k3} and K4 {k4} times")
+    if per_step is None:
+        check(k3 == 3 and k4 == 3 and light == 3, f"3 train steps launched "
+              f"the light distribution kernel {light}, K3 {k3} and K4 {k4} "
+              "times")
+        launched = dict(light=light, K3=k3, K4=k4)
+    else:
+        launched = launched_only({k: 3 * v for k, v in per_step.items()},
+                                 "3 quality train steps")
     check(all(np.isfinite(losses)), f"losses {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
 
@@ -732,8 +829,10 @@ def quality_training(torch, dev, cam, scene, cfg) -> dict:
     check(torch.isfinite(g_pos).all().item() and g_pos.abs().max() > 0,
           f"camera gradient {g_pos.tolist()}")
     ms = event_ms(torch, fwd_bwd, 3)
-    return dict(k3=k3, k4=k4, light=light, losses=losses, step_s=step_s,
-                fwd_bwd_ms=ms, cam_grad=g_pos.tolist())
+    out = {k.lower(): v for k, v in launched.items()}
+    out.update(losses=losses, step_s=step_s, fwd_bwd_ms=ms,
+               cam_grad=g_pos.tolist(), launches=launched)
+    return out
 
 
 def edge_witness(torch, cam, scene, cfg) -> dict:
@@ -839,7 +938,8 @@ def quality_walk_counts(torch, o, d, keys, tri, rows, cfg) -> dict:
     """The quality walk's work at these inputs, counted with the plain
     replay: MT tests of the camera and next-bounce sweeps, of the shadow
     sweeps (fused with the next bounce's, or alone at the last bounce),
-    hits, light-choice steps and the lanes whose NEE term counted."""
+    hits, light-choice steps (a binary search over the light rows) and
+    the lanes whose NEE term counted."""
     from spath_tpu_torch.ops.kernels import megakernel_quality as mq
 
     n, n_tris = o.shape[0], tri.shape[0]
@@ -857,7 +957,8 @@ def quality_walk_counts(torch, o, d, keys, tri, rows, cfg) -> dict:
     return dict(sweep_tests=sweeps * n_tris,
                 fused_shadow_tests=hits_before_last * shadow,
                 last_shadow_tests=hits_last * shadow, hits=hits,
-                select_steps=hits * n_rows if cfg.nee else 0, nee_lanes=oks)
+                select_steps=hits * n_rows.bit_length() if cfg.nee else 0,
+                nee_lanes=oks)
 
 
 def combined_scene(device):
@@ -913,10 +1014,12 @@ def scaled(walk: dict, factor: float) -> dict:
             for k, v in walk.items()}
 
 
-def scatter_vs_plain(torch, dev, n_tris: int, n_events: int) -> dict:
-    """Phase 18: K7 against its float64 plain version on synthetic events
-    from numpy: half on 4 hot triangles, a tenth -1; each column within
-    SCATTER_RTOL of its max|plain|, two launches bitwise equal."""
+def scatter_vs_plain(torch, dev, n_tris: int, n_events: int,
+                     cols: int = 9) -> dict:
+    """Phase 18 (and 26 at 19 columns): K7 against its float64 plain
+    version on synthetic events from numpy: half on 4 hot triangles, a
+    tenth -1; each column within SCATTER_RTOL of its max|plain|, two
+    launches bitwise equal."""
     import numpy as np
 
     from spath_tpu_torch.ops.kernels import stream_scatter as ss
@@ -927,11 +1030,11 @@ def scatter_vs_plain(torch, dev, n_tris: int, n_events: int) -> dict:
     on_hot = rng.random(n_events) < 0.5
     idx[on_hot] = hot[rng.integers(0, 4, size=int(on_hot.sum()))]
     idx[rng.random(n_events) < 0.1] = -1
-    val = rng.normal(size=(n_events, 9)).astype(np.float32)
+    val = rng.normal(size=(n_events, cols)).astype(np.float32)
     i, v = torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev)
 
     def zeros():
-        return torch.zeros((n_tris, 9), dtype=torch.float32, device=dev)
+        return torch.zeros((n_tris, cols), dtype=torch.float32, device=dev)
 
     got = ss.stream_scatter_call(zeros(), i, v)
     again = ss.stream_scatter_call(zeros(), i, v)
@@ -1066,12 +1169,13 @@ def big_cli(cli) -> str:
 
 
 def bwd_split_ms(torch, call, *args) -> tuple[float, float]:
-    """CUDA-event ms of one ``bigscene_bwd_call(*args)`` split into its
-    K7 calls (events around each) and the rest, which is its K8 launches
-    and a few small fills and copies."""
-    from spath_tpu_torch.ops.kernels import bigscene_grad as bg
+    """CUDA-event ms of one streamed backward call (``bigscene_bwd_call``
+    or ``bigq_bwd_call``) on ``args``, split into its K7 calls (events
+    around each) and the rest, which is its K8 or K10 launches and a few
+    small fills and copies."""
     from spath_tpu_torch.ops.kernels import stream_scatter as ss
 
+    module = sys.modules[call.__module__]
     marks = []
 
     def timed(adj, idx, val):
@@ -1085,16 +1189,77 @@ def bwd_split_ms(torch, call, *args) -> tuple[float, float]:
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    bg.stream_scatter_call = timed
+    module.stream_scatter_call = timed
     try:
         start.record()
         call(*args)
         end.record()
         torch.cuda.synchronize()
     finally:
-        bg.stream_scatter_call = ss.stream_scatter_call
+        module.stream_scatter_call = ss.stream_scatter_call
     k7 = sum(a.elapsed_time(b) for a, b in marks)
     return start.elapsed_time(end) - k7, k7
+
+
+def first_chunk_events(torch, call, *args):
+    """The events of the first K7 call of one streamed backward call on
+    ``args``: ``(idx, val)``."""
+    from spath_tpu_torch.ops.kernels import stream_scatter as ss
+
+    module = sys.modules[call.__module__]
+    captured = []
+
+    def capture(adj, idx, val):
+        if not captured:
+            captured.append((idx.clone(), val.clone()))
+        return ss.stream_scatter_call(adj, idx, val)
+
+    module.stream_scatter_call = capture
+    try:
+        call(*args)
+        torch.cuda.synchronize()
+    finally:
+        module.stream_scatter_call = ss.stream_scatter_call
+    return captured[0]
+
+
+def scatter_timing(torch, dev, idx, val, n_tris: int) -> dict:
+    """K7 on one chunk's events: timed in turns with its plain version,
+    ``index_add_`` beside it, held to the plain version (SCATTER_RTOL of
+    its max), and its bound."""
+    from spath_tpu_torch.ops.kernels import stream_scatter as ss
+
+    cols = val.shape[1]
+    valid = idx >= 0
+    n_valid = int(valid.sum())
+    lidx, lval = idx[valid].long(), val[valid]
+
+    def zeros():
+        return torch.zeros((n_tris, cols), device=dev)
+
+    def kernel():
+        ss.stream_scatter_call(zeros(), idx, val)
+
+    def plain():
+        ss.stream_scatter_plain(zeros(), idx, val)
+
+    lib_adj = zeros()
+    kernel()
+    ms, plain_ms = in_turns(torch, kernel, plain, kernel_reps=3)
+    lib_adj.index_add_(0, lidx, lval)
+    library_ms = [event_ms(torch, lambda: lib_adj.index_add_(0, lidx, lval),
+                           3) for _ in range(2)]
+    got = ss.stream_scatter_call(zeros(), idx, val)
+    want = ss.stream_scatter_plain(zeros(), idx, val)
+    err = (got - want).abs().max().item()
+    check(err <= SCATTER_RTOL * want.abs().max().item(),
+          f"K7 on {cols}-column events off its plain version by {err}")
+    # one add a column an event; each slot's index read, each valid
+    # event's values read, the float64 adjoint written
+    bound_ = bound(cols * n_valid,
+                   idx.shape[0] * 4 + n_valid * 4 * cols + n_tris * 8 * cols)
+    return dict(slots=idx.shape[0], events=n_valid, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, max_abs_err=err, bound=bound_)
 
 
 def in_turns(torch, kernel, plain, kernel_reps: int = 1):
@@ -1107,6 +1272,190 @@ def in_turns(torch, kernel, plain, kernel_reps: int = 1):
         kernel_ms.append(event_ms(torch, kernel, kernel_reps))
     plain_ms.append(event_ms(torch, plain, 1))
     return kernel_ms, plain_ms
+
+
+def quality_kernels(big: bool) -> dict:
+    """The wrappers of the quality path: the light distribution with the
+    fused K3/K4, or with the streamed K9/K10/K7."""
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+    from spath_tpu_torch.ops.kernels import bigscene_quality_grad as bqg
+    from spath_tpu_torch.ops.kernels import light_cdf as lc
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+    from spath_tpu_torch.ops.kernels import megakernel_quality_grad as mqg
+    from spath_tpu_torch.ops.kernels import stream_scatter as ss
+
+    if big:
+        return {"light": lc.light_cdf_call, "K9": bq.bigq_call,
+                "K10": bqg.bigq_bwd_call, "K7": ss.stream_scatter_call}
+    return {"light": lc.light_cdf_call, "K3": mq.quality_call,
+            "K4": mqg.quality_bwd_call}
+
+
+def every_kernel() -> dict:
+    return {**conformance_kernels(False), **conformance_kernels(True),
+            **quality_kernels(False), **quality_kernels(True)}
+
+
+def launched_only(expect: dict, what: str) -> dict:
+    """The counts of every kernel since they were zeroed: exactly
+    ``expect`` ({name: launches}), every other kernel 0."""
+    launched = counts(every_kernel())
+    want = {k: expect.get(k, 0) for k in launched}
+    check(launched == want, f"{what} launched {launched}, want {want}")
+    return {k: v for k, v in launched.items() if v}
+
+
+def k9_vs_k3(torch, cam, scene, cfg, name: str) -> dict:
+    """Phase 27: K9 equals K3 to the bit on the same rays and keys."""
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+
+    o, d, keys = mq.pack_rays(cam, cfg, 0)
+    tri, rows = mq.quality_table(scene), bq.light_rows(scene)
+    got = bq.bigq_call(o, d, keys, tri, rows, cfg)
+    want = mq.quality_call(o, d, keys, tri, rows, cfg)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"{name}: K9 differs from K3 by "
+          f"{(got - want).abs().max().item():.6g}")
+    return dict(bit_exact=True, mean=got.mean().item())
+
+
+def k9_vs_plain(torch, cam, scene, cfg, name: str, tri_block: int,
+                dark: bool = False) -> dict:
+    """Phase 27: K9 against ``quality_plain`` on the same rays and keys,
+    with phase 2's bounds; an all-dark scene's frame equals the plain
+    version's, black and finite."""
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+
+    o, d, keys = mq.pack_rays(cam, cfg, 0)
+    tri, rows = mq.quality_table(scene), bq.light_rows(scene)
+    got = bq.bigq_call(o, d, keys, tri, rows, cfg)
+    torch.cuda.synchronize()
+    want = mq.quality_plain(o, d, keys, tri, rows,
+                            cfg.replace(tri_block=tri_block))
+    if dark:
+        check(torch.isfinite(got).all().item() and got.max().item() == 0.0
+              and torch.equal(got, want), f"{name}: the dark frame is "
+              f"not black, finite and equal to the plain version's")
+        return dict(bit_exact=True, max=0.0, lights=len(rows))
+    return dict(check_against_plain(torch, got, want, name),
+                lights=len(rows))
+
+
+def quality_serving(torch, dev, cam, n_tris: int, cfg, tri_block: int
+                    ) -> dict:
+    """Phase 29: ``render_pt_fast`` in the quality config on
+    procedural_scene(n_tris, seed=0) at full width through one light
+    distribution launch and one K9 launch and nothing else; the frame's
+    band of rows against the plain version on the same rays and keys
+    (phase 2's bounds) and against K9 launched on the band alone (to the
+    bit); the frame not vacuous."""
+    from spath_tpu_torch.models.pathtracer import render_pt_fast
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+    from spath_tpu_torch.scene import procedural_scene
+
+    scene = procedural_scene(n_tris, seed=0, device=dev)
+    bq.light_rows(scene)  # copied to the device once, as a server would
+    torch.cuda.synchronize()
+    zero_counts(every_kernel())
+    t0 = time.perf_counter()
+    img = render_pt_fast(scene, cam, cfg, 0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launched = launched_only({"light": 1, "K9": 1},
+                             f"render_pt_fast quality on {n_tris} triangles")
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3),
+          f"shape {tuple(img.shape)}")
+    check(torch.isfinite(img).all().item(), "frame not finite")
+    check(img.min().item() >= 0.0 and img.max().item() <= 1.0,
+          "frame outside [0, 1]")
+    mean = img.mean().item()
+    check(mean > 1e-3, f"vacuous frame: mean {mean}")
+    o, d, keys = mq.pack_rays(cam, cfg, 0)
+    tri, rows = mq.quality_table(scene), bq.light_rows(scene)
+    band = rows_of(torch, cfg.width, BAND_ROWS, o, d, keys)
+    band_k = bq.bigq_call(*band, tri, rows, cfg)
+    torch.cuda.synchronize()
+    check(torch.equal(img[BAND_ROWS.start:BAND_ROWS.stop].reshape(-1, 3),
+                      band_k.clamp(0.0, 1.0)),
+          "the frame's band differs from K9 launched on the band")
+    band_p = mq.quality_plain(*band, tri, rows,
+                              cfg.replace(tri_block=tri_block))
+    c = check_against_plain(torch, band_k, band_p,
+                            f"quality, {n_tris} triangles, rows {BAND_ROWS}")
+    return dict(launches=launched, first_s=first_s, mean=mean,
+                band_vs_plain=c, rays=(o, d, keys), band=band, tri=tri,
+                rows=rows, scene=scene)
+
+
+def quality_big_cli(cli) -> str:
+    """Phase 32: ``render --mode quality --scene procedural:10000``
+    through the light distribution and K9 alone, and ``invert --mode
+    quality --scene procedural:2000`` through the light distribution, K9,
+    K10 and K7 alone; the albedo error falls."""
+    import contextlib
+    import io
+    import re
+
+    from spath_tpu_torch.utils.image import read_png
+
+    w, h = CLI_SIZE
+    zero_counts(every_kernel())
+    with tempfile.TemporaryDirectory() as tmp:
+        png = Path(tmp) / "bigq.png"
+        check(cli.main(["render", "--mode", "quality", "--scene",
+                        f"procedural:{BIG_T}", "--size", f"{w}x{h}",
+                        "--spp", "16", "--out", str(png)]) == 0,
+              "cli render --mode quality --scene failed")
+        img = read_png(str(png))
+        check(img.shape == (h, w, 3) and img.max() > 0, "scene PNG is black")
+    rendered = launched_only({"light": 1, "K9": 1},
+                             "cli render --mode quality --scene")
+    zero_counts(every_kernel())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["invert", "--mode", "quality", "--scene",
+                       "procedural:2000", "--size", f"{w}x{h}", "--spp",
+                       "16", "--steps", "5"])
+    text = out.getvalue()
+    inverted = counts(every_kernel())
+    m = re.search(r"albedo error ([0-9.]+) -> ([0-9.]+)", text)
+    check(rc == 0 and m is not None, f"cli invert: rc {rc}, {text!r}")
+    check(float(m[2]) < float(m[1]), f"albedo error did not fall: {text!r}")
+    others = {k: v for k, v in inverted.items()
+              if k not in ("light", "K9", "K10", "K7")}
+    check(not any(others.values())
+          and min(inverted[k] for k in ("light", "K9", "K10", "K7")) > 0,
+          f"cli invert --mode quality --scene launched {inverted}")
+    return (f"render launched {rendered}; invert launched "
+            f"{ {k: v for k, v in inverted.items() if v} }: {text.strip()}")
+
+
+def quality_cta_walk(torch, o, d, keys, tri, rows, cfg, cta: int = 128
+                     ) -> dict:
+    """The quality walk's work on these rays from the plain replay, as
+    ``quality_walk_counts``, and the streamed kernels' CTA sweeps after
+    the camera's: a 128-ray CTA sweeps at a bounce while any of its rays
+    is alive there (with NEE at every bounce, without from bounce 1), so
+    the share of its lanes that idle through those sweeps."""
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+
+    walk = quality_walk_counts(torch, o, d, keys, tri, rows, cfg)
+    n = o.shape[0]
+    pad = (-n) % cta
+    lane_sweeps = cta_sweeps = 0
+    with torch.no_grad():
+        for _, saved in mq.quality_replay(o, d, keys, tri, rows, cfg):
+            for b, sv in enumerate(saved):
+                if not cfg.nee and b == 0:
+                    continue
+                live = torch.nn.functional.pad(sv["hit"], (0, pad))
+                lane_sweeps += int(live.sum())
+                cta_sweeps += int(live.view(-1, cta).any(1).sum())
+    return dict(walk, cta_sweeps=cta_sweeps,
+                idle_lane_share=1.0 - lane_sweeps / max(cta_sweeps * cta, 1))
 
 
 def run() -> None:
@@ -1632,19 +1981,8 @@ def run() -> None:
     to, td, tseeds = mk.pack_rays(cam, train_cfg, 0)
     tgbar = (torch.rand((to.shape[0], 3), generator=torch.Generator()
                         .manual_seed(3)) * 0.9 + 0.1).to(dev)
-    captured = []
-
-    def capture(adj, idx, val):
-        if not captured:
-            captured.append((idx.clone(), val.clone()))
-        return ss.stream_scatter_call(adj, idx, val)
-
-    bg.stream_scatter_call = capture
-    try:
-        bg.bigscene_bwd_call(to, td, tseeds, btri, tgbar, train_cfg)
-        torch.cuda.synchronize()
-    finally:
-        bg.stream_scatter_call = ss.stream_scatter_call
+    cidx, cval = first_chunk_events(torch, bg.bigscene_bwd_call, to, td,
+                                    tseeds, btri, tgbar, train_cfg)
     split = [bwd_split_ms(torch, bg.bigscene_bwd_call, to, td, tseeds, btri,
                           tgbar, train_cfg) for _ in range(2)]
     k8_ms = [t[0] for t in split]
@@ -1678,39 +2016,258 @@ def run() -> None:
         f"({k8_bound[1]})")
 
     # K7 on the first chunk's events of that call
-    cidx, cval = captured[0]
-    valid = cidx >= 0
-    n_valid = int(valid.sum())
-    lidx, lval = cidx[valid].long(), cval[valid]
+    k7 = scatter_timing(torch, dev, cidx, cval, nb_tris)
+    log(f"[25] K7 on one chunk's events ({k7['slots']} slots, {k7['events']} "
+        f"events, {BIG_T} triangles) on {smi}: {k7['ms']} ms, plain "
+        f"{k7['plain_ms']} ms, index_add_ {k7['library_ms']} ms; max error "
+        f"{k7['max_abs_err']:.3g}; bound {k7['bound'][0]:.4f} ms "
+        f"({k7['bound'][1]})")
+    del cidx, cval
 
-    def k7():
-        ss.stream_scatter_call(torch.zeros((nb_tris, 9), device=dev), cidx,
-                               cval)
+    # ---- the quality estimator on large scenes: the light distribution
+    # beyond one block, K9, K10 and K7 at 19 columns ----
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+    from spath_tpu_torch.ops.kernels import bigscene_quality_grad as bqg
 
-    def k7_plain():
-        ss.stream_scatter_plain(torch.zeros((nb_tris, 9), device=dev), cidx,
-                                cval)
+    # 26. the light distribution up to 2^20 triangles, and K7 at 19
+    # columns, against their plain versions
+    light_big_ms = {}
+    for n_light in (8193, BIG_T, HUGE_T, 1 << 20):
+        lscene = procedural_scene(n_light, seed=0, device=dev)
+        name = f"{n_light} triangles"
+        c = light_cdf_vs_plain(torch, lscene, name)
+        emission, area = lscene.emission, nee.triangle_areas(lscene)
+        light_big_ms[lscene.n_tris] = event_ms(
+            torch, lambda: lc.light_cdf_call(emission, area), 5)
+        log(f"[26] light distribution vs plain, {name}: {c}; "
+            f"{light_big_ms[lscene.n_tris]:.4f} ms a call")
+    del lscene, emission, area
+    for n_tris_s, n_events in SCATTER_CASES:
+        log(f"[26] K7 at 19 columns vs plain, T={n_tris_s}, {n_events} "
+            f"events: {scatter_vs_plain(torch, dev, n_tris_s, n_events,
+                                        cols=ss.QUALITY_COLS)}")
 
-    lib_adj = torch.zeros((nb_tris, 9), device=dev)
-    k7()
-    k7_ms, k7_plain_ms = in_turns(torch, k7, k7_plain, kernel_reps=3)
-    lib_adj.index_add_(0, lidx, lval)
-    library_ms = [event_ms(torch, lambda: lib_adj.index_add_(0, lidx, lval),
-                           3) for _ in range(2)]
-    got7 = ss.stream_scatter_call(torch.zeros((nb_tris, 9), device=dev), cidx,
-                                  cval)
-    want7 = ss.stream_scatter_plain(torch.zeros((nb_tris, 9), device=dev),
-                                    cidx, cval)
-    k7_err = (got7 - want7).abs().max().item()
-    check(k7_err <= SCATTER_RTOL * want7.abs().max().item(),
-          f"K7 on the training events off its plain version by {k7_err}")
-    k7_bound = bound(K7_EVENT_OPS * n_valid,
-                     cidx.shape[0] * 4 + n_valid * 36 + nb_tris * 72)
-    log(f"[25] K7 on one chunk's events ({cidx.shape[0]} slots, {n_valid} "
-        f"events, {BIG_T} triangles) on {smi}: {k7_ms} ms, plain "
-        f"{k7_plain_ms} ms, index_add_ {library_ms} ms; max error "
-        f"{k7_err:.3g}; bound {k7_bound[0]:.4f} ms ({k7_bound[1]})")
-    del captured, cidx, cval, lidx, lval
+    # 27. K9 against K3 (to the bit) and against quality_plain
+    qsmall, q1024_cfg = small.replace(**QUALITY), largest.replace(**QUALITY)
+    for name, kscene in (("default", default_scene(dev)),
+                         ("25 triangles", scene_25(dev))):
+        for label, est in QUALITY_GRID:
+            kcfg = small.replace(**est)
+            log(f"[27] K9 vs K3, {name}, {label}, 320x240 spp8: "
+                f"{k9_vs_k3(torch, cam, kscene, kcfg, f'{name} {label}')}")
+    log(f"[27] K9 vs K3, {mq.MAX_TRIS} triangles, 64x48 spp2: "
+        f"{k9_vs_k3(torch, cam, big, q1024_cfg, f'{mq.MAX_TRIS} triangles')}")
+    huge_q = procedural_scene(bq.BIGQ_MAX_TRIS, seed=0, device=dev)
+    dark_c = dataclasses.replace(
+        combined, emission=torch.zeros_like(combined.emission),
+        light_idx=())
+    bigq_shapes = (
+        (f"{combined.n_tris} triangles", combined, qsmall, 512, False),
+        (f"{BIG_T} triangles",
+         procedural_scene(BIG_T, seed=0, emissive_fraction=0.01,
+                          device=dev), q1024_cfg, 2048, False),
+        (f"{bq.BIGQ_MAX_TRIS} triangles", huge_q,
+         RenderConfig(width=32, height=16, spp=1, max_bounces=3, **QUALITY),
+         8192, False),
+        (f"{combined.n_tris} triangles, all dark", dark_c, qsmall, 512,
+         True))
+    for name, kscene, kcfg, block, dark in bigq_shapes:
+        c = k9_vs_plain(torch, cam, kscene, kcfg, name, block, dark)
+        log(f"[27] K9 vs plain, {name}, {kcfg.width}x{kcfg.height} "
+            f"spp{kcfg.spp} {kcfg.max_bounces} bounces: {c}")
+
+    # 28. K10 with K7 against quality_bwd_plain, and against K4 where K4
+    # takes the scene
+    for name, kscene, kcfg in (("default", default_scene(dev), qsmall),
+                               ("25 triangles", scene_25(dev), qsmall),
+                               (f"{mq.MAX_TRIS} triangles", big,
+                                q1024_cfg)):
+        c, _ = quality_backward_vs_plain(
+            torch, *mq.pack_rays(cam, kcfg, 0), mq.quality_table(kscene),
+            bq.light_rows(kscene), kcfg, f"K10 {name}", streamed=True)
+        log(f"[28] K10 vs plain and K4, {name}, {kcfg.width}x{kcfg.height} "
+            f"spp{kcfg.spp}: {c}")
+    for name, kscene, kcfg, block, dark in bigq_shapes:
+        c, _ = quality_backward_vs_plain(
+            torch, *mq.pack_rays(cam, kcfg, 0), mq.quality_table(kscene),
+            bq.light_rows(kscene), kcfg, f"K10 {name}", streamed=True,
+            tri_block=block)
+        log(f"[28] K10 vs plain, {name}, {kcfg.width}x{kcfg.height} "
+            f"spp{kcfg.spp} {kcfg.max_bounces} bounces: {c}")
+    del huge_q, bigq_shapes
+
+    # 29. quality serving on a large scene at full width, through the
+    # light distribution and K9 alone
+    serve_q_cfg = RenderConfig(**HEADLINE, **QUALITY).replace(
+        spp=BIGQ_SERVE_SPP)
+    serve_q = quality_serving(torch, dev, cam, BIG_T, serve_q_cfg, 2048)
+    serve_q_frame = (f"{serve_q_cfg.width}x{serve_q_cfg.height} "
+                     f"spp{serve_q_cfg.spp}")
+    log(f"[29] render_pt_fast quality, {BIG_T} triangles, {serve_q_frame} "
+        f"(cut from 64 for time) {serve_q_cfg.max_bounces} bounces: launches "
+        f"{serve_q['launches']}, "
+        f"first call {serve_q['first_s']:.3f} s, mean {serve_q['mean']:.6f}; "
+        f"rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1} vs plain: "
+        f"{serve_q['band_vs_plain']}; the frame's band equals K9 on the band")
+    huge_q_cfg = serve_q_cfg.replace(spp=BIGQ_HUGE_SPP)
+    huge_q_serve = quality_serving(torch, dev, cam, HUGE_T, huge_q_cfg, 2048)
+    log(f"[29] render_pt_fast quality, {HUGE_T} triangles, "
+        f"{huge_q_cfg.width}x{huge_q_cfg.height} spp{huge_q_cfg.spp} (cut "
+        f"from 64 for time) {huge_q_cfg.max_bounces} bounces: launches "
+        f"{huge_q_serve['launches']}, first call "
+        f"{huge_q_serve['first_s']:.3f} s, mean {huge_q_serve['mean']:.6f}; "
+        f"band vs plain: {huge_q_serve['band_vs_plain']}")
+    del huge_q_serve
+
+    # 30. the quality gradient entry point above the crossover
+    log(f"[30] render_radiance_fastgrad quality, {combined.n_tris} "
+        f"triangles, 320x240 spp8: "
+        f"{quality_gradient_entry(torch, dev, cam, combined, big=True)}")
+
+    # 31. quality training on a large scene at full width
+    train_q_cfg = serve_q_cfg.replace(spp=BIGQ_TRAIN_SPP)
+    q_chunk = bqg.chunk_samples(n_full, train_q_cfg)
+    q_chunks = -(-train_q_cfg.spp // q_chunk)
+    qbtr = quality_training(torch, dev, cam, serve_q["scene"], train_q_cfg,
+                            per_step={"light": 1, "K9": 1, "K10": q_chunks,
+                                      "K7": q_chunks})
+    log(f"[31] 3 quality train steps, {BIG_T} triangles, "
+        f"{train_q_cfg.width}x{train_q_cfg.height} spp{train_q_cfg.spp} "
+        f"(cut from 64 for time) {train_q_cfg.max_bounces} bounces, pose "
+        f"group at rate {QUALITY_POSE_LR}, {q_chunks} chunks of {q_chunk} "
+        f"samples, on {smi}: launches {qbtr['launches']}, losses "
+        f"{qbtr['losses']}, step s {[round(x, 6) for x in qbtr['step_s']]}; "
+        f"camera gradient {qbtr['cam_grad']}; forward+backward "
+        f"{qbtr['fwd_bwd_ms']:.3f} ms")
+
+    # 32. the CLI on large scenes in quality mode
+    log(f"[32] cli --mode quality --scene {CLI_SIZE[0]}x{CLI_SIZE[1]} spp16: "
+        f"{quality_big_cli(cli)}")
+
+    # 33. the quality crossover table, then K9, K10 and K7 at 19 columns
+    # timed at the main path's shapes
+    q_crossover = []
+    for n_x in CROSSOVER_T:
+        xscene = procedural_scene(n_x, seed=0, device=dev)
+        xo, xd, xk = mq.pack_rays(cam, qsmall, 0)
+        xtri, xrows = mq.quality_table(xscene), bq.light_rows(xscene)
+        xg = torch.rand((xo.shape[0], 3), generator=torch.Generator()
+                        .manual_seed(3)).to(dev)
+        fused_f = lambda: mq.quality_call(  # noqa: E731
+            xo, xd, xk, xtri, xrows, qsmall)
+        streamed_f = lambda: bq.bigq_call(  # noqa: E731
+            xo, xd, xk, xtri, xrows, qsmall)
+
+        def fused_b():
+            mq.quality_call(xo, xd, xk, xtri, xrows, qsmall)
+            mqg.quality_bwd_call(xo, xd, xk, xtri, xrows, xg, qsmall)
+
+        def streamed_b():
+            bq.bigq_call(xo, xd, xk, xtri, xrows, qsmall)
+            bqg.bigq_bwd_call(xo, xd, xk, xtri, xrows, xg, qsmall)
+
+        row = dict(n_tris=n_x)
+        for key, f1, f2 in (("forward", fused_f, streamed_f),
+                            ("forward+backward", fused_b, streamed_b)):
+            f1(), f2()
+            t = [event_ms(torch, f1, 5), event_ms(torch, f2, 5),
+                 event_ms(torch, f2, 5), event_ms(torch, f1, 5)]
+            row[key] = dict(fused_ms=(t[0] + t[3]) / 2,
+                            streamed_ms=(t[1] + t[2]) / 2)
+        q_crossover.append(row)
+        log(f"[33] quality crossover, {n_x} triangles, 320x240 spp8, on "
+            f"{smi}: {row}")
+    log(f"[33] route: K3 up to {rt.QUALITY_ROUTE_MAX_TRIS} triangles, K3+K4 "
+        f"up to {rt.QUALITY_GRAD_ROUTE_MAX_TRIS}; the streamed quality "
+        "kernels above")
+
+    # K9 at the serving shape: the checked launch was the warm-up
+    qo, qd, qk = serve_q["rays"]
+    qbtri, qbrows, qband = serve_q["tri"], serve_q["rows"], serve_q["band"]
+    k9_ms = [event_ms(torch, lambda: bq.bigq_call(qo, qd, qk, qbtri, qbrows,
+                                                  serve_q_cfg), 1)]
+    if k9_ms[0] < LONG_LAUNCH_MS:
+        k9_ms.append(event_ms(torch, lambda: bq.bigq_call(
+            qo, qd, qk, qbtri, qbrows, serve_q_cfg), 1))
+    qplain_cfg = serve_q_cfg.replace(tri_block=2048)
+    k9_band_ms, k9_plain_ms = in_turns(
+        torch, lambda: bq.bigq_call(*qband, qbtri, qbrows, serve_q_cfg),
+        lambda: mq.quality_plain(*qband, qbtri, qbrows, qplain_cfg))
+    qwalk = quality_cta_walk(torch, *rows_of(torch, serve_q_cfg.width,
+                                             COUNT_ROWS, qo, qd, qk),
+                             qbtri, qbrows, qplain_cfg)
+    qwalk = scaled(qwalk, serve_q_cfg.height / len(COUNT_ROWS))
+    nq_rays, nq_tris, nq_rows = qo.shape[0], qbtri.shape[0], len(qbrows)
+    k9_ms_mean = sum(k9_ms) / len(k9_ms)
+    k9_ops = (qwalk["sweep_tests"] * MT_OPS
+              + qwalk["fused_shadow_tests"] * SHARED_MT_OPS
+              + qwalk["last_shadow_tests"] * MT_OPS
+              + qwalk["hits"] * K3_HIT_OPS + qwalk["select_steps"])
+    q_in_bytes = nq_tris * 21 * 4 + nq_rows * 8
+    k9_bound = bound(k9_ops, nq_rays * (24 + 8 + 12) + q_in_bytes)
+    q_segs = serve_q_cfg.width * serve_q_cfg.height * serve_q_cfg.spp \
+        * serve_q_cfg.max_bounces
+    log(f"[33] K9, {BIG_T} triangles, {serve_q_frame} on {smi}: {k9_ms} ms a "
+        f"frame ({q_segs / (k9_ms_mean / 1e3):.4e} rays/s); on rows "
+        f"{BAND_ROWS.start}-{BAND_ROWS.stop - 1}: K9 {k9_band_ms} ms, plain "
+        f"{k9_plain_ms} ms; the walk (rows {list(COUNT_ROWS)} counted, "
+        f"scaled to the frame): {qwalk}; operations {k9_ops:.4e}, bound "
+        f"{k9_bound[0]:.4f} ms ({k9_bound[1]}); without FMA "
+        f"{k9_ops / NOFMA_OPS * 1e3:.4f} ms")
+
+    # K10 and K7 at the training shape
+    to, td, tk = mq.pack_rays(cam, train_q_cfg, 0)
+    tgbar = (torch.rand((to.shape[0], 3), generator=torch.Generator()
+                        .manual_seed(3)) * 0.9 + 0.1).to(dev)
+    qidx, qval = first_chunk_events(torch, bqg.bigq_bwd_call, to, td, tk,
+                                    qbtri, qbrows, tgbar, train_q_cfg)
+    qsplit = [bwd_split_ms(torch, bqg.bigq_bwd_call, to, td, tk, qbtri,
+                           qbrows, tgbar, train_q_cfg) for _ in range(2)]
+    k10_ms = [t[0] for t in qsplit]
+    k7q_in_call_ms = [t[1] for t in qsplit]
+    qtband = rows_of(torch, train_q_cfg.width, BAND_ROWS, to, td, tk, tgbar)
+    qtplain_cfg = train_q_cfg.replace(tri_block=2048)
+    k10_band_ms, k10_plain_ms = in_turns(
+        torch, lambda: bqg.bigq_bwd_call(*qtband[:3], qbtri, qbrows,
+                                         qtband[3], train_q_cfg),
+        lambda: mqg.quality_bwd_plain(*qtband[:3], qbtri, qbrows, qtband[3],
+                                      qtplain_cfg))
+    k10_check, _ = quality_backward_vs_plain(
+        torch, *qtband[:3], qbtri, qbrows, train_q_cfg,
+        f"K10 {BIG_T} triangles, rows {BAND_ROWS.start}-"
+        f"{BAND_ROWS.stop - 1}", streamed=True, tri_block=2048)
+    log(f"[33] K10 vs plain, {BIG_T} triangles, {train_q_cfg.width}x"
+        f"{train_q_cfg.height} spp{train_q_cfg.spp}, rows {BAND_ROWS.start}-"
+        f"{BAND_ROWS.stop - 1}: {k10_check}")
+    tqwalk = quality_cta_walk(torch, *rows_of(torch, train_q_cfg.width,
+                                              COUNT_ROWS, to, td, tk),
+                              qbtri, qbrows, qtplain_cfg)
+    tqwalk = scaled(tqwalk, train_q_cfg.height / len(COUNT_ROWS))
+    q_slots = to.shape[0] * train_q_cfg.spp * train_q_cfg.max_bounces
+    k10_ops = (tqwalk["sweep_tests"] * MT_OPS
+               + tqwalk["fused_shadow_tests"] * SHARED_MT_OPS
+               + tqwalk["last_shadow_tests"] * MT_OPS
+               + tqwalk["hits"] * K4_HIT_OPS + tqwalk["select_steps"]
+               + tqwalk["nee_lanes"] * K4_NEE_OPS)
+    k10_bound = bound(k10_ops, to.shape[0] * (24 + 8 + 12 + 24) + q_in_bytes
+                      + q_slots * 2 * bqg.EVENT_BYTES)
+    log(f"[33] K10, {BIG_T} triangles, {train_q_cfg.width}x"
+        f"{train_q_cfg.height} spp{train_q_cfg.spp} on {smi}: {k10_ms} ms of "
+        f"K10 launches a call ({q_chunks} launches), K7 {k7q_in_call_ms} ms "
+        f"a call (CUDA events around each K7 call; K10 the rest of the "
+        f"call); on rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}: K10+K7 "
+        f"{k10_band_ms} ms, plain {k10_plain_ms} ms; the walk: {tqwalk}; "
+        f"operations {k10_ops:.4e}, bound {k10_bound[0]:.4f} ms "
+        f"({k10_bound[1]})")
+
+    # K7 at 19 columns on the first chunk's events of that call
+    k7q = scatter_timing(torch, dev, qidx, qval, nq_tris)
+    log(f"[33] K7 at 19 columns on one chunk's events ({k7q['slots']} "
+        f"slots, {k7q['events']} events, {BIG_T} triangles) on {smi}: "
+        f"{k7q['ms']} ms, plain {k7q['plain_ms']} ms, index_add_ "
+        f"{k7q['library_ms']} ms; max error {k7q['max_abs_err']:.3g}; bound "
+        f"{k7q['bound'][0]:.4f} ms ({k7q['bound'][1]})")
+    del qidx, qval
 
     print(json.dumps({"kernels": [{
         "name": "megakernel_forward",
@@ -1803,13 +2360,21 @@ def run() -> None:
         "source": "spath_tpu_torch/csrc/stream_scatter.cu",
         "replaces": "spath_tpu/ops/pallas/megakernel_bigscene.py:257",
         "launches": btr["k7"],
-        "launches_by_path": {"serving": 0, "training": btr["k7"]},
-        "max_abs_err": k7_err,
-        "ms": sum(k7_ms) / len(k7_ms),
-        "plain_ms": sum(k7_plain_ms) / 2,
-        "bound_ms": k7_bound[0],
-        "bound_by": k7_bound[1],
-        "library_ms": sum(library_ms) / 2,
+        "launches_by_path": {"serving": 0, "training": btr["k7"],
+                             "quality training": qbtr["k7"]},
+        "max_abs_err": k7["max_abs_err"],
+        "ms": sum(k7["ms"]) / len(k7["ms"]),
+        "plain_ms": sum(k7["plain_ms"]) / 2,
+        "bound_ms": k7["bound"][0],
+        "bound_by": k7["bound"][1],
+        "library_ms": sum(k7["library_ms"]) / 2,
+        "at_19_columns": {
+            "ms": sum(k7q["ms"]) / len(k7q["ms"]),
+            "plain_ms": sum(k7q["plain_ms"]) / 2,
+            "bound_ms": k7q["bound"][0],
+            "bound_by": k7q["bound"][1],
+            "library_ms": sum(k7q["library_ms"]) / 2,
+            "max_abs_err": k7q["max_abs_err"]},
     }, {
         "name": "bigscene_backward",
         "route": "cuda",
@@ -1824,6 +2389,37 @@ def run() -> None:
         "plain_at": f"rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}, K8+K7",
         "bound_ms": k8_bound[0],
         "bound_by": k8_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "bigscene_quality_forward",
+        "route": "cuda",
+        "source": "spath_tpu_torch/csrc/bigscene_quality.cu",
+        "replaces": "spath_tpu/ops/pallas/megakernel_bigscene_quality.py:329",
+        "launches": qbtr["k9"],
+        "launches_by_path": {"serving": serve_q["launches"]["K9"],
+                             "training": qbtr["k9"]},
+        "max_abs_err": serve_q["band_vs_plain"]["max_abs_err"],
+        "ms": k9_ms_mean,
+        "band_ms": sum(k9_band_ms) / len(k9_band_ms),
+        "plain_ms": sum(k9_plain_ms) / 2,
+        "plain_at": f"rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}",
+        "bound_ms": k9_bound[0],
+        "bound_by": k9_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "bigscene_quality_backward",
+        "route": "cuda",
+        "source": "spath_tpu_torch/csrc/bigscene_quality_grad.cu",
+        "replaces": "spath_tpu/ops/pallas/megakernel_bigscene_quality.py:542",
+        "launches": qbtr["k10"],
+        "launches_by_path": {"serving": 0, "training": qbtr["k10"]},
+        "max_abs_err": k10_check["max_abs_err"],
+        "ms": sum(k10_ms) / 2,
+        "band_ms": sum(k10_band_ms) / len(k10_band_ms),
+        "plain_ms": sum(k10_plain_ms) / 2,
+        "plain_at": f"rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}, K10+K7",
+        "bound_ms": k10_bound[0],
+        "bound_by": k10_bound[1],
         "library_ms": None,
     }]}))
     print(smi)

@@ -5,9 +5,9 @@
 
 ``--scene`` picks the scene: ``default`` (the reference's 7 triangles),
 ``procedural:N[:seed]`` (N random triangles) or a ``.obj``/``.ply``
-mesh. Conformance scenes of up to 2^20 triangles render and train on a
-CUDA device: the fused kernels K1/K2 take the small ones, the streamed
-kernels K6/K8/K7 the large ones.
+mesh. Scenes of up to 2^20 triangles render and train on a CUDA device
+in both modes: the fused kernels (K1/K2, K3/K4) take the small ones, the
+streamed kernels (K6/K8/K7, K9/K10/K7) the large ones.
 
 ``--mode conformance`` (the default) is the reference's estimator, LCG
 and angle sampler; ``--mode quality`` is the cosine sampler with
@@ -15,14 +15,15 @@ next-event estimation and MIS on the counter-based ``hash`` stream, with
 ``--rr-start`` (Russian roulette) and ``--stratify``, as the JAX
 package's CLI builds it. The clamped frame goes through
 ``render_pt_fast``, the serving path (the CUDA kernel of the mode, K1,
-K6 or K3, on a CUDA device); ``--flat`` renders the flat debug view.
-``invert`` trains through ``render_radiance_fastgrad`` (the fused kernel
-forward and its reverse sweep backward, K1+K2, K6+K8 or K3+K4, on a CUDA
-device). Examples::
+K6, K3 or K9, on a CUDA device); ``--flat`` renders the flat debug view.
+``invert`` trains through ``render_radiance_fastgrad`` (the kernel
+forward and its reverse sweep backward, K1+K2, K6+K8, K3+K4 or K9+K10,
+on a CUDA device). Examples::
 
   python -m spath_tpu_torch.cli render --size 640x480 --spp 128 --out frame.png
   python -m spath_tpu_torch.cli render --scene procedural:10000 --size 1920x1080 --spp 64
   python -m spath_tpu_torch.cli render --mode quality --spp 32 --out q.png
+  python -m spath_tpu_torch.cli render --mode quality --scene procedural:10000
   python -m spath_tpu_torch.cli render --flat --device cpu --out flat.png
   python -m spath_tpu_torch.cli invert --size 640x480 --spp 16 --steps 100
 """
@@ -78,7 +79,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--camera-angle", type=_parse_vec3, default=[0, 0, 0])
     p.add_argument("--focal", type=float, default=2.0)
     p.add_argument("--device", default="cuda",
-                   help="cuda (the fused kernels) or cpu (the plain "
+                   help="cuda (the CUDA kernels) or cpu (the plain "
                         "wavefront); a missing card is an error")
     p.add_argument("--mode", choices=["conformance", "quality"],
                    default="conformance",

@@ -23,15 +23,28 @@
 // (i + 1) / T. Built with -fmad=false and IEEE division, so every add,
 // multiply and divide rounds as the plain version's does.
 //
-// One block of kThreads threads: the threads compute the weights and the
-// probabilities and each scans one block of 16; thread 0 sums the total
-// and scans the last level. Every level lives in shared memory. The work
-// is ~7 T float operations and 24 T bytes; at the scenes K3 takes
-// (T <= 1024) the launch is a few microseconds.
+// Up to kSharedTris triangles: one launch of one block of kThreads
+// threads. The threads compute the weights and the probabilities and
+// each scans one block of 16; thread 0 sums the total and scans the last
+// level. Every level lives in shared memory.
+//
+// Above that, up to kMaxTris (2^20, the streamed kernels' cap): the same
+// steps, each a launch on as many blocks as its level needs, with the
+// levels in a global scratch buffer the caller allocates
+// (spath_light_cdf_scratch floats): the weights; the total (one thread,
+// left to right: it is a chain of T dependent adds, ~2.5 ms at 2^20, the
+// longest step); the probabilities; one down-sweep launch per level; the
+// last level (one thread); one up-sweep launch per level, the last
+// writing the cdf. The total sits behind the levels in the scratch
+// buffer; every launch after the probabilities' returns at once for an
+// all-dark scene.
+//
+// The work is ~7 T float operations and 24 T bytes.
 //
 // Layouts, all contiguous: emission float32 (T, 3), area float32 (T), cdf
-// and prob float32 (T) out; 1 <= T <= kMaxTris. The launch goes on the
-// caller's stream, allocates nothing and does not synchronise; the entry
+// and prob float32 (T) out, scratch float32 (spath_light_cdf_scratch(T))
+// or null up to kSharedTris; 1 <= T <= kMaxTris. The launches go on the
+// caller's stream, allocate nothing and do not synchronise; the entry
 // point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -40,8 +53,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlk = 16;
-constexpr int kMaxTris = 8192;
-constexpr int kMaxLevels = 5;  // 16^5 > kMaxTris
+constexpr int kSharedTris = 8192;  // every level in one block's shared memory
+constexpr int kMaxTris = 1 << 20;
+constexpr int kMaxLevels = 6;  // 16^5 >= kMaxTris
 
 // The scan's levels: level 0 holds the T probabilities, level k + 1 the
 // totals of level k's blocks of 16. Each level but the last is padded with
@@ -158,13 +172,138 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < t; i += kThreads) cdf[i] = sm[i];
 }
 
+// ---- above kSharedTris: the same steps, levels in global memory ----
+
+__device__ __forceinline__ bool lit(const float* total) {
+  return *total > 0.0f;
+}
+
+// lv[i] = w_i for i < t, 0 up to the padded size n.
+__global__ void cdf_weights(const float* __restrict__ emission,
+                            const float* __restrict__ area,
+                            float* __restrict__ lv, int t, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float w = 0.0f;
+  if (i < t) {
+    w = ((emission[3 * i + 0] + emission[3 * i + 1]) + emission[3 * i + 2]) *
+        area[i];
+  }
+  lv[i] = w;
+}
+
+// The total, left to right: one thread.
+__global__ void cdf_total(const float* __restrict__ lv, int t,
+                          float* __restrict__ total) {
+  float s = lv[0];
+#pragma unroll 16
+  for (int i = 1; i < t; ++i) s = s + lv[i];
+  *total = s;
+}
+
+__global__ void cdf_prob(float* __restrict__ lv, const float* total,
+                         float* __restrict__ cdf, float* __restrict__ prob,
+                         int t) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= t) return;
+  const float tot = *total;
+  if (!(tot > 0.0f)) {
+    prob[i] = 0.0f;
+    cdf[i] = static_cast<float>(i + 1) / static_cast<float>(t);
+    return;
+  }
+  const float p = lv[i] / tot;
+  lv[i] = p;
+  prob[i] = p;
+}
+
+// Scan each block of 16 of x in place; block b's total to up[b], zero for
+// the padding b >= n_up of up's level.
+__global__ void cdf_down(float* __restrict__ x, float* __restrict__ up,
+                         int n_up, int size_up, const float* total) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= size_up || !lit(total)) return;
+  float s = 0.0f;
+  if (b < n_up) {
+    s = x[b * kBlk];
+    for (int j = 1; j < kBlk; ++j) {
+      s = s + x[b * kBlk + j];
+      x[b * kBlk + j] = s;
+    }
+  }
+  up[b] = s;
+}
+
+// The last level (at most 16 values), sequential: one thread.
+__global__ void cdf_last(float* __restrict__ x, int n, const float* total) {
+  if (!lit(total)) return;
+  float s = x[0];
+  for (int j = 1; j < n; ++j) {
+    s = s + x[j];
+    x[j] = s;
+  }
+}
+
+// x[i] += the scanned total of the blocks before i's; to out[i] (i < t)
+// when out is given (level 0), else in place.
+__global__ void cdf_up(float* __restrict__ x, const float* __restrict__ up,
+                       int size, float* __restrict__ out, int t,
+                       const float* total) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= size || !lit(total)) return;
+  const int b = i / kBlk;
+  const float v = x[i] + (b == 0 ? 0.0f : up[b - 1]);
+  if (out == nullptr) {
+    x[i] = v;
+  } else if (i < t) {
+    out[i] = v;
+  }
+}
+
+int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
+
 }  // namespace
 
+// Floats of the scratch buffer a launch for t triangles needs: 0 up to
+// kSharedTris, else the levels and the total.
+extern "C" int spath_light_cdf_scratch(int t) {
+  if (t <= kSharedTris) return 0;
+  return levels(t).floats + 1;
+}
+
 extern "C" int spath_light_cdf(const float* emission, const float* area,
-                               float* cdf, float* prob, int t, void* stream) {
-  if (t < 1 || t > kMaxTris) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = levels(t).floats * static_cast<int>(sizeof(float));
-  light_cdf<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      emission, area, cdf, prob, t);
+                               float* cdf, float* prob, float* scratch,
+                               int t, void* stream) {
+  if (t < 1 || t > kMaxTris || (t > kSharedTris && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Levels L = levels(t);
+  if (t <= kSharedTris) {
+    const int smem = L.floats * static_cast<int>(sizeof(float));
+    light_cdf<<<1, kThreads, smem, s>>>(emission, area, cdf, prob, t);
+    return static_cast<int>(cudaGetLastError());
+  }
+  float* total = scratch + L.floats;
+  const int n0 = L.off[1] - L.off[0];
+  cdf_weights<<<grid_for(n0), kThreads, 0, s>>>(emission, area, scratch, t,
+                                                  n0);
+  cdf_total<<<1, 1, 0, s>>>(scratch, t, total);
+  cdf_prob<<<grid_for(t), kThreads, 0, s>>>(scratch, total, cdf, prob, t);
+  for (int k = 0; k + 1 < L.count; ++k) {
+    const int size_up = k + 2 < L.count ? L.off[k + 2] - L.off[k + 1]
+                                        : L.n[k + 1];
+    cdf_down<<<grid_for(size_up), kThreads, 0, s>>>(
+        scratch + L.off[k], scratch + L.off[k + 1], L.n[k + 1], size_up,
+        total);
+  }
+  cdf_last<<<1, 1, 0, s>>>(scratch + L.off[L.count - 1], L.n[L.count - 1],
+                           total);
+  for (int k = L.count - 2; k >= 0; --k) {
+    const int size = L.off[k + 1] - L.off[k];
+    cdf_up<<<grid_for(size), kThreads, 0, s>>>(
+        scratch + L.off[k], scratch + L.off[k + 1], size,
+        k == 0 ? cdf : nullptr, t, total);
+  }
   return static_cast<int>(cudaGetLastError());
 }

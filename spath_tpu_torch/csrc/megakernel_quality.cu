@@ -8,14 +8,14 @@
 // thread owns one ray. The camera ray's nearest hit is computed once,
 // before the sample loop; each sample then runs the quality walk of
 // quality_walk.cuh (hash draws, cosine sampler, NEE with MIS, Russian
-// roulette, stratification). The TPU kernel's dead-tile skip and
+// roulette, stratification) through its table backend, TableQuality. The TPU kernel's dead-tile skip and
 // live-first ray order are not carried over: a thread whose camera ray
 // misses leaves its sample at once.
 //
 // Bound: compute, not memory. Each bounce sweeps every triangle once for
 // the nearest hit and once more for the shadow ray (the two share the
-// origin terms, nearest2), walks the emissive rows for the light choice,
-// and shades; rays, keys and the output are read and written once, by
+// origin terms, nearest2), searches the cdf at the emissive rows for the
+// light choice (O(log L) loads), and shades; rays, keys and the output are read and written once, by
 // neighbouring threads at neighbouring addresses, and the table is read
 // through the read-only cache, every thread of a warp loading the same
 // address. Staging the table in shared memory, fast math and FMA
@@ -34,7 +34,7 @@
 //   tri                  float32 (T, 21): v0, e1, e2, normal, albedo,
 //                        emission, prob, area, cdf
 //   rows                 int32 (L): the ascending rows the light choice
-//                        walks (the emissive ones, or all T)
+//                        searches (the emissive ones, or all T)
 //   out                  float32 (n, 3): mean radiance r, g, b
 // The launch goes on the caller's stream, allocates nothing and does not
 // synchronise; the entry point returns cudaGetLastError().
@@ -67,8 +67,9 @@ __global__ void __launch_bounds__(kBlock)
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   for (int s = 0; s < a.spp; ++s) {
     float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
-    spath::quality_sample(a, ox, oy, oz, dx, dy, dz, first, h1, s, rad_r,
-                          rad_g, rad_b, spath::NoSave{});
+    spath::quality_sample(a, spath::table_quality(a), true, ox, oy, oz, dx,
+                          dy, dz, first, h1, s, rad_r, rad_g, rad_b,
+                          spath::NoSave{});
     acc_r = acc_r + rad_r;
     acc_g = acc_g + rad_g;
     acc_b = acc_b + rad_b;

@@ -1,26 +1,36 @@
-// The quality estimator's walk, shared by the forward kernel K3
-// (megakernel_quality.cu) and the backward kernel K4
-// (megakernel_quality_grad.cu): K4 replays K3's walk from this one source,
-// so it takes the same hits, draws, lights and directions bit for bit.
+// The quality estimator's walk, shared by the forward kernels K3
+// (megakernel_quality.cu) and K9 (bigscene_quality.cu) and their backward
+// kernels K4 (megakernel_quality_grad.cu) and K10
+// (bigscene_quality_grad.cu): each backward kernel replays its forward's
+// walk from this one source, so it takes the same hits, draws, lights and
+// directions bit for bit. The walk (quality_sample) is a template over the
+// backend, which sweeps for nearest hits and reads the cdf for the light
+// choice (search_light, a binary search): TableQuality for K3 and K4 (each
+// thread reads the whole table through the cache), StreamQuality for K9
+// and K10 (the CTA stages the table through shared memory,
+// stream_sweep.cuh). With the same arithmetic, K9 equals K3 to the bit at
+// T <= 1024.
 //
 // It is the port of spath_tpu/ops/pallas/megakernel_quality.py::
 // _sample_walk for one ray: the counter-based hash draws (_hash_draws),
 // the emitter term with the MIS partner weight, the cosine-weighted
 // direction in the Duff et al. frame, next-event estimation (the light
-// choice by a walk of the cdf column over the emissive rows, the
-// barycentric light point, the shadow ray swept together with the next
-// bounce's ray from their shared origin, the power-heuristic weight),
-// Russian roulette and the MIS pdf of the next bounce. Every expression
-// keeps the JAX kernel's order of operations; the files that include this
-// header are built with -fmad=false and without --use_fast_math.
+// choice over the cdf, the barycentric light point, the shadow ray swept
+// together with the next bounce's ray from their shared origin, the
+// power-heuristic weight), Russian roulette and the MIS pdf of the next
+// bounce. Every expression keeps the JAX kernel's order of operations;
+// the files that include this header are built with -fmad=false and
+// without --use_fast_math.
 //
 // A masked TPU lane becomes a thread that leaves its loop: once a path
 // misses or loses the roulette, every later term of the masked walk is
-// zero, so stopping is exact.
+// zero, so stopping is exact. Under a CTA-wide sweep (StreamQuality) an
+// ended path keeps joining its CTA's sweeps, without a ray, until no path
+// of the CTA is alive.
 
 #pragma once
 
-#include "megakernel_common.cuh"
+#include "stream_sweep.cuh"
 
 namespace spath {
 
@@ -67,7 +77,7 @@ __device__ __forceinline__ float draw(uint32_t h1, uint32_t sc, int b, int d) {
 // What the walk reads besides the ray.
 struct QualityArgs {
   const float* tri;  // (T, 21)
-  const int* rows;   // the rows the light choice walks, ascending
+  const int* rows;   // the rows the light choice searches, ascending
   int n_tris, n_rows, spp, max_bounces, rr_start, n_draws;
   bool nee, mis, stratify;  // mis here means nee && mis
   float inv_spp;            // float32(1 / spp)
@@ -94,25 +104,108 @@ inline QualityArgs make_args(const float* tri, const int* rows, int n_tris,
   return a;
 }
 
-// The light choice: the literal walk of _select_gather_light_static over
-// `rows`, a crossing of the cdf column past u taken, then the clip to the
-// last row when u lies at or above every cdf value walked.
-__device__ __forceinline__ int select_light(const QualityArgs& a, float u) {
-  int li = 0;
-  bool prev_le = true;
-  for (int k = 0; k < a.n_rows; ++k) {
-    const int t = __ldg(a.rows + k);
-    const bool le = __ldg(a.tri + t * kQCols + kColCdf) <= u;
-    if (prev_le && !le) li = t;
-    prev_le = le;
+// The light choice of every quality kernel: the count of light rows whose
+// cdf is at or below u, by binary search with PyTorch's upper-bound loop
+// (torch.searchsorted(right=True)), over the cdf at the ascending light
+// rows, read through cdf_at(k); the light is rows[count], or the last row
+// T - 1 when the count is L (u at or above every value). Where the cdf
+// does not decrease this is searchsorted(cdf, u, 'right') clipped to
+// T - 1 (spath_tpu/ops/nee.py), the walk of the JAX kernels'
+// _select_gather_light_static and the count of their _select_light_vmem
+// (but for the clip, which there goes to the last light). XLA's CPU
+// blocked scan, which the cdf reproduces, can step down by an ulp at a
+// block boundary once it has three levels (T > 256); there those three
+// can disagree for u inside the step, and this loop is the plain
+// version's (megakernel_quality.py: _select_light), so the kernels equal
+// it bit for bit at every T. O(log L) loads.
+template <class CdfAt>
+__device__ __forceinline__ int search_light(CdfAt cdf_at,
+                                            const int* __restrict__ rows,
+                                            int n_rows, int n_tris, float u) {
+  int lo = 0, hi = n_rows;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (!(cdf_at(mid) > u)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
   }
-  if (prev_le) li = a.n_tris - 1;
-  return li;
+  return lo < n_rows ? __ldg(rows + lo) : n_tris - 1;
 }
 
-// One bounce as K4's reverse sweep needs it: the ray before the bounce,
-// the hit, the throughput before the bounce, the emitter term's MIS
-// weight, the light (-1 unless its term counted) with its MIS weight,
+// K3's and K4's backend. Each thread sweeps the whole table through the
+// read-only cache on its own (so a path that ended leaves its loop at
+// once), and reads the cdf at a light row from the table.
+struct TableQuality {
+  const float* __restrict__ tri;
+  int n_tris;
+  const int* __restrict__ rows;
+  int n_rows;
+
+  static constexpr bool kCtaWide = false;
+  __device__ __forceinline__ Hit one(bool, float ox, float oy, float oz,
+                                     float dx, float dy, float dz,
+                                     int src) const {
+    return nearest<kQCols>(tri, n_tris, ox, oy, oz, dx, dy, dz, src);
+  }
+  __device__ __forceinline__ void two(bool, float ox, float oy, float oz,
+                                      float d1x, float d1y, float d1z,
+                                      float d2x, float d2y, float d2z,
+                                      int src, Hit& h1, Hit& h2) const {
+    nearest2<kQCols>(tri, n_tris, ox, oy, oz, d1x, d1y, d1z, d2x, d2y, d2z,
+                     src, h1, h2);
+  }
+  __device__ __forceinline__ int light(float u) const {
+    const float* __restrict__ t = tri;
+    const int* __restrict__ r = rows;
+    return search_light(
+        [t, r](int k) { return __ldg(t + __ldg(r + k) * kQCols + kColCdf); },
+        rows, n_rows, n_tris, u);
+  }
+};
+
+inline __device__ __host__ TableQuality table_quality(const QualityArgs& a) {
+  return TableQuality{a.tri, a.n_tris, a.rows, a.n_rows};
+}
+
+// K9's and K10's backend: the streamed sweeps of stream_sweep.cuh through
+// the CTA's `tiles` (every thread of the CTA calls them; a thread without
+// a live path only helps stage), and the light choice over `lcdf`, the
+// cdf at the light rows gathered into one array.
+struct StreamQuality {
+  const float* __restrict__ tri;
+  int n_tris;
+  float* tiles;
+  const int* __restrict__ rows;
+  const float* __restrict__ lcdf;
+  int n_rows;
+
+  static constexpr bool kCtaWide = true;
+  __device__ __forceinline__ Hit one(bool live, float ox, float oy, float oz,
+                                     float dx, float dy, float dz,
+                                     int src) const {
+    return stream_nearest<kQCols>(tri, n_tris, tiles, live, ox, oy, oz, dx,
+                                  dy, dz, src);
+  }
+  __device__ __forceinline__ void two(bool live, float ox, float oy,
+                                      float oz, float d1x, float d1y,
+                                      float d1z, float d2x, float d2y,
+                                      float d2z, int src, Hit& h1,
+                                      Hit& h2) const {
+    stream_nearest2<kQCols>(tri, n_tris, tiles, live, ox, oy, oz, d1x, d1y,
+                            d1z, d2x, d2y, d2z, src, h1, h2);
+  }
+  __device__ __forceinline__ int light(float u) const {
+    const float* __restrict__ c = lcdf;
+    return search_light([c](int k) { return __ldg(c + k); }, rows, n_rows,
+                        n_tris, u);
+  }
+};
+
+// One bounce as the reverse sweeps (K4, K10) need it: the ray before the
+// bounce, the hit, the throughput before the bounce, the emitter term's
+// MIS weight, the light (-1 unless its term counted) with its MIS weight,
 // and the roulette's survival probability q when a 1/q reweight followed
 // the bounce (0 otherwise).
 struct Bounce {
@@ -124,32 +217,61 @@ struct Bounce {
   float rrq;
 };
 
-// Does nothing: K3 keeps no state.
+// Does nothing: the forward kernels keep no state.
 struct NoSave {
   __device__ __forceinline__ void operator()(int, const Bounce&) const {}
 };
 
-// One sample's walk for one ray: adds its radiance to (rad_r, rad_g,
-// rad_b) and hands each bounce that hit to `save`. Returns the number of
-// bounces that hit.
-template <class Save>
+// Records the walk's bounces for a reverse sweep (K4, K10).
+struct Saver {
+  Bounce* st;
+  __device__ __forceinline__ void operator()(int b, const Bounce& x) const {
+    st[b] = x;
+  }
+};
+
+// One sample's walk for one ray through the backend `be`: adds its
+// radiance to (rad_r, rad_g, rad_b) and hands each bounce that hit to
+// `save`. `live` is false for a thread without a ray (h is then a miss).
+// Returns the number of bounces that hit.
+//
+// The sweeps: with NEE, at each bounce the shadow ray and the next
+// bounce's ray together (two), the shadow ray alone (one) at the last;
+// without NEE the next bounce's ray (one) from bounce 1 on. Under a
+// CTA-wide backend every thread of the CTA calls the same sequence: a
+// thread whose path ended (a miss, or the roulette) goes on with
+// active == false, reading row 0 in place of a hit for the values it
+// drops after the sweep (its radiance is not touched), until no thread of
+// the CTA is active (__syncthreads_or). Without NEE such a thread has no
+// sweep to join before the next bounce's and skips the bounce.
+template <class Backend, class Save>
 __device__ __forceinline__ int quality_sample(
-    const QualityArgs& a, float ox, float oy, float oz, float dx, float dy,
-    float dz, Hit h, uint32_t h1, int s, float& rad_r, float& rad_g,
-    float& rad_b, Save save) {
+    const QualityArgs& a, const Backend& be, bool live, float ox, float oy,
+    float oz, float dx, float dy, float dz, Hit h, uint32_t h1, int s,
+    float& rad_r, float& rad_g, float& rad_b, Save save) {
   const float* __restrict__ tri = a.tri;
   const uint32_t sc = static_cast<uint32_t>(s) * kC1;
   int src = -1;
   float tr = 1.0f, tg = 1.0f, tb = 1.0f;
   float prev_pdf = 0.0f;
   int len = 0;
+  bool active = live;
   for (int b = 0; b < a.max_bounces; ++b) {
     const bool last = b == a.max_bounces - 1;
     if (b > 0 && !a.nee) {
-      h = nearest<kQCols>(tri, a.n_tris, ox, oy, oz, dx, dy, dz, src);
+      if (Backend::kCtaWide && !__syncthreads_or(active)) break;
+      h = be.one(active, ox, oy, oz, dx, dy, dz, src);
     }
-    if (h.idx < 0) break;
-    const float* r = tri + h.idx * kQCols;
+    active = active && h.idx >= 0;
+    if (!Backend::kCtaWide) {
+      if (!active) break;
+    } else if (a.nee) {
+      if (!__syncthreads_or(active)) break;  // the CTA's sweeps end
+    } else if (!active) {
+      continue;  // no sweep before the next bounce's
+    }
+    const int hit = Backend::kCtaWide && !active ? 0 : h.idx;
+    const float* r = tri + hit * kQCols;
     const float nx = __ldg(r + 9), ny = __ldg(r + 10), nz = __ldg(r + 11);
     const float ar = __ldg(r + 12), ag = __ldg(r + 13), ab = __ldg(r + 14);
     const float er = __ldg(r + 15), eg = __ldg(r + 16), eb = __ldg(r + 17);
@@ -177,9 +299,11 @@ __device__ __forceinline__ int quality_sample(
           w_b = 0.0f;  // pure NEE drops BSDF-sampled emitter hits
         }
       }
-      rad_r = rad_r + tr * er * w_b;
-      rad_g = rad_g + tg * eg * w_b;
-      rad_b = rad_b + tb * eb * w_b;
+      if (!Backend::kCtaWide || active) {
+        rad_r = rad_r + tr * er * w_b;
+        rad_g = rad_g + tg * eg * w_b;
+        rad_b = rad_b + tb * eb * w_b;
+      }
     } else {
       rad_r = rad_r + tr * er;
       rad_g = rad_g + tg * eg;
@@ -215,7 +339,7 @@ __device__ __forceinline__ int quality_sample(
     float misw = 1.0f;
     int li_ok = -1;
     if (a.nee) {
-      const int li = select_light(a, draw(h1, sc, b, 2));
+      const int li = be.light(draw(h1, sc, b, 2));
       const float* l = tri + li * kQCols;
       const float su1 = sqrtf(draw(h1, sc, b, 3));
       const float b1 = 1.0f - su1;
@@ -233,14 +357,14 @@ __device__ __forceinline__ int quality_sample(
       // the shadow ray and, pipelined, the next bounce's nearest hit
       int occ;
       if (last) {
-        occ = nearest<kQCols>(tri, a.n_tris, px, py, pz, omx, omy, omz, h.idx)
-                  .idx;
+        occ = be.one(active, px, py, pz, omx, omy, omz, h.idx).idx;
       } else {
         Hit shadow;
-        nearest2<kQCols>(tri, a.n_tris, px, py, pz, omx, omy, omz, ndx, ndy,
-                         ndz, h.idx, shadow, next);
+        be.two(active, px, py, pz, omx, omy, omz, ndx, ndy, ndz, h.idx,
+               shadow, next);
         occ = shadow.idx;
       }
+      if (Backend::kCtaWide && !active) continue;
       const float lprob = __ldg(l + kColProb);
       const float larea = __ldg(l + kColArea);
       const bool valid = occ == li && lprob > 0.0f && cos_s > 0.0f &&
@@ -285,7 +409,9 @@ __device__ __forceinline__ int quality_sample(
       const float q = fminf(fmaxf(fmaxf(fmaxf(tr, tg), tb), kRrMin), 1.0f);
       if (!(draw(h1, sc, b, a.n_draws - 1) < q)) {
         save(b, st);
-        break;
+        if (!Backend::kCtaWide) break;
+        active = false;
+        continue;
       }
       tr = tr / q;
       tg = tg / q;

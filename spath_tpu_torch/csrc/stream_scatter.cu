@@ -1,4 +1,7 @@
-// Deterministic scatter-add of adjoint events into a (T, 9) adjoint (K7).
+// Deterministic scatter-add of adjoint events into a (T, C) adjoint (K7),
+// C = 9 (K8's normal, albedo, emission) or 19 (K10's v0, e1, e2, normal,
+// albedo, emission, area), a template parameter of the two kernels that
+// read the columns.
 //
 // Replaces the TPU routine
 // spath_tpu/ops/pallas/megakernel_bigscene.py::stream_scatter_rmw (with
@@ -17,10 +20,14 @@
 //                 turn): a stable counting sort by block;
 //   4. accumulate one CTA per (block, part of its bucket; `splits` parts,
 //                 so that a hot block is shared by several CTAs) adds its
-//                 events into per-warp (256, 9) float64 slices in shared
+//                 events into per-warp (256, C) float64 slices in shared
 //                 memory in event order (K2's scheme: lanes stage, then
-//                 lanes 0-8, a column each, add in lane order), sums the
-//                 slices in warp order and writes the part's partial block;
+//                 lanes 0 to C - 1, a column each, add in lane order), sums
+//                 the slices in warp order and writes the part's partial
+//                 block. Four warps a CTA at both widths (the warp count
+//                 fixes the order of the sums): 78,848 bytes of shared
+//                 memory at 9 columns, two CTAs an SM; 165,888 at 19, one
+//                 CTA (4 warps) an SM;
 //   5. combine    adj[t] += the block's partials summed in part order, in
 //                 float64, rounded once to float32.
 //
@@ -33,17 +40,18 @@
 // float32 running sum of that many terms drifts by ~1e-5 of its size.
 //
 // Bound: memory, but below it by a lot at the sizes of the main path: each
-// valid event is read twice as an index (4 B) and once whole (40 B), its
-// id written and read (8 B); the partials are n_blocks * splits * 18 KB. A
-// bucket's share of a CTA is added serially per warp (~30 cycles an
-// event), so a frame whose events crowd onto few blocks is bound by that.
+// valid event is read twice as an index (4 B) and once whole (4 C + 4 B),
+// its id written and read (8 B); the partials are n_blocks * splits *
+// 2 C KB. A bucket's share of a CTA is added serially per warp (~30 cycles
+// an event), so a frame whose events crowd onto few blocks is bound by
+// that.
 //
 // Layouts (checked by the Python wrapper ops/kernels/stream_scatter.py):
 //   idx     int32 (E): the event's triangle, or -1 for none
-//   val     float32 (E, 9)
-//   adj     float32 (T, 9), added into in place
+//   val     float32 (E, C)
+//   adj     float32 (T, C), added into in place
 //   hist    int32 (n_blocks * groups); starts int32 (n_blocks + 1);
-//   order   int32 (E); partial float64 (n_blocks * splits * 256 * 9)
+//   order   int32 (E); partial float64 (n_blocks * splits * 256 * C)
 // The launches allocate nothing and do not synchronise; the entry point
 // returns a cudaError_t.
 
@@ -54,9 +62,6 @@ namespace {
 
 constexpr int kRows = 256;         // triangles a block
 constexpr int kShift = 8;          // log2(kRows)
-constexpr int kAdj = 9;
-constexpr int kSlice = kRows * kAdj;
-constexpr int kStage = kAdj + 1;
 constexpr int kSortThreads = 256;
 constexpr int kSortWarps = kSortThreads / 32;
 constexpr int kAccThreads = 128;
@@ -152,17 +157,23 @@ __global__ void __launch_bounds__(kSortThreads)
   }
 }
 
-// Dynamic shared memory of the accumulation: the float64 slices, then the
-// float32 staging rows.
-constexpr int kAccSmem = kAccWarps * kSlice * static_cast<int>(sizeof(double)) +
-                         kAccWarps * 32 * kStage * static_cast<int>(sizeof(float));
+// Dynamic shared memory of the accumulation at kAdj columns: the float64
+// slices, then the float32 staging rows.
+template <int kAdj>
+constexpr int acc_smem() {
+  return kAccWarps * kRows * kAdj * static_cast<int>(sizeof(double)) +
+         kAccWarps * 32 * (kAdj + 1) * static_cast<int>(sizeof(float));
+}
 
+template <int kAdj>
 __global__ void __launch_bounds__(kAccThreads)
     scatter_accumulate(const int* __restrict__ idx,
                        const float* __restrict__ val,
                        const int* __restrict__ order,
                        const int* __restrict__ starts, int splits,
                        double* __restrict__ partial) {
+  constexpr int kSlice = kRows * kAdj;
+  constexpr int kStage = kAdj + 1;
   extern __shared__ double slices[];
   float* stage = reinterpret_cast<float*>(slices + kAccWarps * kSlice);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -208,9 +219,11 @@ __global__ void __launch_bounds__(kAccThreads)
   }
 }
 
+template <int kAdj>
 __global__ void scatter_combine(const double* __restrict__ partial,
                                 int splits, int n_tris,
                                 float* __restrict__ adj) {
+  constexpr int kSlice = kRows * kAdj;
   const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (k >= static_cast<int64_t>(n_tris) * kAdj) return;
@@ -221,16 +234,36 @@ __global__ void scatter_combine(const double* __restrict__ partial,
   adj[k] = static_cast<float>(sum);
 }
 
+// The accumulation and the combination at kAdj columns.
+template <int kAdj>
+cudaError_t accumulate(const int* idx, const float* val, float* adj,
+                       int n_tris, const int* starts, const int* order,
+                       double* partial, int n_blocks, int splits,
+                       cudaStream_t s) {
+  constexpr int smem = acc_smem<kAdj>();
+  const cudaError_t attr = cudaFuncSetAttribute(
+      scatter_accumulate<kAdj>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return attr;
+  scatter_accumulate<kAdj><<<n_blocks * splits, kAccThreads, smem, s>>>(
+      idx, val, order, starts, splits, partial);
+  const int64_t cells = static_cast<int64_t>(n_tris) * kAdj;
+  scatter_combine<kAdj><<<static_cast<int>((cells + 255) / 256), 256, 0, s>>>(
+      partial, splits, n_tris, adj);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// cols: 9 or 19.
 extern "C" int spath_stream_scatter(const int* idx, const float* val,
                                     int64_t n_events, float* adj, int n_tris,
-                                    int* hist, int* starts, int* order,
-                                    double* partial, int groups, int splits,
-                                    void* stream) {
+                                    int cols, int* hist, int* starts,
+                                    int* order, double* partial, int groups,
+                                    int splits, void* stream) {
   const int n_blocks = (n_tris + kRows - 1) / kRows;
   if (n_events < 1 || n_events >= (int64_t{1} << 31) || n_tris < 1 ||
-      groups < 1 || splits < 1 ||
+      (cols != 9 && cols != 19) || groups < 1 || splits < 1 ||
       static_cast<int64_t>(n_blocks) * groups >= (int64_t{1} << 31) ||
       n_blocks * static_cast<int>(sizeof(int)) > 48 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -246,14 +279,10 @@ extern "C" int spath_stream_scatter(const int* idx, const float* val,
   scatter_order<<<groups, kSortThreads, sort_smem, s>>>(idx, n_events, per,
                                                         n_blocks, hist,
                                                         order);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      scatter_accumulate, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kAccSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  scatter_accumulate<<<n_blocks * splits, kAccThreads, kAccSmem, s>>>(
-      idx, val, order, starts, splits, partial);
-  const int64_t cells = static_cast<int64_t>(n_tris) * kAdj;
-  scatter_combine<<<static_cast<int>((cells + 255) / 256), 256, 0, s>>>(
-      partial, splits, n_tris, adj);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      cols == 9 ? accumulate<9>(idx, val, adj, n_tris, starts, order,
+                                partial, n_blocks, splits, s)
+                : accumulate<19>(idx, val, adj, n_tris, starts, order,
+                                 partial, n_blocks, splits, s);
+  return static_cast<int>(err);
 }

@@ -6,12 +6,13 @@ The parameters are four tensors (camera position, angles, focal length
 and the albedo field); the loss is the mean squared error between the
 differentiable render ``render_radiance_fastgrad`` (on a CUDA device K1
 forward and K2 backward for the conformance estimator, K3 and K4 for the
-quality estimator; autograd of the wavefront on the CPU) and the target;
+quality estimator, on large scenes K6 and K8 or K9 and K10, each with the
+scatter K7; autograd of the wavefront on the CPU) and the target;
 the optimizer is ``torch.optim.Adam`` with a pose and an albedo parameter
 group, in place of the JAX package's optax transforms. The conformance
 estimator's camera gradient is exactly zero; the quality estimator's
-next-event term makes it smooth and non-zero (K4's camera-ray adjoint,
-carried to the pose by ``generate_rays``' autograd).
+next-event term makes it smooth and non-zero (K4's or K10's camera-ray
+adjoint, carried to the pose by ``generate_rays``' autograd).
 
 What differs from the JAX package, and why:
 

@@ -323,9 +323,10 @@ def render_radiance_fastgrad(scene: Scene, camera: Camera,
     the same detached-sampling gradients as ``render_radiance``, from the
     fastest backend with a gradient path (``models/renderer.py``). On a
     CUDA device the forward is a fused kernel (K1, or K3 for the quality
-    estimator) and the backward its hand-written reverse sweep (K2, K4);
-    on the CPU, autograd of the wavefront. A scene or config that no
-    ported kernel differentiates raises ``NotImplementedError``."""
+    estimator) or, on large scenes, a streamed one (K6, K9), and the
+    backward its hand-written reverse sweep (K2, K4; K8 or K10 with the
+    scatter K7); on the CPU, autograd of the wavefront. A scene or config
+    that no ported kernel differentiates raises ``NotImplementedError``."""
     from spath_tpu_torch.models.renderer import grad_renderer
 
     _check_devices(scene, camera)
@@ -337,8 +338,8 @@ def render_pt_fast(scene: Scene, camera: Camera, cfg: RenderConfig,
                    seed: int = 0) -> torch.Tensor:
     """The serving path: the clamped frame from the fastest renderer that
     renders ``(scene, cfg)`` exactly (``models/renderer.py``): a fused
-    CUDA kernel on a CUDA device (K1 conformance, K3 quality), the
-    wavefront on the CPU. A scene or config that no ported kernel takes
+    CUDA kernel on a CUDA device (K1 conformance, K3 quality) or, on large
+    scenes, a streamed one (K6, K9), the wavefront on the CPU. A scene or config that no ported kernel takes
     raises ``NotImplementedError``."""
     from spath_tpu_torch.models.renderer import forward_renderer
 

@@ -4,16 +4,17 @@
 ``REGISTRY`` lists the backends fastest first; ``forward_renderer`` takes
 the first that renders ``(scene, cfg)`` exactly and ``grad_renderer`` the
 first that differentiates it, so every entry point agrees on which
-kernel a config runs on. So far the port has four: the fused CUDA
+kernel a config runs on. So far the port has five: the fused CUDA
 kernels for the conformance estimator (K1 forward, K2 backward), the
 streamed kernels for the conformance estimator on large scenes (K6
-forward, K8 with its scatter K7 backward), those for the quality
-estimator in its hash+cosine form (K3 forward, K4 backward), and the
-plain wavefront, with autograd, for CPU tensors. On a CUDA device a frame
-or a gradient goes through a kernel or raises: a scene or config no
-ported kernel takes is not handed to the plain version. The compacted,
-streamed-quality and visibility-gradient renderers are not registered
-yet.
+forward, K8 with its scatter K7 backward), the fused kernels for the
+quality estimator in its hash+cosine form (K3 forward, K4 backward), the
+streamed kernels for the quality estimator on large scenes (K9 forward,
+K10 with K7 backward), and the plain wavefront, with autograd, for CPU
+tensors. On a CUDA device a frame or a gradient goes through a kernel or
+raises: a scene or config no ported kernel takes is not handed to the
+plain version. The compacted and visibility-gradient renderers are not
+registered yet.
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ from spath_tpu_torch.camera import Camera
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.models import pathtracer
 from spath_tpu_torch.ops.kernels import (
-    bigscene, bigscene_grad, megakernel, megakernel_grad, megakernel_quality,
-    megakernel_quality_grad,
+    bigscene, bigscene_grad, bigscene_quality, bigscene_quality_grad,
+    megakernel, megakernel_grad, megakernel_quality, megakernel_quality_grad,
 )
 from spath_tpu_torch.scene import Scene
 
@@ -44,6 +45,19 @@ from spath_tpu_torch.scene import Scene
 #: package's 128 and 64 were measured on a TPU v5e.
 SMEM_ROUTE_MAX_TRIS = megakernel.MAX_TRIS
 GRAD_ROUTE_MAX_TRIS = 128
+#: The same crossovers for the quality estimator, between the fused K3
+#: (K3+K4 for a gradient) and the streamed K9 (K9+K10+K7), from the
+#: K3/K9 and K3+K4/K9+K10+K7 timings at the same shapes with NEE+MIS on
+#: the same card (``chip_smoke.py`` phase 33, PERF.md section 6). In four
+#: runs K9 was 5% slower to 8% faster than K3 at 64 and 128 triangles,
+#: 10% slower to 5% faster at 256, and 7-13% faster at 512 and 1024 in
+#: every run; K3+K4 was 6-42% faster at 64 triangles, and K9+K10+K7 took
+#: 3-6% less time at 128 and 58-59% less at 1024 (K4's per-warp (T, 19)
+#: slices) in every run. So the fused kernels serve scenes of up to 256
+#: triangles and differentiate those of up to 64. The JAX package's 128
+#: was measured on a TPU v5e.
+QUALITY_ROUTE_MAX_TRIS = 256
+QUALITY_GRAD_ROUTE_MAX_TRIS = 64
 
 
 class Renderer:
@@ -155,12 +169,11 @@ class BigsceneRenderer(Renderer):
 
 class QualityMegakernelRenderer(Renderer):
     """The fused CUDA kernels, quality estimator (hash RNG, cosine
-    sampler, NEE/MIS, Russian roulette, stratification), T <= 1024: K3
-    forward, and K3 with its reverse sweep K4 for gradients.
-
-    The JAX package hands scenes above 128 triangles to its streamed
-    quality kernels (K9, K10), a crossover measured on a TPU v5e; until
-    those are ported these kernels take every scene they can hold."""
+    sampler, NEE/MIS, Russian roulette, stratification): K3 forward for T
+    <= QUALITY_ROUTE_MAX_TRIS, and K3 with its reverse sweep K4 for
+    gradients for T <= QUALITY_GRAD_ROUTE_MAX_TRIS; the streamed quality
+    kernels take the larger scenes. (The JAX package's crossover, 128
+    triangles, was measured on a TPU v5e.)"""
 
     name = "quality"
 
@@ -169,10 +182,12 @@ class QualityMegakernelRenderer(Renderer):
 
     def supports(self, scene, cfg) -> bool:
         return (self.available(scene)
+                and scene.n_tris <= QUALITY_ROUTE_MAX_TRIS
                 and megakernel_quality.supported(scene, cfg))
 
     def supports_grad(self, scene, cfg) -> bool:
         return (self.available(scene)
+                and scene.n_tris <= QUALITY_GRAD_ROUTE_MAX_TRIS
                 and megakernel_quality_grad.supported_grad(scene, cfg))
 
     def render_radiance(self, scene, camera, cfg, seed=0):
@@ -184,11 +199,41 @@ class QualityMegakernelRenderer(Renderer):
             scene, camera, cfg, seed)
 
 
+class QualityBigsceneRenderer(Renderer):
+    """The streamed CUDA kernels, quality estimator, T <= BIGQ_MAX_TRIS
+    (2^20) and, with NEE, at most LIGHT_MAX lights: K9 forward, and K9
+    with its reverse sweep K10 and the stream scatter K7 for gradients.
+    Listed after the fused quality kernels, so it takes the scenes above
+    the crossovers."""
+
+    name = "quality_bigscene"
+
+    def available(self, scene) -> bool:
+        return scene.device.type == "cuda"
+
+    def supports(self, scene, cfg) -> bool:
+        return self.available(scene) and bigscene_quality.supported(
+            scene, cfg)
+
+    def supports_grad(self, scene, cfg) -> bool:
+        return self.available(scene) and bigscene_quality_grad.supported_grad(
+            scene, cfg)
+
+    def render_radiance(self, scene, camera, cfg, seed=0):
+        return bigscene_quality.render_radiance_bigscene_quality(
+            scene, camera, cfg, seed)
+
+    def render_radiance_grad(self, scene, camera, cfg, seed=0):
+        return bigscene_quality_grad.render_radiance_bigscene_quality_grad(
+            scene, camera, cfg, seed)
+
+
 #: All backends, fastest first: selection takes the first match.
 REGISTRY: tuple[Renderer, ...] = (
     MegakernelRenderer(),
     BigsceneRenderer(),
     QualityMegakernelRenderer(),
+    QualityBigsceneRenderer(),
     WavefrontRenderer(),
 )
 
@@ -213,15 +258,21 @@ def _no_kernel(scene: Scene, cfg: RenderConfig, grad: bool) -> str:
         return head + (f"the backward kernels K2 and K8 take max_bounces "
                        f"<= {megakernel_grad.MAX_BOUNCES}")
     if cfg.rng == "hash" and cfg.sampler == "cosine":
-        if scene.n_tris > megakernel_quality.MAX_TRIS:
+        streamed = "K9 and K10" if grad else "K9"
+        if scene.n_tris > bigscene_quality.BIGQ_MAX_TRIS:
             return head + (
-                f"the fused quality kernels take T <= "
-                f"{megakernel_quality.MAX_TRIS}; larger scenes need the "
-                "streamed quality kernels K9 and K10 "
-                "(spath_tpu/ops/pallas/megakernel_bigscene_quality.py), "
-                "not ported yet")
-        return head + (f"the fused quality backward K4 takes max_bounces "
-                       f"<= {megakernel_quality_grad.MAX_BOUNCES}")
+                f"the streamed quality kernels {streamed} take T <= "
+                f"{bigscene_quality.BIGQ_MAX_TRIS} (2^20), as the JAX "
+                "package's BIG_MAX_TRIS")
+        n_lights = len(bigscene_quality.static_light_idx(scene))
+        if cfg.nee and n_lights > bigscene_quality.LIGHT_MAX:
+            return head + (
+                f"the streamed quality kernels {streamed} take at most "
+                f"LIGHT_MAX = {bigscene_quality.LIGHT_MAX} lights with "
+                f"nee, the scene has {n_lights}")
+        return head + (f"the quality backward kernels K4 and K10 take "
+                       f"max_bounces <= "
+                       f"{megakernel_quality_grad.MAX_BOUNCES}")
     return head + ("the fused kernels take rng='lcg' with sampler='angle' "
                    "(K1, K2) or rng='hash' with sampler='cosine' (K3, K4); "
                    "other estimators run on CPU tensors only")

@@ -1,0 +1,170 @@
+"""Whole-frame quality path tracer for large scenes in one CUDA launch
+(K9).
+
+The port of ``spath_tpu/ops/pallas/megakernel_bigscene_quality.py``
+(``_bigq_kernel``, ``bigq_call``, ``render_radiance_bigscene_quality``):
+K3's walk (``ops/kernels/megakernel_quality.py``: hash draws, cosine
+sampler, NEE with MIS, Russian roulette, stratification) with the
+nearest-hit sweeps streamed through shared memory in blocks of 256
+triangles (the shadow ray and the next bounce's ray tested against each
+block together) and the light chosen by a binary search of the cdf at the
+light rows, so the scene may hold up to ``BIGQ_MAX_TRIS`` triangles. The
+kernel is ``csrc/bigscene_quality.cu``; its walk, K3's, is in
+``csrc/quality_walk.cuh`` and its sweeps in ``csrc/stream_sweep.cuh``.
+
+Layouts, as the wrapper checks them (all contiguous):
+
+- ``origins``, ``directions`` float32 ``(n, 3)`` and ``keys`` int64
+  ``(n,)``, as ``megakernel_quality.pack_rays`` gives them;
+- ``tri``: the float32 ``(T, 21)`` quality table of
+  ``megakernel_quality.quality_table``, ``1 <= T <= BIGQ_MAX_TRIS``;
+- ``light_idx``: int32 ``(L,)``, the ascending light rows, at most
+  ``LIGHT_MAX`` (``static_light_idx``; ``None`` takes every row); the
+  wrapper gathers the table's cdf at those rows on the device;
+- output: float32 ``(n, 3)``, the mean radiance.
+
+K9 computes K3's function with the same arithmetic: it equals K3 to the
+bit at T <= 1024 and ``megakernel_quality.quality_plain``, its plain
+version, at every T. The JAX kernel's sublane-chunked light table and its
+one-hot MXU row fetch are a TPU layout; the port reads the table's rows
+by index. Where ``u`` lies at or above the cdf at every light, the light
+is the last row, as in the wavefront and K3 (``select_light_plain``).
+
+``bigq_call`` launches the kernel for CUDA tensors and counts each launch
+in ``bigq_call.launches``; for CPU tensors it computes the same function
+with the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from spath_tpu_torch.camera import Camera
+from spath_tpu_torch.config import RenderConfig
+from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+from spath_tpu_torch.ops.kernels.build import library
+from spath_tpu_torch.scene import Scene
+
+#: Largest scene the streamed quality kernels take (the JAX package's
+#: ``BIG_MAX_TRIS``): a (2^20, 21) float32 table is 88 MB.
+BIGQ_MAX_TRIS = 1 << 20
+#: Most lights the route takes with NEE (the JAX package's ``LIGHT_MAX``,
+#: its VMEM light table's cap); the binary search itself has no cap.
+LIGHT_MAX = 65536
+
+
+def static_light_idx(scene: Scene) -> tuple[int, ...]:
+    """The light set: ``scene.light_idx`` if set, else the rows whose
+    emission sums above 0 (read from the scene's device)."""
+    if scene.light_idx is not None:
+        return tuple(int(i) for i in scene.light_idx)
+    lit = scene.emission.detach().sum(-1) > 0
+    return tuple(torch.nonzero(lit).flatten().tolist())
+
+
+def supported(scene: Scene, cfg: RenderConfig) -> bool:
+    """Does K9 render ``(scene, cfg)`` exactly? The quality estimator
+    (hash + cosine) up to ``BIGQ_MAX_TRIS`` triangles and, with NEE, up to
+    ``LIGHT_MAX`` lights, as the JAX package's ``supported``."""
+    return (scene.n_tris <= BIGQ_MAX_TRIS and cfg.rng == "hash"
+            and cfg.sampler == "cosine" and not cfg.vis_grad
+            and (not cfg.nee or len(static_light_idx(scene)) <= LIGHT_MAX))
+
+
+def select_light_plain(lcdf: torch.Tensor, rows: torch.Tensor,
+                       u: torch.Tensor, n_tris: int) -> torch.Tensor:
+    """The kernel's light choice (``csrc/quality_walk.cuh``:
+    ``search_light``), vectorised over ``u``: the upper bound of ``u`` in
+    ``lcdf``, the cdf at the ascending light ``rows``, by the same binary
+    search (PyTorch's loop), then ``rows[count]``, or ``n_tris - 1`` when
+    ``u`` is at or above every value. Returns int64 rows."""
+    n_rows = lcdf.shape[0]
+    last = torch.full(u.shape, n_tris - 1, dtype=torch.int64,
+                      device=u.device)
+    if n_rows == 0:
+        return last
+    lo = torch.zeros(u.shape, dtype=torch.int64, device=u.device)
+    hi = torch.full_like(lo, n_rows)
+    for _ in range(n_rows.bit_length()):
+        go = lo < hi
+        mid = lo + ((hi - lo) >> 1)
+        above = lcdf[mid.clamp(max=n_rows - 1)] > u
+        lo = torch.where(go & ~above, mid + 1, lo)
+        hi = torch.where(go & above, mid, hi)
+    return torch.where(lo < n_rows, rows.long()[lo.clamp(max=n_rows - 1)],
+                       last)
+
+
+def _check(origins, directions, keys, tri, light_idx,
+           cfg: RenderConfig) -> None:
+    mq._check(origins, directions, keys, tri, light_idx, cfg, BIGQ_MAX_TRIS)
+    n_rows = tri.shape[0] if light_idx is None else light_idx.shape[0]
+    if n_rows > LIGHT_MAX:
+        raise ValueError(f"{n_rows} light rows above the streamed quality "
+                         f"kernels' LIGHT_MAX = {LIGHT_MAX}")
+
+
+def kernel_inputs(tri, light_idx, device):
+    """The light rows (every row for ``None``) and the table's cdf at
+    them, on the device."""
+    rows = mq._rows(light_idx, tri.shape[0], device)
+    return rows, tri[:, mq.COL_CDF].detach().index_select(0, rows)
+
+
+def bigq_call(origins, directions, keys, tri, light_idx,
+              cfg: RenderConfig) -> torch.Tensor:
+    """Mean radiance ``(n, 3)`` of ``n`` rays (layouts in the module
+    docstring). Launches K9 on CUDA tensors, on PyTorch's current stream
+    and without synchronising; a failed build or launch raises. CPU
+    tensors take ``megakernel_quality.quality_plain``."""
+    _check(origins, directions, keys, tri, light_idx, cfg)
+    if origins.device.type == "cpu":
+        return mq.quality_plain(origins, directions, keys, tri, light_idx,
+                                cfg)
+    if origins.device.type != "cuda":
+        raise ValueError(f"no streamed quality kernel for device "
+                         f"{origins.device}")
+    n, n_tris = origins.shape[0], tri.shape[0]
+    out = torch.empty((n, 3), dtype=torch.float32, device=origins.device)
+    if n == 0:
+        return out
+    rows, lcdf = kernel_inputs(tri, light_idx, origins.device)
+    lib = library()
+    with torch.cuda.device(origins.device):
+        stream = torch.cuda.current_stream(origins.device).cuda_stream
+        err = lib.spath_bigscene_quality_forward(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (
+                origins, directions, keys, tri, rows, lcdf, out)),
+            n, *mq.kernel_args(cfg, n_tris, rows.shape[0]),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"streamed quality kernel launch failed: CUDA "
+                           f"error {err} "
+                           f"({lib.spath_error_string(err).decode()})")
+    bigq_call.launches += 1
+    return out
+
+
+bigq_call.launches = 0
+
+
+def light_rows(scene: Scene) -> torch.Tensor:
+    """The scene's static light set as the kernels take it, on its
+    device (copied there once)."""
+    return mq._device_rows(static_light_idx(scene), scene.n_tris,
+                           scene.device)
+
+
+def render_radiance_bigscene_quality(scene: Scene, camera: Camera,
+                                     cfg: RenderConfig, seed: int = 0
+                                     ) -> torch.Tensor:
+    """Unclamped mean radiance ``(H, W, 3)`` through ``bigq_call``."""
+    if not supported(scene, cfg):
+        raise ValueError("the streamed quality kernel needs rng='hash', "
+                         f"sampler='cosine', T <= {BIGQ_MAX_TRIS}, at most "
+                         f"LIGHT_MAX = {LIGHT_MAX} lights with nee")
+    out = bigq_call(*mq.pack_rays(camera, cfg, seed), mq.quality_table(scene),
+                    light_rows(scene), cfg)
+    return out.reshape(cfg.height, cfg.width, 3)

@@ -151,21 +151,34 @@ def library() -> ctypes.CDLL:
     lib.spath_quality_backward.restype = i32
     lib.spath_quality_backward_grid.argtypes = [i32, i32]
     lib.spath_quality_backward_grid.restype = i32
-    # the light choice's distribution: emission, area, cdf, prob, T
-    lib.spath_light_cdf.argtypes = [ptr] * 4 + [i32, ptr]
+    # the light choice's distribution: emission, area, cdf, prob, scratch,
+    # T; and the scratch floats it needs for T
+    lib.spath_light_cdf.argtypes = [ptr] * 5 + [i32, ptr]
     lib.spath_light_cdf.restype = i32
+    lib.spath_light_cdf_scratch.argtypes = [i32]
+    lib.spath_light_cdf_scratch.restype = i32
     # K6: K1's arguments
     lib.spath_bigscene_forward.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.spath_bigscene_forward.restype = i32
+    # K9: rays, keys, table, rows, cdf at the rows, out, n, then K3's
+    lib.spath_bigscene_quality_forward.argtypes = [ptr] * 7 + quality + [
+        ptr]
+    lib.spath_bigscene_quality_forward.restype = i32
+    # K10: rays, keys, table, rows, cdf at the rows, gbar, first hit, ray
+    # adjoint, events, n, K3's scalars, first sample, samples
+    lib.spath_bigscene_quality_backward.argtypes = (
+        [ptr] * 12 + quality + [i32, i32, ptr])
+    lib.spath_bigscene_quality_backward.restype = i32
     # K8: rays, seeds, table, gbar, first hit, state, events, n, n_tris,
     # spp, max_bounces, first sample, samples
     lib.spath_bigscene_backward.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
     lib.spath_bigscene_backward.restype = i32
-    # K7: idx, val, E, adj, T, hist, starts, order, partial, groups, splits
+    # K7: idx, val, E, adj, T, columns, hist, starts, order, partial,
+    # groups, splits
     lib.spath_stream_scatter.argtypes = [
-        ptr, ptr, ctypes.c_int64, ptr, i32, ptr, ptr, ptr, ptr, i32, i32,
-        ptr]
+        ptr, ptr, ctypes.c_int64, ptr, i32, i32, ptr, ptr, ptr, ptr, i32,
+        i32, ptr]
     lib.spath_stream_scatter.restype = i32
     lib.spath_error_string.argtypes = [i32]
     lib.spath_error_string.restype = ctypes.c_char_p

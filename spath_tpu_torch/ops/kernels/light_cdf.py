@@ -14,9 +14,11 @@ scanned the same way, then added). XLA's CPU reduction of more than 32
 terms is not sequential; for such scenes the total may differ from the
 JAX package's in the last bit.
 
-On CUDA tensors the wrapper launches ``csrc/light_cdf.cu`` (one block, on
-PyTorch's current stream, no synchronisation) and counts the launch in
-``light_cdf_call.launches``; a CUDA scene's table never goes through the
+On CUDA tensors the wrapper launches ``csrc/light_cdf.cu`` on PyTorch's
+current stream, without synchronisation, and counts the call in
+``light_cdf_call.launches``: one block up to ``SHARED_TRIS`` triangles,
+above that a launch per step of the scan with its levels in a scratch
+buffer, up to ``MAX_TRIS``. A CUDA scene's table never goes through the
 host. CPU tensors take ``light_cdf_plain``, which sums in numpy: PyTorch's
 CPU float32 ``cumsum`` accumulates in float64, not in XLA's order.
 """
@@ -30,8 +32,9 @@ import torch
 
 from spath_tpu_torch.ops.kernels.build import library
 
-#: Largest table the kernel takes (its scan's levels in shared memory).
-MAX_TRIS = 8192
+#: Largest table the kernel scans in one block, its levels in shared
+#: memory; and the largest it takes (the streamed kernels' cap, 2^20).
+SHARED_TRIS, MAX_TRIS = 8192, 1 << 20
 
 
 def _scan(x: np.ndarray) -> np.ndarray:
@@ -102,12 +105,17 @@ def light_cdf_call(emission: torch.Tensor, area: torch.Tensor):
     cdf = torch.empty(t, dtype=torch.float32, device=emission.device)
     prob = torch.empty_like(cdf)
     lib = library()
+    floats = lib.spath_light_cdf_scratch(t)
+    scratch = torch.empty(floats, dtype=torch.float32,
+                          device=emission.device) if floats else None
     with torch.cuda.device(emission.device):
         stream = torch.cuda.current_stream(emission.device).cuda_stream
         err = lib.spath_light_cdf(
             ctypes.c_void_p(emission.data_ptr()),
             ctypes.c_void_p(area.data_ptr()),
             ctypes.c_void_p(cdf.data_ptr()), ctypes.c_void_p(prob.data_ptr()),
+            ctypes.c_void_p(None if scratch is None
+                            else scratch.data_ptr()),
             t, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"light-distribution kernel launch failed: CUDA "

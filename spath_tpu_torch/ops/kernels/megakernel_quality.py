@@ -16,8 +16,9 @@ Layouts, as the wrapper checks them (all contiguous):
   emission, prob, area, cdf (``quality_table``; the JAX package's three
   pad columns are dropped), ``1 <= T <= MAX_TRIS``;
 - ``light_idx``: int32 ``(L,)``, the ascending rows the light choice
-  walks (``Scene.light_idx``); ``None`` walks every row, which picks the
-  same light (zero-probability rows repeat the cdf value before them);
+  searches (``Scene.light_idx``); ``None`` searches every row, which picks
+  the same light wherever the cdf does not decrease (zero-probability
+  rows repeat the cdf value before them);
 - output: float32 ``(n, 3)``, the mean radiance.
 
 ``quality_call`` launches the kernel for CUDA tensors and counts each
@@ -113,9 +114,10 @@ def _rows(light_idx, n_tris: int, device) -> torch.Tensor:
 
 
 def _select_light(cdf, rows, u):
-    """The kernel's walk of the cdf column over ``rows`` (ascending, the
-    cdf nondecreasing along them): the first row whose cdf exceeds ``u``,
-    else the last triangle."""
+    """The kernels' light choice (``csrc/quality_walk.cuh``:
+    ``search_light``): ``torch.searchsorted`` of ``u`` in the cdf at the
+    ascending ``rows`` (the same upper-bound loop), then that row, else
+    the last triangle."""
     t, n_rows = cdf.shape[0], rows.shape[0]
     if n_rows == 0:
         return torch.full_like(u, t - 1, dtype=torch.int64)
@@ -283,8 +285,8 @@ def kernel_args(cfg: RenderConfig, n_tris: int, n_rows: int) -> list:
             _flags(cfg), ctypes.c_float(float(np.float32(1.0 / cfg.spp)))]
 
 
-def _check(origins, directions, keys, tri, light_idx,
-           cfg: RenderConfig) -> None:
+def _check(origins, directions, keys, tri, light_idx, cfg: RenderConfig,
+           max_tris: int = MAX_TRIS) -> None:
     require_ported(cfg)
     if cfg.rng != "hash" or cfg.sampler != "cosine":
         raise NotImplementedError(
@@ -301,8 +303,8 @@ def _check(origins, directions, keys, tri, light_idx,
     if tri.dtype != torch.float32 or tri.dim() != 2 or tri.shape[1] != COLS:
         raise ValueError(f"tri must be float32 (T, {COLS}), got {tri.dtype} "
                          f"{tuple(tri.shape)}")
-    if not 1 <= tri.shape[0] <= MAX_TRIS:
-        raise ValueError(f"T={tri.shape[0]} outside [1, {MAX_TRIS}]")
+    if not 1 <= tri.shape[0] <= max_tris:
+        raise ValueError(f"T={tri.shape[0]} outside [1, {max_tris}]")
     if cfg.spp < 1 or cfg.max_bounces < 0 or cfg.rr_start < 0:
         raise ValueError(f"spp={cfg.spp}, max_bounces={cfg.max_bounces}, "
                          f"rr_start={cfg.rr_start}")

@@ -1,5 +1,6 @@
-"""Deterministic scatter-add of adjoint events into a ``(T, 9)`` adjoint
-(K7).
+"""Deterministic scatter-add of adjoint events into a ``(T, C)`` adjoint
+(K7), ``C`` = 9 (the conformance backward K8) or 19 (the quality
+backward K10).
 
 The port of ``spath_tpu/ops/pallas/megakernel_bigscene.py::
 stream_scatter_rmw``, the read-modify-write pass the streamed backward
@@ -10,7 +11,7 @@ while the block sits in shared memory; its sums are in an order fixed by
 the events, so two launches give the same bits (no float atomics).
 
 Layouts (all contiguous): ``idx`` int32 ``(E,)``, the event's triangle or
--1 for none; ``val`` float32 ``(E, 9)``; ``adj`` float32 ``(T, 9)``,
+-1 for none; ``val`` float32 ``(E, C)``; ``adj`` float32 ``(T, C)``,
 which the call adds into in place and returns.
 
 ``stream_scatter_call`` launches the kernel for CUDA tensors and counts
@@ -28,8 +29,11 @@ from spath_tpu_torch.ops.kernels.build import library
 
 #: Triangles a block (``kRows`` of the kernel).
 TILE_T = 256
-#: Columns of an event and of the adjoint: normal, albedo, emission.
+#: Columns of an event and of the adjoint: normal, albedo, emission (K8);
+#: v0, e1, e2, normal, albedo, emission, area (K10).
 COLS = 9
+QUALITY_COLS = 19
+WIDTHS = (COLS, QUALITY_COLS)
 #: Largest scene: the sort keeps one counter per block in shared memory.
 MAX_TRIS = 1 << 20
 #: Events a group of the sort counts, at least; and the largest
@@ -61,17 +65,18 @@ def stream_scatter_plain(adj, idx, val) -> torch.Tensor:
 
 def _check(adj, idx, val) -> None:
     if adj.dtype != torch.float32 or adj.dim() != 2 \
-            or adj.shape[1] != COLS:
-        raise ValueError(f"adj must be float32 (T, {COLS}), got {adj.dtype} "
-                         f"{tuple(adj.shape)}")
+            or adj.shape[1] not in WIDTHS:
+        raise ValueError(f"adj must be float32 (T, C), C in {WIDTHS}, got "
+                         f"{adj.dtype} {tuple(adj.shape)}")
+    cols = adj.shape[1]
     if not 1 <= adj.shape[0] <= MAX_TRIS:
         raise ValueError(f"T={adj.shape[0]} outside [1, {MAX_TRIS}]")
     if idx.dtype != torch.int32 or idx.dim() != 1:
         raise ValueError(f"idx must be int32 (E,), got {idx.dtype} "
                          f"{tuple(idx.shape)}")
     e = idx.shape[0]
-    if val.dtype != torch.float32 or tuple(val.shape) != (e, COLS):
-        raise ValueError(f"val must be float32 ({e}, {COLS}), got "
+    if val.dtype != torch.float32 or tuple(val.shape) != (e, cols):
+        raise ValueError(f"val must be float32 ({e}, {cols}), got "
                          f"{val.dtype} {tuple(val.shape)}")
     if e >= 2**31:
         raise ValueError(f"{e} events overflow the kernel's int32 ids")
@@ -92,7 +97,7 @@ def stream_scatter_call(adj, idx, val) -> torch.Tensor:
         return stream_scatter_plain(adj, idx, val)
     if adj.device.type != "cuda":
         raise ValueError(f"no scatter kernel for device {adj.device}")
-    n_events, n_tris = idx.shape[0], adj.shape[0]
+    n_events, (n_tris, cols) = idx.shape[0], adj.shape
     if n_events == 0:
         return adj
     n_blocks, groups, splits = plan(n_events, n_tris)
@@ -100,14 +105,14 @@ def stream_scatter_call(adj, idx, val) -> torch.Tensor:
     hist = torch.empty(n_blocks * groups, **i32)
     starts = torch.empty(n_blocks + 1, **i32)
     order = torch.empty(n_events, **i32)
-    partial = torch.empty(n_blocks * splits * TILE_T * COLS,
+    partial = torch.empty(n_blocks * splits * TILE_T * cols,
                           dtype=torch.float64, device=adj.device)
     lib = library()
     with torch.cuda.device(adj.device):
         stream = torch.cuda.current_stream(adj.device).cuda_stream
         err = lib.spath_stream_scatter(
             ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(val.data_ptr()),
-            n_events, ctypes.c_void_p(adj.data_ptr()), n_tris,
+            n_events, ctypes.c_void_p(adj.data_ptr()), n_tris, cols,
             ctypes.c_void_p(hist.data_ptr()),
             ctypes.c_void_p(starts.data_ptr()),
             ctypes.c_void_p(order.data_ptr()),

@@ -486,8 +486,12 @@ def test_routing_keeps_scenes_at_the_crossovers_on_the_fused_kernels(
 def test_routing_raises_where_no_kernel_takes_a_cuda_scene(monkeypatch):
     """Above 2^20 triangles both directions name the streamed kernels'
     cap; a gradient above 16 bounces names the backward kernels' cap (the
-    forward takes it); the quality estimator above 1024 triangles still
-    names the unported K9 and K10."""
+    forward takes it); the quality estimator above 1024 triangles goes to
+    the streamed quality kernels K9 and K10, and names them above 16
+    bounces."""
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+    from spath_tpu_torch.ops.kernels import bigscene_quality_grad as bqg
+
     huge = procedural_scene(bs.BIG_MAX_TRIS + 1, seed=1, device=CPU)
     big = procedural_scene(1100, seed=1, device=CPU)
     calls = _as_if_on_cuda(monkeypatch)
@@ -500,12 +504,22 @@ def test_routing_raises_where_no_kernel_takes_a_cuda_scene(monkeypatch):
     with pytest.raises(NotImplementedError, match="max_bounces <= 16"):
         render_radiance_fastgrad(big, cam, long)
     quality = cfg.replace(rng="hash", sampler="cosine", nee=True)
-    for fn in (render_pt_fast, render_radiance_fastgrad):
-        with pytest.raises(NotImplementedError, match="K9 and K10"):
-            fn(big, cam, quality)
+    with pytest.raises(NotImplementedError, match="K4 and K10 take "
+                       "max_bounces <= 16"):
+        render_radiance_fastgrad(big, cam, quality.replace(
+            max_bounces=bqg.MAX_BOUNCES + 1))
     assert calls == []
     render_pt_fast(big, cam, long)
     assert calls == [("K6", 1100)]
+    monkeypatch.setattr(bq, "render_radiance_bigscene_quality",
+                        lambda s, c, f, seed=0: calls.append(
+                            ("K9", s.n_tris)) or torch.zeros(4, 8, 3))
+    monkeypatch.setattr(bqg, "render_radiance_bigscene_quality_grad",
+                        lambda s, c, f, seed=0: calls.append(
+                            ("K9+K10", s.n_tris)) or torch.zeros(4, 8, 3))
+    render_pt_fast(big, cam, quality)
+    render_radiance_fastgrad(big, cam, quality)
+    assert calls[1:] == [("K9", 1100), ("K9+K10", 1100)]
 
 
 def test_routing_keeps_cpu_tensors_on_the_wavefront(monkeypatch):

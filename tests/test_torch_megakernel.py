@@ -168,14 +168,17 @@ def test_build_flags_and_rebuild_hash(tmp_path, monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in cmd and "-fmad=false" in cmd
     assert not any("fast_math" in f or "fast-math" in f for f in cmd)
     assert [p.name for p in build.sources()] == [
-        "bigscene.cu", "bigscene_grad.cu", "light_cdf.cu", "megakernel.cu",
+        "bigscene.cu", "bigscene_grad.cu", "bigscene_quality.cu",
+        "bigscene_quality_grad.cu", "light_cdf.cu", "megakernel.cu",
         "megakernel_grad.cu", "megakernel_quality.cu",
         "megakernel_quality_grad.cu", "stream_scatter.cu"]
     assert [p.name for p in build.hashed_files()] == [
-        "bigscene.cu", "bigscene_grad.cu", "light_cdf.cu", "megakernel.cu",
+        "bigscene.cu", "bigscene_grad.cu", "bigscene_quality.cu",
+        "bigscene_quality_grad.cu", "light_cdf.cu", "megakernel.cu",
         "megakernel_common.cuh", "megakernel_grad.cu",
         "megakernel_quality.cu", "megakernel_quality_grad.cu",
-        "quality_walk.cuh", "stream_scatter.cu", "stream_sweep.cuh"]
+        "quality_reverse.cuh", "quality_walk.cuh", "stream_scatter.cu",
+        "stream_sweep.cuh"]
     assert build.LIBRARY.parent.parts[-2:] == ("build", "kernels")
     monkeypatch.setattr(build, "SOURCE_DIR", tmp_path)
     (tmp_path / "k.cu").write_text('#include "k.cuh"\n')

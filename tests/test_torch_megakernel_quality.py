@@ -373,6 +373,8 @@ def _as_if_on_cuda(monkeypatch):
     for module, name in ((pathtracer, "render_radiance"),
                          (mq, "quality_plain"), (mqg, "quality_bwd_plain")):
         monkeypatch.setattr(module, name, forbidden)
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+    from spath_tpu_torch.ops.kernels import bigscene_quality_grad as bqg
     calls = []
 
     def kernel(tag):
@@ -385,6 +387,9 @@ def _as_if_on_cuda(monkeypatch):
                         kernel("K3"))
     monkeypatch.setattr(mqg, "render_radiance_quality_grad",
                         kernel("K3+K4"))
+    monkeypatch.setattr(bq, "render_radiance_bigscene_quality", kernel("K9"))
+    monkeypatch.setattr(bqg, "render_radiance_bigscene_quality_grad",
+                        kernel("K9+K10"))
     return calls
 
 
@@ -392,36 +397,49 @@ def _as_if_on_cuda(monkeypatch):
 @pytest.mark.parametrize("kw", [dict(nee=True), dict(nee=False, rr_start=2),
                                 dict(nee=True, stratify=True, mis=False)])
 def test_quality_routing_sends_cuda_scenes_to_k3_k4(monkeypatch, n_tris, kw):
-    """Every quality config of a scene the kernels hold goes to K3 to be
-    served and to K3+K4 to be differentiated, above the JAX package's
-    128-triangle crossover as well."""
+    """Every quality config of a scene the fused kernels hold goes to K3
+    to be served and to K3+K4 to be differentiated up to the crossovers
+    measured on the H100 (``QUALITY_ROUTE_MAX_TRIS``,
+    ``QUALITY_GRAD_ROUTE_MAX_TRIS``), and to the streamed K9 (K9+K10)
+    above them."""
     scene = (default_scene(CPU) if n_tris == 7
              else procedural_scene(n_tris, seed=1, device=CPU))
     calls = _as_if_on_cuda(monkeypatch)
     cfg = RenderConfig(width=8, height=4, spp=1, rng="hash",
                        sampler="cosine", **kw)
     cam = Camera.default(CPU)
-    assert renderer.forward_renderer(scene, cfg).name == "quality"
-    assert renderer.grad_renderer(scene, cfg).name == "quality"
+    fused = n_tris <= renderer.QUALITY_ROUTE_MAX_TRIS
+    fused_grad = n_tris <= renderer.QUALITY_GRAD_ROUTE_MAX_TRIS
+    assert renderer.forward_renderer(scene, cfg).name == (
+        "quality" if fused else "quality_bigscene")
+    assert renderer.grad_renderer(scene, cfg).name == (
+        "quality" if fused_grad else "quality_bigscene")
     assert render_pt_fast(scene, cam, cfg).shape == (4, 8, 3)
     assert render_radiance_fastgrad(scene, cam, cfg).shape == (4, 8, 3)
-    assert calls == [("K3", n_tris), ("K3+K4", n_tris)]
+    assert calls == [("K3" if fused else "K9", n_tris),
+                     ("K3+K4" if fused_grad else "K9+K10", n_tris)]
 
 
 def test_quality_routing_raises_for_cuda_scenes_without_a_kernel(
         monkeypatch):
-    """No silent plain render or gradient on a CUDA device: above 1024
-    triangles the streamed quality kernels K9/K10 are named; threefry,
-    vis_grad, a path longer than K4's saved state and a sampler no kernel
-    takes say what is missing."""
-    big = procedural_scene(mq.MAX_TRIS + 1, seed=1, device=CPU)
+    """No silent plain render or gradient on a CUDA device: above 2^20
+    triangles the streamed quality kernels' cap is named; threefry,
+    vis_grad, a path longer than K4's and K10's saved state and a sampler
+    no kernel takes say what is missing."""
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+
+    big = Scene(torch.zeros((bq.BIGQ_MAX_TRIS + 1, 3, 3)),
+                torch.zeros((bq.BIGQ_MAX_TRIS + 1, 3)),
+                torch.zeros((bq.BIGQ_MAX_TRIS + 1, 3)), (0,))
     small, cam = default_scene(CPU), Camera.default(CPU)
     calls = _as_if_on_cuda(monkeypatch)
     q = RenderConfig(width=8, height=4, spp=1, rng="hash", sampler="cosine",
                      nee=True)
+    with pytest.raises(NotImplementedError, match="K9 take T <= 1048576"):
+        render_pt_fast(big, cam, q)
+    with pytest.raises(NotImplementedError, match="K9 and K10 take T <= "):
+        render_radiance_fastgrad(big, cam, q)
     for fn in (render_pt_fast, render_radiance_fastgrad):
-        with pytest.raises(NotImplementedError, match="K9 and K10"):
-            fn(big, cam, q)
         with pytest.raises(NotImplementedError, match="threefry"):
             fn(small, cam, q.replace(rng="threefry"))
         with pytest.raises(NotImplementedError, match="vis_grad"):

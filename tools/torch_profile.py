@@ -9,7 +9,10 @@ conformance estimator (K1, K2) and for the quality estimator as the CLI's
 ``--mode quality`` builds it (K3, K4); then ``BIG_CALLS`` calls of each
 path on ``procedural_scene(10_000, seed=0)`` in the conformance
 estimator (K6; K6, K8 and K7), serving at 64 spp and training at 8, as
-``chip_smoke.py`` phases 21 and 23 run them:
+``chip_smoke.py`` phases 21 and 23 run them, and in the quality estimator
+(the light distribution and K9; with K10 and K7), serving at
+``BIGQ_SERVE_SPP`` spp and training at ``BIGQ_TRAIN_SPP``, as phases 29
+and 31 run them:
 
 - serving: ``render_pt_fast``;
 - training: ``make_train_step`` with the CLI's perturbation and
@@ -40,6 +43,8 @@ QUALITY = dict(rng="hash", sampler="cosine", nee=True, mis=True)
 # Traced calls of each large-scene path: one serving frame at 10k
 # triangles takes ~15 s on an H100.
 BIG_CALLS = 1
+# The quality estimator's large-scene shapes (chip_smoke.py phases 29, 31).
+BIGQ_SERVE_SPP, BIGQ_TRAIN_SPP = 16, 4
 
 
 def busy_and_kernels(trace: dict, calls: int):
@@ -112,13 +117,16 @@ def main() -> int:
     small, big = default_scene(dev), procedural_scene(10_000, seed=0,
                                                        device=dev)
     frozen = param_group_optimizer(freeze_pose=True, albedo_lr=2e-2)
+    pose_at_0 = param_group_optimizer(freeze_pose=False, pose_lr=0.0,
+                                      albedo_lr=2e-2)
+    quality = RenderConfig(**HEADLINE, **QUALITY)
     for prefix, scene, cfg, train_cfg, optimizer, calls in (
             ("", small, RenderConfig(**HEADLINE), None, frozen, args.calls),
-            ("quality_", small, RenderConfig(**HEADLINE, **QUALITY), None,
-             param_group_optimizer(freeze_pose=False, pose_lr=0.0,
-                                   albedo_lr=2e-2), args.calls),
+            ("quality_", small, quality, None, pose_at_0, args.calls),
             ("big_", big, RenderConfig(**HEADLINE),
-             RenderConfig(**dict(HEADLINE, spp=8)), frozen, BIG_CALLS)):
+             RenderConfig(**dict(HEADLINE, spp=8)), frozen, BIG_CALLS),
+            ("big_quality_", big, quality.replace(spp=BIGQ_SERVE_SPP),
+             quality.replace(spp=BIGQ_TRAIN_SPP), pose_at_0, BIG_CALLS)):
         print(json.dumps(profile(
             prefix + "serving", lambda: render_pt_fast(scene, cam, cfg, 0),
             calls, out)), flush=True)
