@@ -10,8 +10,11 @@ port's serving and training paths, conformance estimator (phases 1-10:
 K1, K2), quality estimator (phases 11-17: K3, K4), conformance estimator
 on large scenes (phases 18-25: K6, K8 and K7) and quality estimator on
 large scenes (phases 26-33: the light distribution beyond one block, K9,
-K10 and K7 at 19 columns), through the entry points a user calls; any
-failure exits non-zero before a result is printed.
+K10 and K7 at 19 columns) and visibility gradients with the wavefront on
+the card (phases 34-41: K5, K11, the backward kernels beyond 16
+bounces), through the entry points a user calls; any failure exits
+non-zero before a result is printed. Every plain wavefront the kernels
+are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
 
 1. Device: the card's name and power limit, and the kernel build.
 2. Kernel against its plain PyTorch version on the same rays: the
@@ -146,6 +149,52 @@ failure exits non-zero before a result is printed.
     536-543 in turns with the kernel on the same rows, ``index_add_``
     beside K7, the walk counted for the bounds and the CTAs' idle lanes.
 
+34. K5 against the plain sweep ``_sweep``, both outputs to the bit, on
+    one residual slice of rays (512x512 camera rays; bounce-shaped rays
+    from their hits in random directions, excluding the hit triangle;
+    edge-shaped rays toward points on mesh edges; lanes whose camera ray
+    missed keep it, as ended paths do) at 7, 1150 and 10k triangles, and
+    at 2^20 triangles on 64x64 rays; K5 and the plain sweep timed in
+    turns on the slice's bounce rays at 10k triangles and on 1080p camera
+    rays at 7.
+35. K11 against K9 and ``quality_hits_plain``: the radiance and the hits
+    to the bit, on the default scene at 320x240x8, the 1150-triangle scene
+    at 320x240x4 (and with rr_start=2, stratify) and 10k at 64x48x2; K11
+    and K9 timed in turns on the 10k training cell (1080p, 4 spp), K11
+    and its plain version on rows 536-543; there K11's radiance bit-equal
+    to K9's on the whole frame, and on rows 536-543 its radiance and hits,
+    from the rows' own launch and from the frame's export, bit-equal to
+    ``quality_hits_plain``'s.
+36. The backward kernels at 17 and 32 bounces (their saved state holds
+    64): K2, K8+K7, K4 and K10+K7 against their plain versions at 64x48x2
+    with phase 6's and phase 13's bounds; K2 and K4 timed at 320x240x8 at
+    5, 16, 17 and 32 bounces.
+37. The wavefront on the card for hash with the uniform sampler at
+    320x240x4: it launches K5 and the light distribution only, and its
+    frame equals the plain sweep's to the bit; hash+angle renders; the
+    gradients of hash+uniform and of 65 bounces (conformance, and quality
+    with roulette) through the wavefront launch K5 and are within 1e-5 of
+    each max of the plain sweep's.
+38. ``render_radiance_fastgrad`` with ``vis_grad`` through
+    ``VisGradFusedRenderer`` against autograd of the plain wavefront with
+    ``vis_grad``, vertex, albedo, emission and camera gradients within
+    ENTRY_RTOL of each max: the blocker scene (conformance: K1, K2, K5;
+    quality: the light distribution, K3, K4, K5) at 320x240x4, and the
+    1150-triangle scene at 320x240x2 through K11, K10, K7 and K5, no
+    other kernel; the residual's radiance exactly 0; the vis_grad frame
+    equal to the frame without it; the gradient's run-to-run spread,
+    recorded.
+39. Visibility-gradient training at full width: 3 quality train steps
+    with vis_grad on the default scene at 1920x1080, VIS_TRAIN_SPP (cut
+    from 64 for time) samples, 5 bounces, through the light distribution,
+    K3, K4 and K5; the loss falls; the gradient's run-to-run spread at
+    that shape, recorded.
+40. 2 such steps on procedural_scene(10_000) at 1920x1080, 4 spp, through
+    the light distribution, K11, K10, K7 and K5 (K9 does not launch).
+41. The pose step from the true camera, recorded: 3 steps at pose rate
+    1e-3 with and without vis_grad, and how many of the pixels that
+    change when the camera moves 1e-6 change their primary triangle.
+
 The last three lines of standard output are the kernels' JSON record,
 the card as ``nvidia-smi`` names it, and ``{"ok": true, "device": ...}``.
 """
@@ -274,10 +323,25 @@ K8_HIT_OPS = K2_HIT_OPS - 9
 #: from 64 for time); training on the first at BIGQ_TRAIN_SPP (cut from 64
 #: for time).
 BIGQ_SERVE_SPP, BIGQ_HUGE_SPP, BIGQ_TRAIN_SPP = 16, 1, 4
+#: The visibility-gradient training cell: the quality headline's frame
+#: (1920x1080, 5 bounces) with vis_grad, VIS_TRAIN_SPP samples (cut from
+#: 64 for time: the residual's backward is bound by the host's launches,
+#: ~1,500 small kernels and ~0.09 s a slice of 262,144 pixels and sample
+#: on an H100, so a step at 16 spp took 24-29 s). The pose measurement
+#: steps at POSE_STEP_LR, the JAX package's default pose rate.
+VIS_TRAIN_SPP, POSE_STEP_LR = 8, 1e-3
 
 
 class SmokeFailure(Exception):
     pass
+
+
+def plain_sweep():
+    """Every sweep the plain ``_sweep`` inside the block, on the card too:
+    the plain wavefront the kernels are held to stays plain PyTorch."""
+    from spath_tpu_torch.ops.intersect import plain_sweep as block
+
+    return block()
 
 
 def check(cond, msg: str) -> None:
@@ -499,7 +563,8 @@ def gradient_entry(torch, dev, cam, scene, big: bool = False) -> str:
     check(all(launched[k] > 0 for k in path)
           and not any(launched[k] for k in other),
           f"render_radiance_fastgrad launched {launched}")
-    want = grads(render_radiance)
+    with plain_sweep():
+        want = grads(render_radiance)
     errs = {}
     for name, g, w in zip(("vertices", "albedo", "emission"), got, want):
         scale = w.abs().max().item()
@@ -732,7 +797,8 @@ def quality_gradient_entry(torch, dev, cam, scene, big: bool = False
     else:
         check(k3 > 0 and k4 > 0, f"render_radiance_fastgrad launched K3 "
               f"{k3} and K4 {k4} times")
-    want = grads(render_radiance)
+    with plain_sweep():
+        want = grads(render_radiance)
     errs = {}
     for name, g, w in zip(("vertices", "albedo", "emission", "camera"), got,
                           want):
@@ -850,7 +916,8 @@ def edge_witness(torch, cam, scene, cfg) -> dict:
     pos[0] += EDGE_MOVE
     moved_cam = Camera(pos, cam.angle, cam.focal)
     moved = serve(scene, moved_cam, cfg, 0)
-    plain = render_radiance(scene, moved_cam, cfg, 0)
+    with plain_sweep():
+        plain = render_radiance(scene, moved_cam, cfg, 0)
     changed = ((moved - true).abs() > 1e-3).any(-1)
     check(changed.any().item(), f"no pixel changed when the camera moved "
           f"{EDGE_MOVE}")
@@ -1293,7 +1360,8 @@ def quality_kernels(big: bool) -> dict:
 
 def every_kernel() -> dict:
     return {**conformance_kernels(False), **conformance_kernels(True),
-            **quality_kernels(False), **quality_kernels(True)}
+            **quality_kernels(False), **quality_kernels(True),
+            **vis_kernels()}
 
 
 def launched_only(expect: dict, what: str) -> dict:
@@ -1458,6 +1526,336 @@ def quality_cta_walk(torch, o, d, keys, tri, rows, cfg, cta: int = 128
                 idle_lane_share=1.0 - lane_sweeps / max(cta_sweeps * cta, 1))
 
 
+# ---- visibility gradients, K5 and K11 (phases 34-41) ----
+
+
+def blocker_scene(device):
+    """tests/test_vis_residual.py's scene: a floor, a two-triangle area
+    light and a blocker between them, so both visibility terms (the
+    light's silhouette, the blocker's shadow boundary) are live."""
+    import numpy as np
+
+    from spath_tpu_torch.scene import make_scene
+
+    verts = np.array([
+        [[-20, -1, -20], [20, -1, -20], [0, -1, 40]],
+        [[-20, -1, 20], [20, -1, -20], [20, -1, 20]],
+        [[-0.5, 0.75, -0.5], [0.5, 0.75, -0.5], [-0.5, 0.75, 0.5]],
+        [[0.5, 0.75, 0.5], [0.5, 0.75, -0.5], [-0.5, 0.75, 0.5]],
+        [[-0.35, 0.0, -0.25], [0.35, 0.0, -0.25], [0.0, 0.0, 0.45]],
+    ], np.float32)
+    albedo = np.array([[0.7] * 3, [0.7] * 3, [0] * 3, [0] * 3, [0.3] * 3],
+                      np.float32)
+    emission = np.array([[0] * 3, [0] * 3, [2] * 3, [2] * 3, [0] * 3],
+                        np.float32)
+    return make_scene(verts, albedo, emission, device)
+
+
+def vis_kernels() -> dict:
+    """The wrappers of this slice: K5 and K11."""
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+    from spath_tpu_torch.ops.kernels import intersect as k5
+
+    return {"K5": k5.nearest_hit_call, "K11": bq.bigq_hits_call}
+
+
+def k5_ray_sets(torch, scene, o, d, seed: int) -> dict:
+    """K5's inputs on the path, from camera rays ``(o, d)``: the camera
+    rays themselves; bounce-shaped rays (from each camera hit in a
+    direction drawn uniform on the sphere, excluding the hit triangle);
+    edge-shaped rays (from each camera hit toward a point drawn on a mesh
+    edge, as ``ops/warp.py``'s shadow-boundary rays). Lanes whose camera
+    ray missed keep the camera ray and no source, as a wavefront's ended
+    paths do."""
+    from spath_tpu_torch.models.pathtracer import scene_geometry
+    from spath_tpu_torch.ops.intersect import _sweep
+
+    v0, e1, e2 = scene_geometry(scene)[:3]
+    n = o.shape[0]
+    none = torch.full((n,), -1, dtype=torch.int64, device=o.device)
+    dist, idx = _sweep(o, d, v0, e1, e2, none, 512)
+    hit = idx >= 0
+    p = torch.where(hit[:, None], o + dist[:, None] * d, o)
+    gen = torch.Generator().manual_seed(seed)
+    rd = torch.randn((n, 3), generator=gen).to(o.device)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    tri_e = torch.randint(0, scene.n_tris, (n,), generator=gen).to(o.device)
+    k = torch.randint(0, 3, (n,), generator=gen).to(o.device)
+    s = torch.rand((n, 1), generator=gen).to(o.device)
+    verts = scene.vertices.detach()[tri_e]
+    ea = verts[torch.arange(n, device=o.device), k]
+    eb = verts[torch.arange(n, device=o.device), (k + 1) % 3]
+    toward = ea + s * (eb - ea) - p
+    toward = toward / toward.norm(dim=1, keepdim=True).clamp_min(1e-20)
+    src = torch.where(hit, idx, none)
+    return {"camera": (o, d, none),
+            "bounce": (p, torch.where(hit[:, None], rd, d), src),
+            "edge": (p, torch.where(hit[:, None], toward, d), src)}
+
+
+def k5_vs_plain(torch, scene, rays, name: str) -> dict:
+    """K5 against its plain version ``_sweep`` on the same rays, both
+    outputs to the bit."""
+    from spath_tpu_torch.models.pathtracer import scene_geometry
+    from spath_tpu_torch.ops.intersect import _sweep
+    from spath_tpu_torch.ops.kernels import intersect as k5
+
+    v0, e1, e2 = scene_geometry(scene)[:3]
+    o, d, src = (t.contiguous() for t in rays)
+    dist, idx = k5.nearest_hit_call(o, d, k5.pack_triangles(v0, e1, e2), src)
+    torch.cuda.synchronize()
+    want_d, want_i = _sweep(o, d, v0, e1, e2, src, 512)
+    same = torch.equal(dist, want_d) and torch.equal(idx, want_i)
+    check(same, f"{name}: K5 differs from the plain sweep on "
+          f"{int((idx != want_i).sum())} indices, "
+          f"{int((dist != want_d).sum())} distances")
+    return dict(rays=o.shape[0], n_tris=scene.n_tris, bit_exact=True,
+                max_abs_err=(dist - want_d).abs().max().item(),
+                hits=int((want_i >= 0).sum()))
+
+
+def k5_timing(torch, scene, rays) -> dict:
+    """K5 and its plain version timed in turns on the same rays; the
+    bound counts one Moller-Trumbore test a (ray, triangle) and each ray
+    and row read once, each result written once."""
+    from spath_tpu_torch.models.pathtracer import scene_geometry
+    from spath_tpu_torch.ops.intersect import _sweep
+    from spath_tpu_torch.ops.kernels import intersect as k5
+
+    v0, e1, e2 = scene_geometry(scene)[:3]
+    o, d, src = (t.contiguous() for t in rays)
+    tri = k5.pack_triangles(v0, e1, e2)
+    k5.nearest_hit_call(o, d, tri, src)
+    kernel_ms, plain_ms = in_turns(
+        torch, lambda: k5.nearest_hit_call(o, d, tri, src),
+        lambda: _sweep(o, d, v0, e1, e2, src, 512), kernel_reps=3)
+    n, t = o.shape[0], tri.shape[0]
+    b = bound(n * t * MT_OPS, n * (24 + 8 + 4 + 8) + t * 36)
+    return dict(rays=n, n_tris=t, ms=kernel_ms, plain_ms=plain_ms,
+                bound=b, tests_per_s=n * t / (min(kernel_ms) / 1e3))
+
+
+def k11_vs_k9_and_plain(torch, cam, scene, cfg, name: str,
+                        tri_block: int = 512) -> dict:
+    """Phase 35: K11's radiance equal to K9's to the bit on the same rays
+    and keys, and K11's radiance and hits equal to ``quality_hits_plain``'s
+    to the bit."""
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+
+    o, d, keys = mq.pack_rays(cam, cfg, 0)
+    tri, rows = mq.quality_table(scene), bq.light_rows(scene)
+    out, dist, idx = bq.bigq_hits_call(o, d, keys, tri, rows, cfg)
+    k9 = bq.bigq_call(o, d, keys, tri, rows, cfg)
+    torch.cuda.synchronize()
+    check(torch.equal(out, k9), f"{name}: K11's radiance differs from K9's")
+    want, want_d, want_i = bq.quality_hits_plain(
+        o, d, keys, tri, rows, cfg.replace(tri_block=tri_block))
+    check(torch.equal(out, want), f"{name}: K11's radiance differs from "
+          "its plain version")
+    check(torch.equal(dist, want_d) and torch.equal(idx, want_i),
+          f"{name}: K11's hits differ from quality_hits_plain's on "
+          f"{int((idx != want_i).sum())} indices")
+    return dict(rays=o.shape[0], n_tris=scene.n_tris, spp=cfg.spp,
+                bit_exact=True, hits=int((idx >= 0).sum()),
+                ended=int((idx < 0).sum()))
+
+
+def weighted_grads(torch, dev, render, scene, cam, cfg) -> tuple:
+    """Gradients in vertices, albedo, emission and camera position of a
+    fixed random weighting of ``render``'s frame."""
+    from spath_tpu_torch.camera import Camera
+    from spath_tpu_torch.scene import Scene
+
+    gen = torch.Generator().manual_seed(7)
+    wts = (torch.rand((cfg.height, cfg.width, 3), generator=gen) * 0.9
+           + 0.1).to(dev)
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (scene.vertices, scene.albedo, scene.emission,
+                        cam.pos)]
+    img = render(Scene(*leaves[:3], scene.light_idx),
+                 Camera(leaves[3], cam.angle, cam.focal), cfg, 0)
+    return torch.autograd.grad((img * wts).sum(), leaves)
+
+
+def vis_spread(torch, dev, cam, scene, cfg, got=None) -> dict:
+    """Run-to-run spread of ``render_radiance_fastgrad``'s ``vis_grad``
+    gradient: two calls on the same inputs and seed (``got``, the first,
+    if given), for each group the largest difference over the group's
+    largest magnitude and the count of elements that differ. Recorded,
+    not asserted: the residual's row gathers (``index_select``) add their
+    backward with ``index_add_``, whose float atomics add in no fixed
+    order on the card."""
+    from spath_tpu_torch.models.pathtracer import render_radiance_fastgrad
+
+    if got is None:
+        got = weighted_grads(torch, dev, render_radiance_fastgrad, scene,
+                             cam, cfg)
+    again = weighted_grads(torch, dev, render_radiance_fastgrad, scene, cam,
+                           cfg)
+    out = {}
+    for name, a, b in zip(("vertices", "albedo", "emission", "camera"), got,
+                          again):
+        diff = (a - b).abs()
+        out[name] = dict(rel=diff.max().item()
+                         / max(a.abs().max().item(), 1e-30),
+                         differ=int((diff > 0).sum()))
+    return out
+
+
+def vis_gradient_entry(torch, dev, cam, scene, cfg, expect) -> dict:
+    """Phase 38: ``render_radiance_fastgrad`` with ``vis_grad`` on the card
+    (``VisGradFusedRenderer``) against autograd of the plain wavefront
+    with ``vis_grad`` (every sweep the plain ``_sweep``): vertex, albedo,
+    emission and camera-position gradients within ENTRY_RTOL of each
+    group's max. The kernels in ``expect`` (an interior's and K5, or K11's)
+    launch, no other does; the residual walk's own radiance is exactly
+    0."""
+    from spath_tpu_torch.camera import generate_rays
+    from spath_tpu_torch.models.pathtracer import (
+        render_radiance, render_radiance_fastgrad, trace_mean_radiance,
+    )
+    from spath_tpu_torch.models.renderer import grad_renderer
+    from spath_tpu_torch.ops.intersect import plain_sweep
+
+    route = grad_renderer(scene, cfg).name
+    check(route == "visgrad", f"vis_grad routed to {route}")
+
+    def grads(render):
+        return weighted_grads(torch, dev, render, scene, cam, cfg)
+
+    zero_counts(every_kernel())
+    got = grads(render_radiance_fastgrad)
+    torch.cuda.synchronize()
+    launched = counts(every_kernel())
+    check(all(launched[k] > 0 for k in expect)
+          and not any(v for k, v in launched.items() if k not in expect),
+          f"render_radiance_fastgrad with vis_grad launched {launched}, "
+          f"want {sorted(expect)}")
+    with plain_sweep():
+        want = grads(render_radiance)
+    errs = {}
+    for name, g, w in zip(("vertices", "albedo", "emission", "camera"), got,
+                          want):
+        scale = w.abs().max().item()
+        check(scale > 0.0 and torch.isfinite(g).all().item(),
+              f"{name}: zero or non-finite gradient")
+        errs[name] = (g - w).abs().max().item() / scale
+        check(errs[name] <= ENTRY_RTOL, f"{name} gradient off the plain "
+              f"wavefront's by {errs[name]:.3g} of its max")
+    o, d = generate_rays(cam, cfg.width, cfg.height)
+    with torch.no_grad():
+        res = trace_mean_radiance(scene, o, d, cfg, 0, vis_residual=True)
+    check(not res.any().item(), "the residual's radiance is not 0")
+    return dict(launches={k: v for k, v in launched.items() if v},
+                rel_err=errs, residual_zero=True,
+                spread=vis_spread(torch, dev, cam, scene, cfg, got))
+
+
+def vis_training(torch, dev, cam, scene, cfg, expect, steps: int) -> dict:
+    """Phases 39-40: ``steps`` quality train steps with ``vis_grad`` at
+    full width through ``VisGradFusedRenderer``, the albedo perturbed as
+    the CLI does and the pose group at rate 0; every step launches each
+    kernel of ``expect`` and no other kernel; the loss falls."""
+    import numpy as np
+
+    from spath_tpu_torch.models.inverse import (
+        InverseParams, init_state, make_train_step, param_group_optimizer,
+    )
+    from spath_tpu_torch.models.renderer import forward_renderer
+
+    target = forward_renderer(scene, cfg).render_radiance(scene, cam, cfg, 0)
+    true_albedo = scene.albedo.cpu().numpy()
+    rng = np.random.default_rng(1)
+    bad = np.clip(true_albedo + rng.uniform(-0.4, 0.4, true_albedo.shape)
+                  .astype(np.float32), 0.05, 1.0)
+    params = InverseParams(cam_pos=cam.pos, cam_angle=cam.angle,
+                           cam_focal=cam.focal,
+                           albedo=torch.from_numpy(bad).to(dev))
+    state = init_state(param_group_optimizer(
+        freeze_pose=False, pose_lr=QUALITY_POSE_LR, albedo_lr=2e-2), params)
+    step = make_train_step(scene, cfg, fixed_seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(every_kernel())
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, aux = step(state, target)
+        losses.append(float(aux["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launched = counts(every_kernel())
+    check(all(launched[k] >= steps for k in expect)
+          and not any(v for k, v in launched.items() if k not in expect),
+          f"{steps} vis_grad train steps launched {launched}, want "
+          f"{sorted(expect)}")
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    return dict(launches={k: v for k, v in launched.items() if v},
+                losses=losses, step_s=step_s,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def pose_measurement(torch, dev, cam, cfg) -> dict:
+    """Phase 41, recorded, not asserted: from the true camera, 3 quality
+    train steps with the pose group at POSE_STEP_LR (the JAX package's
+    default), albedo perturbed, with and without ``vis_grad``; and where
+    the frame jumps when the camera moves EDGE_MOVE: the changed pixels
+    whose camera ray hits another triangle (a primary-hit edge, which
+    ``vis_grad`` leaves detached at bounce 0, as the JAX package) and the
+    others."""
+    import numpy as np
+
+    from spath_tpu_torch.camera import Camera, generate_rays
+    from spath_tpu_torch.models.inverse import (
+        InverseParams, init_state, make_train_step, param_group_optimizer,
+    )
+    from spath_tpu_torch.models.pathtracer import scene_geometry
+    from spath_tpu_torch.models.renderer import forward_renderer
+    from spath_tpu_torch.ops.intersect import sweep
+    from spath_tpu_torch.scene import default_scene
+
+    scene = default_scene(dev)
+    target = forward_renderer(scene, cfg).render_radiance(scene, cam, cfg, 0)
+    albedo = scene.albedo.cpu().numpy()
+    bad = np.clip(albedo + np.random.default_rng(1).uniform(
+        -0.4, 0.4, albedo.shape).astype(np.float32), 0.05, 1.0)
+    out = {}
+    for vis in (False, True):
+        c = cfg.replace(vis_grad=vis)
+        state = init_state(param_group_optimizer(pose_lr=POSE_STEP_LR),
+                           InverseParams(cam.pos, cam.angle, cam.focal,
+                                         torch.from_numpy(bad).to(dev)))
+        step = make_train_step(scene, c, fixed_seed=0)
+        losses = []
+        for _ in range(3):
+            state, aux = step(state, target)
+            losses.append(float(aux["loss"]))
+        out["vis_grad" if vis else "interior"] = dict(
+            losses=losses, moved=(state.params.cam_pos - cam.pos).abs()
+            .max().item())
+    serve = forward_renderer(scene, cfg).render_radiance
+    pos = cam.pos.clone()
+    pos[0] += EDGE_MOVE
+    moved_cam = Camera(pos, cam.angle, cam.focal)
+    changed = ((serve(scene, moved_cam, cfg, 0) - serve(scene, cam, cfg, 0))
+               .abs() > 1e-3).any(-1).flatten()
+    v0, e1, e2 = scene_geometry(scene)[:3]
+    firsts = []
+    for c_ in (cam, moved_cam):
+        o, d = generate_rays(c_, cfg.width, cfg.height)
+        none = torch.full((o.shape[0],), -1, dtype=torch.int64, device=dev)
+        firsts.append(sweep(o, d, v0, e1, e2, none, 512)[1])
+    other_tri = firsts[0] != firsts[1]
+    out["edge_move"] = dict(
+        pixels_changed=int(changed.sum()),
+        changed_with_another_primary_triangle=int((changed & other_tri)
+                                                  .sum()),
+        primary_triangle_changed=int(other_tri.sum()))
+    return out
+
+
 def run() -> None:
     import torch
 
@@ -1511,7 +1909,8 @@ def run() -> None:
     check(img.min().item() >= 0.0 and img.max().item() <= 1.0,
           "frame outside [0, 1]")
     t0 = time.perf_counter()
-    plain = render_pt(scene, cam, cfg, 0)
+    with plain_sweep():
+        plain = render_pt(scene, cam, cfg, 0)
     torch.cuda.synchronize()
     plain_first_s = time.perf_counter() - t0
     m, pm = img.mean().item(), plain.mean().item()
@@ -1683,7 +2082,8 @@ def run() -> None:
           f"shape {tuple(qimg.shape)}")
     check(torch.isfinite(qimg).all().item(), "quality frame not finite")
     t0 = time.perf_counter()
-    qplain = render_pt(scene, cam, qcfg, 0)
+    with plain_sweep():
+        qplain = render_pt(scene, cam, qcfg, 0)
     torch.cuda.synchronize()
     qplain_s = time.perf_counter() - t0
     m, pm = qimg.mean().item(), qplain.mean().item()
@@ -2269,6 +2669,267 @@ def run() -> None:
         f"{k7q['bound'][0]:.4f} ms ({k7q['bound'][1]})")
     del qidx, qval
 
+    # ---- visibility gradients: K5, K11, deeper gradients (34-41) ----
+    from spath_tpu_torch.camera import generate_rays
+    from spath_tpu_torch.models import pathtracer as pt
+    from spath_tpu_torch.models.renderer import (
+        forward_renderer, grad_renderer,
+    )
+    from spath_tpu_torch.ops.kernels import intersect as k5
+
+    # 34. K5 against the plain sweep, to the bit
+    side = int(round(pt.VIS_CHUNK ** 0.5))
+    co, cd = generate_rays(cam, side, side)
+    ten_k, combined = serve_q["scene"], combined_scene(dev)
+    k5_sets, k5_err = {}, 0.0
+    for name, scene_k in (("default", default_scene(dev)),
+                          ("1150", combined), (f"{BIG_T}", ten_k)):
+        k5_sets[name] = k5_ray_sets(torch, scene_k, co, cd, seed=5)
+        for kind, rays in k5_sets[name].items():
+            c = k5_vs_plain(torch, scene_k, rays, f"K5 {name} {kind}")
+            k5_err = max(k5_err, c["max_abs_err"])
+            log(f"[34] K5 vs plain, {name} triangles, {kind} rays "
+                f"({side}x{side}, one residual slice): {c}")
+    huge_scene = procedural_scene(1 << 20, seed=0, device=dev)
+    for kind, rays in k5_ray_sets(torch, huge_scene, *generate_rays(
+            cam, 64, 64), seed=6).items():
+        c = k5_vs_plain(torch, huge_scene, rays, f"K5 2^20 {kind}")
+        k5_err = max(k5_err, c["max_abs_err"])
+        log(f"[34] K5 vs plain, 2^20 triangles, {kind} rays (64x64): {c}")
+    del huge_scene
+    k5_slice = k5_timing(torch, ten_k, k5_sets[f"{BIG_T}"]["bounce"])
+    fo, fd = generate_rays(cam, HEADLINE["width"], HEADLINE["height"])
+    k5_frame = k5_timing(torch, default_scene(dev), (fo, fd, torch.full(
+        (fo.shape[0],), -1, dtype=torch.int64, device=dev)))
+    for what, t in (("a residual slice's bounce rays", k5_slice),
+                    ("1080p camera rays", k5_frame)):
+        log(f"[34] K5 on {what}, {t['rays']} rays x {t['n_tris']} "
+            f"triangles, on {smi}: {t['ms']} ms, plain {t['plain_ms']} ms "
+            f"(in turns), bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), "
+            f"{t['tests_per_s']:.4e} tests/s")
+    del k5_sets
+
+    # 35. K11 against K9 and its plain version, to the bit
+    q320 = RenderConfig(width=320, height=240, spp=8, max_bounces=5,
+                        **QUALITY)
+    for name, scene_k, cfg_k, tb in (
+            ("default", default_scene(dev), q320, 512),
+            ("1150", combined, q320.replace(spp=4), 512),
+            ("1150 rr2 strat", combined,
+             q320.replace(spp=4, rr_start=2, stratify=True), 512),
+            (f"{BIG_T}", ten_k, q320.replace(width=64, height=48, spp=2),
+             2048)):
+        c = k11_vs_k9_and_plain(torch, cam, scene_k, cfg_k, name, tb)
+        log(f"[35] K11 vs K9 and quality_hits_plain, {name} triangles, "
+            f"{cfg_k.width}x{cfg_k.height} spp{cfg_k.spp}: {c}")
+    k11_ms, k9_turn_ms = in_turns(
+        torch, lambda: bq.bigq_hits_call(to, td, tk, qbtri, qbrows,
+                                         train_q_cfg),
+        lambda: bq.bigq_call(to, td, tk, qbtri, qbrows, train_q_cfg))
+    k11_band_ms, k11_plain_ms = in_turns(
+        torch, lambda: bq.bigq_hits_call(*qtband[:3], qbtri, qbrows,
+                                         train_q_cfg),
+        lambda: bq.quality_hits_plain(*qtband[:3], qbtri, qbrows,
+                                      qtplain_cfg))
+    # the timed calls' outputs: K11's radiance equal to K9's on the whole
+    # training frame; on the band K11's radiance and hits equal to its
+    # plain version's, both from the band's own launch and from the
+    # frame's (spp, B, n) export at the band's pixels
+    k11_out, k11_dist, k11_idx = bq.bigq_hits_call(to, td, tk, qbtri, qbrows,
+                                                   train_q_cfg)
+    k9_out = bq.bigq_call(to, td, tk, qbtri, qbrows, train_q_cfg)
+    band_out, band_dist, band_idx = bq.bigq_hits_call(
+        *qtband[:3], qbtri, qbrows, train_q_cfg)
+    torch.cuda.synchronize()
+    want_out, want_dist, want_idx = bq.quality_hits_plain(
+        *qtband[:3], qbtri, qbrows, qtplain_cfg)
+    band_px = torch.cat([torch.arange(r * train_q_cfg.width,
+                                      (r + 1) * train_q_cfg.width)
+                         for r in BAND_ROWS]).to(dev)
+    check(torch.equal(k11_out, k9_out), "K11's radiance differs from K9's "
+          f"on the {BIG_T}-triangle training frame at "
+          f"{int((k11_out != k9_out).any(1).sum())} pixels")
+    for what, (o_, d_, i_) in (
+            ("the band's launch", (band_out, band_dist, band_idx)),
+            ("the frame's export", (k11_out[band_px], k11_dist[:, :, band_px],
+                                    k11_idx[:, :, band_px]))):
+        check(torch.equal(o_, want_out) and torch.equal(d_, want_dist)
+              and torch.equal(i_, want_idx),
+              f"K11 on rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1} "
+              f"({what}) differs from quality_hits_plain: "
+              f"{int((i_ != want_idx).sum())} indices, "
+              f"{int((d_ != want_dist).sum())} distances, "
+              f"{int((o_ != want_out).any(1).sum())} pixels")
+    k11_err = max((k11_out - k9_out).abs().max().item(),
+                  (band_out - want_out).abs().max().item(),
+                  (band_dist - want_dist).abs().max().item(),
+                  (k11_dist[:, :, band_px] - want_dist).abs().max().item())
+    k11_hits = int((k11_idx >= 0).sum())
+    del k11_out, k11_dist, k11_idx, k9_out
+    k11_ops = (tqwalk["sweep_tests"] * MT_OPS
+               + tqwalk["fused_shadow_tests"] * SHARED_MT_OPS
+               + tqwalk["last_shadow_tests"] * MT_OPS
+               + tqwalk["hits"] * K3_HIT_OPS + tqwalk["select_steps"])
+    k11_bound = bound(k11_ops, to.shape[0] * (24 + 8 + 12) + q_in_bytes
+                      + q_slots * 8)
+    log(f"[35] K11 and K9 in turns, {BIG_T} triangles, {train_q_cfg.width}x"
+        f"{train_q_cfg.height} spp{train_q_cfg.spp} on {smi}: K11 {k11_ms} "
+        f"ms, K9 {k9_turn_ms} ms a frame; on rows {BAND_ROWS.start}-"
+        f"{BAND_ROWS.stop - 1}: K11 {k11_band_ms} ms, plain {k11_plain_ms} "
+        f"ms; bound {k11_bound[0]:.4f} ms ({k11_bound[1]}; the walk as "
+        f"K10's above, and {q_slots * 8 / 1e6:.1f} MB of hits written); "
+        f"the frame's radiance bit-equal to K9's, and on the rows its "
+        f"radiance and hits ({k11_hits} hits in the frame) bit-equal to "
+        f"quality_hits_plain's, max error {k11_err}")
+
+    # 36. gradients deeper than 16 bounces
+    deep = {}
+    for bounces in (17, 32):
+        cfg_b = RenderConfig(width=64, height=48, spp=2, max_bounces=bounces)
+        qcfg_b = cfg_b.replace(rr_start=3, **QUALITY)
+        for name, scene_k in (("default", default_scene(dev)),
+                              ("1150", combined)):
+            streamed = name == "1150"
+            check(grad_renderer(scene_k, cfg_b).name
+                  == ("bigscene" if streamed else "megakernel")
+                  and grad_renderer(scene_k, qcfg_b).name
+                  == ("quality_bigscene" if streamed else "quality"),
+                  f"{bounces} bounces on {name} triangles not routed to "
+                  "the backward kernels")
+            o, d, seeds = mk.pack_rays(cam, cfg_b, 0)
+            c, _ = backward_vs_plain(torch, o, d, seeds,
+                                     mk.scene_table(scene_k), cfg_b,
+                                     f"{bounces} bounces {name}",
+                                     streamed=streamed)
+            log(f"[36] {'K8+K7' if streamed else 'K2'} vs plain at "
+                f"{bounces} bounces, {name} triangles, 64x48 spp2: {c}")
+            o, d, keys = mq.pack_rays(cam, qcfg_b, 0)
+            c, _ = quality_backward_vs_plain(
+                torch, o, d, keys, mq.quality_table(scene_k),
+                bq.light_rows(scene_k), qcfg_b, f"{bounces} bounces {name}",
+                streamed=streamed)
+            log(f"[36] {'K10+K7' if streamed else 'K4'} vs plain at "
+                f"{bounces} bounces (rr from 3), {name} triangles, 64x48 "
+                f"spp2: {c}")
+    dscene = default_scene(dev)
+    for bounces in (5, 16, 17, 32):
+        cfg_b = small.replace(max_bounces=bounces)
+        qcfg_b = cfg_b.replace(**QUALITY)
+        o, d, seeds = mk.pack_rays(cam, cfg_b, 0)
+        tri_b = mk.scene_table(dscene)
+        g_b = torch.ones((o.shape[0], 3), device=dev)
+        qo, qd, qk = mq.pack_rays(cam, qcfg_b, 0)
+        qtri_b, qrows_b = mq.quality_table(dscene), mq.light_rows(dscene)
+        mg.mega_bwd_call(o, d, seeds, tri_b, g_b, cfg_b)
+        mqg.quality_bwd_call(qo, qd, qk, qtri_b, qrows_b, g_b, qcfg_b)
+        deep[bounces] = dict(
+            k2=event_ms(torch, lambda: mg.mega_bwd_call(
+                o, d, seeds, tri_b, g_b, cfg_b), 3),
+            k4=event_ms(torch, lambda: mqg.quality_bwd_call(
+                qo, qd, qk, qtri_b, qrows_b, g_b, qcfg_b), 3))
+    log(f"[36] K2 and K4 ms at 320x240 spp8 by max_bounces, on {smi}: "
+        f"{deep}")
+
+    # 37. the wavefront on the card, for what no fused kernel takes
+    wcfg = RenderConfig(width=320, height=240, spp=4, max_bounces=5,
+                        rng="hash", sampler="uniform", nee=True, mis=True)
+    check(forward_renderer(dscene, wcfg).name == "wavefront"
+          and grad_renderer(dscene, wcfg).name == "wavefront",
+          "hash+uniform not routed to the wavefront")
+    zero_counts(every_kernel())
+    wimg = render_pt_fast(dscene, cam, wcfg, 0)
+    torch.cuda.synchronize()
+    wlaunched = launched_only({"K5": counts(every_kernel())["K5"],
+                               "light": 1}, "the wavefront hash+uniform")
+    check(wlaunched["K5"] > 0, "the wavefront did not launch K5")
+    with plain_sweep():
+        wplain = render_pt_fast(dscene, cam, wcfg, 0)
+    check(torch.equal(wimg, wplain), "the wavefront on K5 differs from "
+          "the wavefront on the plain sweep")
+    check(wimg.mean().item() > 0.01, "the wavefront's frame is black")
+    wang = render_pt_fast(dscene, cam, wcfg.replace(sampler="angle"), 0)
+    check(torch.isfinite(wang).all().item(), "hash+angle frame not finite")
+
+    def wgrads(cfg_w, scene_w):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (scene_w.vertices, scene_w.albedo)]
+        img = pt.render_radiance_fastgrad(
+            dataclasses.replace(scene_w, vertices=leaves[0],
+                                albedo=leaves[1]), cam, cfg_w, 0)
+        return torch.autograd.grad(img.square().mean(), leaves)
+
+    wdeep = {}
+    for label, cfg_w in (("hash+uniform", wcfg.replace(spp=2)),
+                         ("65 bounces", RenderConfig(
+                             width=64, height=48, spp=1, max_bounces=65)),
+                         ("65 bounces quality", RenderConfig(
+                             width=64, height=48, spp=1, max_bounces=65,
+                             rr_start=3, **QUALITY))):
+        check(grad_renderer(dscene, cfg_w).name == "wavefront",
+              f"{label} gradient not routed to the wavefront")
+        k5.nearest_hit_call.launches = 0
+        got = wgrads(cfg_w, dscene)
+        torch.cuda.synchronize()
+        n5 = k5.nearest_hit_call.launches
+        with plain_sweep():
+            want = wgrads(cfg_w, dscene)
+        errs = [((g - w).abs().max() / w.abs().max()).item()
+                for g, w in zip(got, want)]
+        check(n5 > 0 and all(e <= GRAD_RTOL for e in errs),
+              f"{label}: K5 {n5} launches, gradient off the plain sweep's "
+              f"by {errs} of each max")
+        wdeep[label] = dict(k5_launches=n5, rel_err=errs)
+    log(f"[37] the wavefront on the card: hash+uniform 320x240 spp4 "
+        f"launched {wlaunched}, equal to the plain sweep's frame to the "
+        f"bit; gradients on K5 against the plain sweep's: {wdeep}")
+
+    # 38. the vis_grad gradient entry point against the plain wavefront
+    bscene = blocker_scene(dev)
+    vis_q = RenderConfig(width=320, height=240, spp=4, max_bounces=3,
+                         vis_grad=True, **QUALITY)
+    vis_entry = {}
+    for label, scene_v, cfg_v, expect in (
+            ("blocker, conformance", bscene,
+             RenderConfig(width=320, height=240, spp=4, max_bounces=3,
+                          vis_grad=True), {"K1", "K2", "K5"}),
+            ("blocker, quality", bscene, vis_q,
+             {"light", "K3", "K4", "K5"}),
+            ("1150, quality, K11", combined, vis_q.replace(spp=2),
+             {"light", "K11", "K10", "K7", "K5"})):
+        vis_entry[label] = vis_gradient_entry(torch, dev, cam, scene_v,
+                                              cfg_v, expect)
+        log(f"[38] render_radiance_fastgrad vis_grad, {label}, "
+            f"{cfg_v.width}x{cfg_v.height} spp{cfg_v.spp}: "
+            f"{vis_entry[label]}")
+    vis_frame = render_pt_fast(bscene, cam, vis_q, 0)
+    check(torch.equal(vis_frame, render_pt_fast(
+        bscene, cam, vis_q.replace(vis_grad=False), 0)),
+        "the vis_grad frame differs from the frame without it")
+
+    # 39. vis_grad training at full width on the default scene
+    vis_train_cfg = RenderConfig(**HEADLINE, vis_grad=True, **QUALITY
+                                 ).replace(spp=VIS_TRAIN_SPP)
+    vtr = vis_training(torch, dev, cam, dscene, vis_train_cfg,
+                       {"light", "K3", "K4", "K5"}, 3)
+    log(f"[39] 3 vis_grad quality train steps, default scene, 1920x1080 "
+        f"spp{VIS_TRAIN_SPP}, on {smi}: {vtr}")
+    log(f"[39] run-to-run spread of the vis_grad gradient, default scene, "
+        f"1920x1080 spp{VIS_TRAIN_SPP} (recorded): "
+        f"{vis_spread(torch, dev, cam, dscene, vis_train_cfg)}")
+
+    # 40. vis_grad training on the 10k scene through K11
+    vbtr = vis_training(torch, dev, cam, ten_k,
+                        train_q_cfg.replace(vis_grad=True),
+                        {"light", "K11", "K10", "K7", "K5"}, 2)
+    log(f"[40] 2 vis_grad quality train steps, {BIG_T} triangles, "
+        f"1920x1080 spp{train_q_cfg.spp}, on {smi}: {vbtr}")
+
+    # 41. the pose step from the true camera, recorded
+    pose = pose_measurement(torch, dev, cam, RenderConfig(
+        width=320, height=240, spp=8, max_bounces=5, **QUALITY))
+    log(f"[41] pose steps at {POSE_STEP_LR} from the true camera, default "
+        f"scene, 320x240 spp8 quality (recorded, not asserted): {pose}")
+
     print(json.dumps({"kernels": [{
         "name": "megakernel_forward",
         "route": "cuda",
@@ -2420,6 +3081,43 @@ def run() -> None:
         "plain_at": f"rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}, K10+K7",
         "bound_ms": k10_bound[0],
         "bound_by": k10_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "nearest_hit",
+        "route": "cuda",
+        "source": "spath_tpu_torch/csrc/intersect.cu",
+        "replaces": "spath_tpu/ops/pallas/intersect_pallas.py:163",
+        "launches": vtr["launches"]["K5"],
+        "launches_by_path": {"vis_grad training": vtr["launches"]["K5"],
+                             "vis_grad training, 10k": vbtr["launches"]["K5"],
+                             "wavefront hash+uniform": wlaunched["K5"]},
+        "max_abs_err": k5_err,
+        "ms": sum(k5_slice["ms"]) / len(k5_slice["ms"]),
+        "plain_ms": sum(k5_slice["plain_ms"]) / 2,
+        "at": f"{k5_slice['rays']} rays x {k5_slice['n_tris']} triangles",
+        "bound_ms": k5_slice["bound"][0],
+        "bound_by": k5_slice["bound"][1],
+        "library_ms": None,
+        "at_1080p_7_triangles": {
+            "ms": sum(k5_frame["ms"]) / len(k5_frame["ms"]),
+            "plain_ms": sum(k5_frame["plain_ms"]) / 2,
+            "bound_ms": k5_frame["bound"][0],
+            "bound_by": k5_frame["bound"][1]},
+    }, {
+        "name": "bigscene_quality_hits",
+        "route": "cuda",
+        "source": "spath_tpu_torch/csrc/bigscene_quality.cu",
+        "replaces": "spath_tpu/ops/pallas/megakernel_bigscene_quality.py:390",
+        "launches": vbtr["launches"]["K11"],
+        "launches_by_path": {"vis_grad training, 10k": vbtr["launches"]["K11"]},
+        "max_abs_err": k11_err,
+        "ms": sum(k11_ms) / len(k11_ms),
+        "k9_ms_in_turns": sum(k9_turn_ms) / len(k9_turn_ms),
+        "band_ms": sum(k11_band_ms) / len(k11_band_ms),
+        "plain_ms": sum(k11_plain_ms) / 2,
+        "plain_at": f"rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}",
+        "bound_ms": k11_bound[0],
+        "bound_by": k11_bound[1],
         "library_ms": None,
     }]}))
     print(smi)

@@ -5,8 +5,7 @@ The same frozen dataclass, fields and defaults as the JAX package's
 pulls in JAX. The ``lcg`` and ``hash`` streams are implemented, with
 every sampler, NEE, MIS, Russian roulette and stratification; the
 renderers raise ``NotImplementedError`` for the ``threefry`` and
-``table`` streams and for ``vis_grad`` instead of rendering something
-else.
+``table`` streams instead of rendering something else.
 """
 
 from __future__ import annotations

@@ -210,8 +210,10 @@ struct TableSweep {
   }
 };
 
-// Longest path the backward kernels' saved per-bounce state holds.
-constexpr int kMaxBounces = 16;
+// Longest path the backward kernels' saved per-bounce state holds (K2,
+// K4, K8, K10). It sizes local memory only: a shorter path reads and
+// writes only its own bounces' slots.
+constexpr int kMaxBounces = 64;
 
 // A recorder that keeps nothing (the forward kernels).
 struct NoRecord {

@@ -64,6 +64,7 @@ namespace {
 
 using spath::Bounce;
 using spath::Hit;
+using spath::kMaxBounces;
 using spath::kQCols;
 using spath::kSurf;
 using spath::QualityArgs;
@@ -74,8 +75,6 @@ constexpr int kAdj = spath::kAdj19;
 // A staged contribution: triangle and light (as float bits), 18 surface
 // adjoints (columns 0-17), 16 light adjoints (columns 0-11, 15-18).
 constexpr int kStage = 2 + kSurf + spath::kLight;
-// Longest path the saved per-bounce state holds.
-constexpr int kMaxBounces = 16;
 // Most blocks a launch uses; larger frames loop (grid-stride).
 constexpr int kMaxGrid = 2048;
 // Shared memory a Hopper block may use.

@@ -230,6 +230,26 @@ struct Saver {
   }
 };
 
+// Exports each bounce's nearest hit for the visibility residual (K11:
+// bigscene_quality.cu with its export): the hit of bounce b of sample s of
+// ray i goes to dist[(s * B + b) * n + i] and idx[...], B = max_bounces.
+// The walk hands a bounce to its recorder exactly when the path was alive
+// entering it and hit (b < the walk's returned length), so the kernel
+// writes the bounces from that length on, where the path had missed or
+// ended, as a miss, (kBig, -1): the residual reads a hit only through
+// alive & idx >= 0, for which those hold the same as its own sweep's.
+// dist and idx point at the sample's bounce 0 of the ray, entries a
+// bounce apart are n apart.
+struct HitSaver {
+  float* dist;
+  int* idx;
+  size_t n;
+  __device__ __forceinline__ void operator()(int b, const Bounce& x) const {
+    dist[static_cast<size_t>(b) * n] = x.dist;
+    idx[static_cast<size_t>(b) * n] = x.idx;
+  }
+};
+
 // One sample's walk for one ray through the backend `be`: adds its
 // radiance to (rad_r, rad_g, rad_b) and hands each bounce that hit to
 // `save`. `live` is false for a thread without a ray (h is then a miss).

@@ -8,6 +8,11 @@ differentiable render ``render_radiance_fastgrad`` (on a CUDA device K1
 forward and K2 backward for the conformance estimator, K3 and K4 for the
 quality estimator, on large scenes K6 and K8 or K9 and K10, each with the
 scatter K7; autograd of the wavefront on the CPU) and the target;
+``recover``, ``make_train_step`` and ``make_multiview_train_step`` take a
+config with ``vis_grad`` as it is, and the gradient then adds the
+visibility residual (``VisGradFusedRenderer``, whose sweeps are K5 and,
+on large quality scenes at up to 8 spp, whose interior's forward is
+K11), so a pose step sees light silhouettes and shadow boundaries;
 the optimizer is ``torch.optim.Adam`` with a pose and an albedo parameter
 group, in place of the JAX package's optax transforms. The conformance
 estimator's camera gradient is exactly zero; the quality estimator's
@@ -192,7 +197,9 @@ def _apply(state: TrainState, loss: torch.Tensor):
 
 def make_train_step(base_scene: Scene, cfg: RenderConfig,
                     fixed_seed: int | None = None):
-    """The train step ``(state, target) -> (state, aux)``.
+    """The train step ``(state, target) -> (state, aux)``, its gradient
+    from ``render_radiance_fastgrad``: with ``cfg.vis_grad`` the kernels'
+    interior gradient plus the visibility residual's.
 
     ``fixed_seed``: render every step with this seed (common random
     numbers); when the target was rendered with the same seed, the loss

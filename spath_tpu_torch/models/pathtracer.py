@@ -37,22 +37,28 @@ weight keeps its gradient through the shading normal. ``render_radiance``
 is differentiable with respect to the scene's vertices, albedo and
 emission and the camera under ``torch.autograd``;
 ``render_radiance_fastgrad`` gives the same gradients through the fused
-kernels' hand-written backward on a CUDA device. The ``threefry`` and
-``table`` streams and visibility gradients (``vis_grad``) are not ported
-and raise ``NotImplementedError``.
+kernels' hand-written backward on a CUDA device. With ``cfg.vis_grad``
+the wavefront adds the visibility terms of ``ops/warp.py`` (exactly
+neutral forward), and ``render_vis_residual`` gives them alone, for
+``VisGradFusedRenderer``. The ``threefry`` and ``table`` streams are not
+ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from spath_tpu_torch.camera import Camera, generate_rays
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.ops import nee
-from spath_tpu_torch.ops.intersect import check_method, nearest_hit_edges
+from spath_tpu_torch.ops.intersect import (
+    check_method, nearest_hit_edges, sweep_table,
+)
 from spath_tpu_torch.ops.rng import fmix32, hash_keys, key_uniforms, lcg_next
-from spath_tpu_torch.ops.sampling import dot3, hemisphere_sample
+from spath_tpu_torch.ops.sampling import cross3, dot3, hemisphere_sample
+from spath_tpu_torch.ops.warp import nee_boundary_term, reparam_emitter_factor
 from spath_tpu_torch.scene import Scene
 
 #: What is not ported, and where the ROADMAP queues it.
@@ -68,14 +74,16 @@ def _conformance_gaps(cfg: RenderConfig) -> list[str]:
         gaps.append(f"rng={cfg.rng!r}")
     if cfg.sampler != "angle":
         gaps.append(f"sampler={cfg.sampler!r}")
-    for flag in ("nee", "rr_start", "stratify", "vis_grad"):
+    for flag in ("nee", "rr_start", "stratify"):
         if getattr(cfg, flag):
             gaps.append(f"{flag}={getattr(cfg, flag)!r}")
     return gaps
 
 
 def is_conformance(cfg: RenderConfig) -> bool:
-    """Is ``cfg`` the conformance estimator, the one K1 and K2 take?"""
+    """Is ``cfg`` the conformance estimator, the one K1 and K2 take?
+    ``vis_grad`` does not count: it changes no frame, only gradients,
+    which K2 and K8 refuse (their ``supported_grad``)."""
     return not _conformance_gaps(cfg)
 
 
@@ -86,7 +94,7 @@ def require_conformance(cfg: RenderConfig) -> None:
     if gaps:
         raise NotImplementedError(
             "this kernel takes the conformance estimator only (rng='lcg', "
-            "sampler='angle', no nee/rr_start/stratify/vis_grad); got "
+            "sampler='angle', no nee/rr_start/stratify); got "
             + ", ".join(gaps))
 
 
@@ -95,9 +103,6 @@ def unported(cfg: RenderConfig) -> list[str]:
     missing = []
     if cfg.rng in _MISSING:
         missing.append(f"rng={cfg.rng!r}: {_MISSING[cfg.rng]}")
-    if cfg.vis_grad:
-        missing.append("vis_grad=True: visibility gradients (ops/warp.py "
-                       "and the hit export K11, ROADMAP queue 1, item 8)")
     return missing
 
 
@@ -128,19 +133,77 @@ def geometry_lights(geom) -> tuple[nee.Lights, torch.Tensor]:
 
 def n_draws(cfg: RenderConfig) -> int:
     """Uniforms a hash-stream bounce draws: direction (2), light choice
-    and point (3) with NEE, roulette (1)."""
-    return (5 if cfg.nee else 2) + (1 if cfg.rr_start else 0)
+    and point (3) with NEE, roulette (1), and with ``vis_grad`` and NEE
+    the edge sample's two (``ops/warp.py``), after the roulette slot. Each
+    draw is keyed by its index (``ops/rng.py::key_uniforms``), so the
+    first five or six are the same with or without ``vis_grad``."""
+    return ((5 if cfg.nee else 2) + (1 if cfg.rr_start else 0)
+            + (2 if cfg.vis_grad and cfg.nee else 0))
+
+
+def _tri_dist(o, d, v0h, e1h, e2h, hit):
+    """Differentiable hit distance of the ray ``(o, d)`` against its known
+    hit triangle ``(v0h, e1h, e2h)``, O(1) a lane, no sweep:
+    Möller–Trumbore ``t = (1 / e1·(d × e2)) · e2·(s × e1)`` with the
+    direction detached. Lanes that did not hit, or whose determinant is
+    below 1e-12, get 0 and no gradient. (The sweep's backward
+    ``_dist_selected`` guards with ``|a| > 0``; each keeps the JAX
+    package's guard.)
+
+    The value is the sweep's to the bit (``_sweep`` and K5 multiply by the
+    reciprocal in this order), so the residual's position chain and the
+    points its edge samples start from equal the walk's. The JAX package
+    divides (``e2·q / a``): its chain then drifts from the walk's by an
+    ulp, and the edge samples' discrete validity tests (inside the light,
+    the nudged shadow ray) flip on a few lanes. At 320x240, 4 spp on its
+    test scene that moved the decomposition's vertex and camera gradients
+    by 1.8% of their max; with the sweep's order they agree to 3e-5."""
+    d = d.detach()
+    h = cross3(d, e2h)
+    a = dot3(e1h, h)
+    valid = hit & (torch.abs(a.detach()) > float(np.float32(1e-12)))
+    ac = torch.where(valid, a, 1.0)
+    s = o - v0h
+    q = cross3(s, e1h)
+    t = (1.0 / ac) * dot3(e2h, q)
+    return torch.where(valid, t, 0.0)
 
 
 def trace_geometry(geom, origins, directions, rng, cfg: RenderConfig,
-                   first_hit=None, lights=None, sample: int = 0):
+                   first_hit=None, lights=None, sample: int = 0,
+                   verts=None, vis_residual: bool = False,
+                   hits_replay=None):
     """Trace one sample per ray through ``geom`` (``scene_geometry``).
 
     ``rng`` is the rays' stream: for ``rng="lcg"`` their int64 LCG states,
     for ``rng="hash"`` their first-round hashes ``fmix32(keys)``, the same
     for every sample. ``lights`` (``geometry_lights``) is needed with NEE;
     ``sample`` is the sample's counter. Returns ``(radiance (N, 3),
-    rng)``."""
+    rng)``.
+
+    With ``cfg.vis_grad`` every emitter hit after the camera's carries the
+    warped-area factor and, with NEE, every vertex the edge-sampled
+    shadow-boundary term (``ops/warp.py``; ``verts``, the scene's ``(v0,
+    v1, v2)``, is needed then): neither changes the radiance, both add
+    gradient.
+
+    ``vis_residual`` computes only those visibility terms: the walk runs
+    detached (the same draws, hits and throughput, no other radiance), and
+    a differentiable position chain re-derives each hit point from the
+    known hit triangle (``_tri_dist``), so the terms see the gradients the
+    whole wavefront would give them. The result is exactly zero, and
+    ``grad(interior) + grad(residual) == grad(wavefront with vis_grad)``,
+    the decomposition ``VisGradFusedRenderer`` (``models/renderer.py``)
+    runs. ``hits_replay``, one ``(dist (N,), idx (N,))`` a bounce (a hit
+    export, ``ops/kernels/bigscene_quality.py``), replaces the residual's
+    own sweeps; lanes whose path ended hold ``(BIG, -1)``, read only
+    through ``alive & idx >= 0``."""
+    if hits_replay is not None and not vis_residual:
+        raise ValueError("hits_replay is a vis_residual-only replay")
+    if vis_residual and not cfg.vis_grad:
+        raise ValueError("vis_residual needs cfg.vis_grad")
+    if cfg.vis_grad and cfg.nee and verts is None:
+        raise ValueError("vis_grad with nee needs the scene's vertices")
     v0, e1, e2, normals, albedo, emission = geom
     n = origins.shape[0]
     device = origins.device
@@ -151,24 +214,55 @@ def trace_geometry(geom, origins, directions, rng, cfg: RenderConfig,
             hit_tables = (lights.prob, area.detach())
             prev_pdf = torch.zeros(n, dtype=torch.float32, device=device)
     o, d = origins, directions
+    sweep_tris = (v0, e1, e2)
+    if vis_residual:
+        # the detached walk, and the differentiable position chain o_diff
+        sweep_tris = (v0.detach(), e1.detach(), e2.detach())
+        o_diff = origins
+        o, d = o.detach(), d.detach()
+        if first_hit is not None:
+            first_hit = (first_hit[0].detach(), first_hit[1])
+    table = sweep_table(*sweep_tris)   # K5's table, once for every sweep
     throughput = torch.ones((n, 3), dtype=torch.float32, device=device)
     radiance = torch.zeros((n, 3), dtype=torch.float32, device=device)
     alive = torch.ones(n, dtype=torch.bool, device=device)
     src = torch.full((n,), -1, dtype=torch.int64, device=device)
+    prev_n = None                      # the axis d was sampled about
 
     for bounce in range(cfg.max_bounces):
-        if bounce == 0 and first_hit is not None:
+        if hits_replay is not None:
+            dist, idx = hits_replay[bounce]
+            dist, idx = dist.detach(), idx.to(torch.int64)
+        elif bounce == 0 and first_hit is not None:
             dist, idx = first_hit
         else:
-            dist, idx = nearest_hit_edges(o, d, v0, e1, e2, src,
-                                          cfg.tri_block)
+            dist, idx = nearest_hit_edges(o, d, *sweep_tris, src,
+                                          cfg.tri_block, table)
         hit = alive & (idx >= 0)
         hit3 = hit[:, None]
         safe = idx.clamp_min(0)
         point = o + dist[:, None] * d
-        nrm, alb, emi = normals[safe], albedo[safe], emission[safe]
+        # Row gathers are index_select: its backward adds with index_add_,
+        # while indexing's (index_put_ with accumulate) sorts the indices
+        # and adds each row's duplicates one after another, 23 ms a gather
+        # of 262,144 rays over 7 rows on an H100.
+        nrm, alb, emi = (t.index_select(0, safe)
+                         for t in (normals, albedo, emission))
         flip = dot3(nrm, d) > 0.0
         adj_n = torch.where(flip[:, None], -nrm, nrm)
+
+        # Warped-area factor of emitter hits: exactly 1 forward. Bounce 0
+        # has no sampled direction (camera rays are a fixed pixel grid).
+        vis_c = None
+        if cfg.vis_grad:
+            v0h, e1h, e2h = (t.index_select(0, safe) for t in (v0, e1, e2))
+            if bounce >= 1:
+                vis_c = reparam_emitter_factor(
+                    o_diff if vis_residual else o, d, v0h, e1h, e2h, nrm,
+                    prev_n, hit)[:, None]
+        if vis_residual:
+            dist_diff = _tri_dist(o_diff, d, v0h, e1h, e2h, hit)
+            point_diff = o_diff + dist_diff[:, None] * d
 
         if cfg.rng == "lcg":
             # two draws; the state advances only where the ray hit
@@ -194,26 +288,60 @@ def trace_geometry(geom, origins, directions, rng, cfg: RenderConfig,
             # Camera-ray emitter hits count fully; deeper BSDF-sampled
             # ones carry the MIS partner weight or (pure NEE) are dropped.
             if bounce == 0:
-                radiance = radiance + torch.where(hit3, throughput * emi, 0.0)
+                if not vis_residual:
+                    radiance = radiance + torch.where(hit3, throughput * emi,
+                                                      0.0)
             elif use_mis:
                 cos_l = torch.abs(dot3(nrm, d))
-                p_here = nee.nee_pdf_of_hit(hit_tables[0][safe],
-                                            hit_tables[1][safe], dist, cos_l)
+                p_here = nee.nee_pdf_of_hit(
+                    hit_tables[0].index_select(0, safe),
+                    hit_tables[1].index_select(0, safe), dist, cos_l)
                 w_b = (prev_pdf * prev_pdf / torch.clamp_min(
                     prev_pdf * prev_pdf + p_here * p_here, 1e-30)).detach()
-                radiance = radiance + torch.where(
-                    hit3, throughput * emi * w_b[:, None], 0.0)
-            direct = nee.direct_light(lights, point, adj_n, safe, us[2],
-                                      us[3], us[4], cfg, hit_albedo=alb)
-            radiance = radiance + torch.where(hit3, throughput * direct, 0.0)
+                term = throughput * emi * w_b[:, None]
+                if vis_residual:
+                    # the residual of term·C: sg(term)·(C − 1), exactly 0
+                    # forward, term·dC backward
+                    term = term.detach() * (vis_c - 1.0)
+                elif vis_c is not None:
+                    term = term * vis_c
+                radiance = radiance + torch.where(hit3, term, 0.0)
+            if not vis_residual:
+                direct = nee.direct_light(lights, point, adj_n, safe, us[2],
+                                          us[3], us[4], cfg, hit_albedo=alb,
+                                          table=table)
+                radiance = radiance + torch.where(hit3, throughput * direct,
+                                                  0.0)
+            if cfg.vis_grad:
+                # the shadow boundary's edge-sampled term, exactly 0
+                # forward; its draws sit after the roulette slot
+                ei = 5 + (1 if cfg.rr_start else 0)
+                bnd = nee_boundary_term(
+                    verts, lights, point_diff if vis_residual else point,
+                    adj_n, alb, safe, us[2], us[ei], us[ei + 1], cfg, hit,
+                    table)
+                thr_b = throughput.detach() if vis_residual else throughput
+                radiance = radiance + torch.where(hit3, thr_b * bnd, 0.0)
+        elif vis_residual:
+            if vis_c is not None:
+                term = (throughput * emi).detach() * (vis_c - 1.0)
+                radiance = radiance + torch.where(hit3, term, 0.0)
         else:
-            radiance = radiance + torch.where(hit3, throughput * emi, 0.0)
+            term = throughput * emi
+            if vis_c is not None:
+                term = term * vis_c
+            radiance = radiance + torch.where(hit3, term, 0.0)
         throughput = torch.where(hit3, throughput * alb * weight[:, None],
                                  throughput)
+        if vis_residual:
+            throughput = throughput.detach()
+            o_diff = torch.where(hit3, point_diff, o_diff)
         o = torch.where(hit3, point, o)
         d = torch.where(hit3, next_d, d)
         src = torch.where(hit, idx, src)
         alive = hit
+        prev_n = adj_n if prev_n is None else torch.where(hit3, adj_n,
+                                                          prev_n)
         if cfg.rr_start and cfg.rr_start <= bounce < cfg.max_bounces - 1:
             # Russian roulette on the continuation: survive with
             # probability q, reweight by 1/q; the decision is detached.
@@ -229,23 +357,45 @@ def trace_geometry(geom, origins, directions, rng, cfg: RenderConfig,
 
 
 def mean_radiance_geometry(geom, origins, directions, rng,
-                           cfg: RenderConfig, lights=None):
-    """Mean of ``cfg.spp`` samples per ray → ``(N, 3)``; ``rng`` and
-    ``lights`` as ``trace_geometry`` takes them. The camera rays' nearest
-    hit is the same for every sample and is computed once."""
+                           cfg: RenderConfig, lights=None, verts=None,
+                           vis_residual: bool = False, hits_replay=None):
+    """Mean of ``cfg.spp`` samples per ray → ``(N, 3)``; ``rng``,
+    ``lights``, ``verts``, ``vis_residual`` as ``trace_geometry`` takes
+    them. The camera rays' nearest hit is the same for every sample and is
+    computed once. ``hits_replay`` is ``(dist (spp, B, N), idx (spp, B,
+    N))``, replayed for every sweep (``vis_residual`` only).
+
+    Under autograd with ``cfg.remat`` and more than 8 samples, each
+    sample is checkpointed (``torch.utils.checkpoint``), as the JAX
+    package's ``jax.checkpoint`` per sample: the tape holds one sample's
+    walk at a time, which is recomputed in the backward pass."""
     require_ported(cfg)
-    v0, e1, e2 = geom[:3]
-    src = torch.full((origins.shape[0],), -1, dtype=torch.int64,
-                     device=origins.device)
-    first_hit = nearest_hit_edges(origins, directions, v0, e1, e2, src,
-                                  cfg.tri_block)
+    n, device = origins.shape[0], origins.device
+    first_hit = None
+    if hits_replay is None:
+        src = torch.full((n,), -1, dtype=torch.int64, device=device)
+        if vis_residual:
+            with torch.no_grad():
+                first_hit = nearest_hit_edges(
+                    origins.detach(), directions.detach(),
+                    *(t.detach() for t in geom[:3]), src, cfg.tri_block)
+        else:
+            first_hit = nearest_hit_edges(origins, directions, *geom[:3],
+                                          src, cfg.tri_block)
     if cfg.nee and lights is None:
         lights = geometry_lights(geom)
-    accum = torch.zeros((origins.shape[0], 3), dtype=torch.float32,
-                        device=origins.device)
+    remat = cfg.remat and cfg.spp > 8 and torch.is_grad_enabled()
+    accum = torch.zeros((n, 3), dtype=torch.float32, device=device)
     for s in range(cfg.spp):
-        rad, rng = trace_geometry(geom, origins, directions, rng, cfg,
-                                  first_hit, lights, s)
+        replay = None if hits_replay is None else [
+            (hits_replay[0][s, b], hits_replay[1][s, b])
+            for b in range(cfg.max_bounces)]
+        args = (geom, origins, directions, rng, cfg, first_hit, lights, s,
+                verts, vis_residual, replay)
+        if remat:
+            rad, rng = checkpoint(trace_geometry, *args, use_reentrant=False)
+        else:
+            rad, rng = trace_geometry(*args)
         accum = accum + rad
     return accum * float(np.float32(1.0) / np.float32(cfg.spp))
 
@@ -256,32 +406,43 @@ def _pixel_ids(n: int, pixel_ids, device):
     return pixel_ids.to(torch.int64)
 
 
+def _scene_verts(scene: Scene):
+    return scene.v0, scene.v1, scene.v2
+
+
 def trace_radiance(scene: Scene, origins, directions, cfg: RenderConfig,
-                   rng_state, pixel_ids=None, sample_idx: int = 0):
+                   rng_state, pixel_ids=None, sample_idx: int = 0,
+                   vis_residual: bool = False, hits_replay=None):
     """Trace ONE sample per ray. Returns ``(radiance (N, 3), rng_state)``:
     for ``rng="lcg"`` ``rng_state`` holds the rays' int64 LCG seeds and
     advances; for ``rng="hash"`` it is the frame seed, keyed with the
     rays' global ``pixel_ids`` (default ``arange(N)``) and the counter
-    ``sample_idx``."""
+    ``sample_idx``. ``vis_residual`` and ``hits_replay`` (one ``(dist,
+    idx)`` a bounce) as ``trace_geometry`` takes them."""
     require_ported(cfg)
     check_method(cfg.intersect)
     geom = scene_geometry(scene)
     lights = geometry_lights(geom) if cfg.nee else None
+    kw = dict(lights=lights, verts=_scene_verts(scene),
+              vis_residual=vis_residual, hits_replay=hits_replay)
     if cfg.rng == "lcg":
         return trace_geometry(geom, origins, directions, rng_state, cfg,
-                              lights=lights)
+                              **kw)
     ids = _pixel_ids(origins.shape[0], pixel_ids, origins.device)
     h1 = fmix32(hash_keys(int(rng_state), ids))
     rad, _ = trace_geometry(geom, origins, directions, h1, cfg,
-                            lights=lights, sample=sample_idx)
+                            sample=sample_idx, **kw)
     return rad, rng_state
 
 
 def trace_mean_radiance(scene: Scene, origins, directions,
-                        cfg: RenderConfig, seed: int = 0, pixel_ids=None):
+                        cfg: RenderConfig, seed: int = 0, pixel_ids=None,
+                        vis_residual: bool = False, hits_replay=None):
     """Average ``cfg.spp`` samples per ray → ``(N, 3)``. LCG streams start
     at each ray's pixel index plus ``seed``; hash streams are keyed by
-    ``seed`` and the pixel index."""
+    ``seed`` and the pixel index. ``vis_residual`` and ``hits_replay``
+    (``(dist (spp, B, N), idx (spp, B, N))``) as ``trace_geometry`` and
+    ``mean_radiance_geometry`` take them."""
     require_ported(cfg)
     check_method(cfg.intersect)
     n, device = origins.shape[0], origins.device
@@ -291,7 +452,10 @@ def trace_mean_radiance(scene: Scene, origins, directions,
     else:
         rng = fmix32(hash_keys(seed, ids))
     return mean_radiance_geometry(scene_geometry(scene), origins,
-                                  directions, rng, cfg)
+                                  directions, rng, cfg,
+                                  verts=_scene_verts(scene),
+                                  vis_residual=vis_residual,
+                                  hits_replay=hits_replay)
 
 
 def _check_devices(scene: Scene, camera: Camera) -> None:
@@ -307,6 +471,88 @@ def render_radiance(scene: Scene, camera: Camera, cfg: RenderConfig,
     origins, directions = generate_rays(camera, cfg.width, cfg.height)
     mean = trace_mean_radiance(scene, origins, directions, cfg, seed)
     return mean.reshape(cfg.height, cfg.width, 3)
+
+
+#: Pixels of one slice of the residual's backward pass: its tape holds
+#: one slice at a time (the JAX package's ``_VIS_CHUNK``).
+VIS_CHUNK = 262144
+
+
+class _VisResidual(torch.autograd.Function):
+    """The visibility residual of ``cfg.spp`` samples per ray, ``(N, 3)``:
+    the forward value is exactly zero, so it returns zeros without
+    tracing; the backward replays the residual walk
+    (``trace_mean_radiance(vis_residual=True)``) slice by slice of
+    ``VIS_CHUNK`` rays, keyed by their global pixel ids, and adds each
+    slice's gradient. The tape holds one slice, as the JAX package's
+    ``jax.checkpoint``-ed ``lax.map`` over slices bounds it (and, above 8
+    samples with ``cfg.remat``, one sample of it)."""
+
+    @staticmethod
+    def forward(ctx, origins, directions, vertices, albedo, emission, cfg,
+                seed, hits, light_idx):
+        ctx.save_for_backward(origins, directions, vertices, albedo,
+                              emission)
+        ctx.cfg, ctx.seed, ctx.hits, ctx.light_idx = cfg, seed, hits, \
+            light_idx
+        return origins.new_zeros((origins.shape[0], 3))
+
+    @staticmethod
+    def backward(ctx, gout):
+        origins, directions, vertices, albedo, emission = ctx.saved_tensors
+        cfg, hits = ctx.cfg, ctx.hits
+        n = origins.shape[0]
+        grads = [torch.zeros_like(t) for t in (origins, vertices, albedo,
+                                               emission)]
+        for c0 in range(0, n, VIS_CHUNK):
+            c1 = min(n, c0 + VIS_CHUNK)
+            with torch.enable_grad():
+                o = origins[c0:c1].detach().requires_grad_()
+                leaves = [t.detach().requires_grad_()
+                          for t in (vertices, albedo, emission)]
+                scene = Scene(*leaves, ctx.light_idx)
+                replay = None if hits is None else (
+                    hits[0][:, :, c0:c1], hits[1][:, :, c0:c1])
+                ids = torch.arange(c0, c1, dtype=torch.int64,
+                                   device=origins.device)
+                out = trace_mean_radiance(scene, o, directions[c0:c1], cfg,
+                                          ctx.seed, ids, vis_residual=True,
+                                          hits_replay=replay)
+                parts = torch.autograd.grad(out, [o, *leaves],
+                                            gout[c0:c1], allow_unused=True)
+            grads[0][c0:c1] = 0.0 if parts[0] is None else parts[0]
+            for g, part in zip(grads[1:], parts[1:]):
+                if part is not None:
+                    g += part
+        return (grads[0], None, *grads[1:], None, None, None, None)
+
+
+def render_vis_residual(scene: Scene, camera: Camera, cfg: RenderConfig,
+                        seed: int = 0, hits=None) -> torch.Tensor:
+    """The visibility-gradient residual image ``(H, W, 3)``: its value is
+    exactly zero, and its gradient is that of the warped-area (light
+    silhouette) and edge-sampled (shadow boundary) terms of ``vis_grad``,
+    the exact complement of the interior gradient the kernels compute, so
+
+        grad(interior + render_vis_residual) == grad(render_radiance)
+
+    with ``cfg.vis_grad`` (``trace_geometry``'s ``vis_residual``;
+    ``VisGradFusedRenderer`` routes by it). The walk replays detached,
+    only the O(1)-a-lane visibility chains are differentiated, in slices
+    of ``VIS_CHUNK`` pixels (``_VisResidual``). ``hits`` is ``(dist (spp,
+    B, N), idx (spp, B, N))``, the hits of the interior's own walk
+    (``ops/kernels/bigscene_quality.py``: ``render_bigscene_quality_with_hits``):
+    then only the NEE shadow-boundary edge rays are swept."""
+    if not cfg.vis_grad:
+        raise ValueError("render_vis_residual needs cfg.vis_grad")
+    require_ported(cfg)
+    check_method(cfg.intersect)
+    _check_devices(scene, camera)
+    origins, directions = generate_rays(camera, cfg.width, cfg.height)
+    out = _VisResidual.apply(origins, directions, scene.vertices,
+                             scene.albedo, scene.emission, cfg, seed, hits,
+                             scene.light_idx)
+    return out.reshape(cfg.height, cfg.width, 3)
 
 
 def render_pt(scene: Scene, camera: Camera, cfg: RenderConfig,
@@ -325,8 +571,13 @@ def render_radiance_fastgrad(scene: Scene, camera: Camera,
     CUDA device the forward is a fused kernel (K1, or K3 for the quality
     estimator) or, on large scenes, a streamed one (K6, K9), and the
     backward its hand-written reverse sweep (K2, K4; K8 or K10 with the
-    scatter K7); on the CPU, autograd of the wavefront. A scene or config
-    that no ported kernel differentiates raises ``NotImplementedError``."""
+    scatter K7); with ``cfg.vis_grad`` that interior plus
+    ``render_vis_residual``, whose sweeps are K5 (K11 the interior's
+    forward on large quality scenes at up to 8 spp); what no fused kernel
+    takes, autograd of the wavefront with its sweeps on K5; on the CPU,
+    autograd of the wavefront. Above the streamed kernels' caps (2^20
+    triangles, ``LIGHT_MAX`` lights with NEE) it raises
+    ``NotImplementedError``."""
     from spath_tpu_torch.models.renderer import grad_renderer
 
     _check_devices(scene, camera)
@@ -339,8 +590,10 @@ def render_pt_fast(scene: Scene, camera: Camera, cfg: RenderConfig,
     """The serving path: the clamped frame from the fastest renderer that
     renders ``(scene, cfg)`` exactly (``models/renderer.py``): a fused
     CUDA kernel on a CUDA device (K1 conformance, K3 quality) or, on large
-    scenes, a streamed one (K6, K9), the wavefront on the CPU. A scene or config that no ported kernel takes
-    raises ``NotImplementedError``."""
+    scenes, a streamed one (K6, K9), ``vis_grad`` or not; for other
+    estimators the wavefront with its sweeps on K5; on the CPU the
+    wavefront. Above the streamed kernels' caps it raises
+    ``NotImplementedError``."""
     from spath_tpu_torch.models.renderer import forward_renderer
 
     _check_devices(scene, camera)

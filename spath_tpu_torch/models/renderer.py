@@ -4,17 +4,24 @@
 ``REGISTRY`` lists the backends fastest first; ``forward_renderer`` takes
 the first that renders ``(scene, cfg)`` exactly and ``grad_renderer`` the
 first that differentiates it, so every entry point agrees on which
-kernel a config runs on. So far the port has five: the fused CUDA
-kernels for the conformance estimator (K1 forward, K2 backward), the
-streamed kernels for the conformance estimator on large scenes (K6
-forward, K8 with its scatter K7 backward), the fused kernels for the
-quality estimator in its hash+cosine form (K3 forward, K4 backward), the
-streamed kernels for the quality estimator on large scenes (K9 forward,
-K10 with K7 backward), and the plain wavefront, with autograd, for CPU
-tensors. On a CUDA device a frame or a gradient goes through a kernel or
-raises: a scene or config no ported kernel takes is not handed to the
-plain version. The compacted and visibility-gradient renderers are not
-registered yet.
+kernel a config runs on. The port has six: the fused CUDA kernels for the
+conformance estimator (K1 forward, K2 backward), the streamed kernels for
+the conformance estimator on large scenes (K6 forward, K8 with its
+scatter K7 backward), the fused kernels for the quality estimator in its
+hash+cosine form (K3 forward, K4 backward), the streamed kernels for the
+quality estimator on large scenes (K9 forward, K10 with K7 backward),
+visibility gradients (one of those interiors plus the residual of
+``render_vis_residual``, whose sweeps are K5, with the interior's hits
+from K11 where it is K9 at up to 8 spp), and the wavefront, with
+autograd: on CPU tensors the plain version of every path, on a CUDA
+device the wavefront with its sweeps on K5, last in the registry, for
+what no fused kernel takes (other samplers with the hash stream,
+gradients deeper than the backward kernels' 64 bounces, ``vis_grad``
+over such an interior). A config that a fused kernel takes never reaches
+it. On a CUDA device the port raises only above 2^20 triangles, above
+``LIGHT_MAX`` lights with NEE (the caps of the streamed kernels, which
+the wavefront keeps), and for the threefry and table streams. The
+compacted renderers are not registered.
 """
 
 from __future__ import annotations
@@ -96,16 +103,25 @@ class Renderer:
                            0.0, 1.0)
 
 
+def within_caps(scene: Scene, cfg: RenderConfig) -> bool:
+    """Does ``(scene, cfg)`` keep the caps of the streamed kernels: T <=
+    2^20 and, with NEE, at most ``LIGHT_MAX`` lights? Every backend on a
+    CUDA device keeps them."""
+    return (scene.n_tris <= bigscene.BIG_MAX_TRIS
+            and (not cfg.nee or len(bigscene_quality.static_light_idx(scene))
+                 <= bigscene_quality.LIGHT_MAX))
+
+
 class WavefrontRenderer(Renderer):
-    """Plain PyTorch wavefront, for CPU tensors: every ported estimator."""
+    """The wavefront with autograd, every ported estimator and every depth:
+    on CPU tensors the plain PyTorch version of every path; on a CUDA
+    device, last in the registry, what no kernel renderer takes, within
+    ``within_caps``, its sweeps on K5 (``ops/intersect.py``)."""
 
     name = "wavefront"
 
-    def available(self, scene) -> bool:
-        return scene.device.type == "cpu"
-
     def supports(self, scene, cfg) -> bool:
-        return self.available(scene)
+        return scene.device.type == "cpu" or within_caps(scene, cfg)
 
     supports_grad = supports
 
@@ -228,12 +244,56 @@ class QualityBigsceneRenderer(Renderer):
             scene, camera, cfg, seed)
 
 
+class VisGradFusedRenderer(Renderer):
+    """Visibility gradients at kernel speed. The ``vis_grad`` image is the
+    interior plus visibility terms whose value is exactly zero, so the
+    gradient splits: the interior's forward and backward on a kernel
+    renderer (K1+K2, K6+K8+K7, K3+K4 or K9+K10+K7), plus
+    ``render_vis_residual``, a detached replay of the walk that
+    differentiates only the O(1)-a-lane visibility chains, its sweeps on
+    K5. For the streamed quality interior at up to
+    ``bigscene_quality.HITS_MAX_SPP`` samples the interior's forward is K11,
+    whose hit export the residual replays instead of sweeping. The same
+    gradient as the wavefront with ``cfg.vis_grad`` (``spath_tpu``'s
+    ``VisGradFusedRenderer``)."""
+
+    name = "visgrad"
+
+    def available(self, scene) -> bool:
+        return scene.device.type == "cuda"
+
+    def supports(self, scene, cfg) -> bool:
+        return False            # a frame is the same without vis_grad
+
+    def supports_grad(self, scene, cfg) -> bool:
+        if not (self.available(scene) and cfg.vis_grad):
+            return False
+        icfg = cfg.replace(vis_grad=False)
+        return any(r.supports_grad(scene, icfg) for r in REGISTRY
+                   if r.name not in (self.name, WavefrontRenderer.name))
+
+    def render_radiance_grad(self, scene, camera, cfg, seed=0):
+        icfg = cfg.replace(vis_grad=False)
+        r = grad_renderer(scene, icfg)
+        if (r.name == QualityBigsceneRenderer.name
+                and cfg.spp <= bigscene_quality.HITS_MAX_SPP):
+            interior, hits = \
+                bigscene_quality_grad.render_bigscene_quality_with_hits(
+                    scene, camera, icfg, seed)
+            return interior + pathtracer.render_vis_residual(
+                scene, camera, cfg, seed, hits=hits)
+        interior = r.render_radiance_grad(scene, camera, icfg, seed)
+        return interior + pathtracer.render_vis_residual(scene, camera, cfg,
+                                                         seed)
+
+
 #: All backends, fastest first: selection takes the first match.
 REGISTRY: tuple[Renderer, ...] = (
     MegakernelRenderer(),
     BigsceneRenderer(),
     QualityMegakernelRenderer(),
     QualityBigsceneRenderer(),
+    VisGradFusedRenderer(),
     WavefrontRenderer(),
 )
 
@@ -244,38 +304,28 @@ def _estimator(cfg: RenderConfig) -> str:
 
 
 def _no_kernel(scene: Scene, cfg: RenderConfig, grad: bool) -> str:
-    """Why no ported kernel takes ``(scene, cfg)`` on the scene's device."""
-    pathtracer.require_ported(cfg)
+    """Why no ported backend takes ``(scene, cfg)`` on the scene's device:
+    a cap of the streamed kernels, which the wavefront on the card keeps
+    for every estimator."""
     what = "differentiates" if grad else "renders"
     head = f"no ported kernel {what} {_estimator(cfg)} with " \
            f"{scene.n_tris} triangles on {scene.device}: "
     if pathtracer.is_conformance(cfg):
-        if scene.n_tris > bigscene.BIG_MAX_TRIS:
-            return head + (
-                "the streamed kernels " + ("K6 and K8" if grad else "K6")
-                + f" take T <= {bigscene.BIG_MAX_TRIS} (2^20), as the JAX "
-                "package's BIG_MAX_TRIS")
-        return head + (f"the backward kernels K2 and K8 take max_bounces "
-                       f"<= {megakernel_grad.MAX_BOUNCES}")
-    if cfg.rng == "hash" and cfg.sampler == "cosine":
-        streamed = "K9 and K10" if grad else "K9"
-        if scene.n_tris > bigscene_quality.BIGQ_MAX_TRIS:
-            return head + (
-                f"the streamed quality kernels {streamed} take T <= "
-                f"{bigscene_quality.BIGQ_MAX_TRIS} (2^20), as the JAX "
-                "package's BIG_MAX_TRIS")
-        n_lights = len(bigscene_quality.static_light_idx(scene))
-        if cfg.nee and n_lights > bigscene_quality.LIGHT_MAX:
-            return head + (
-                f"the streamed quality kernels {streamed} take at most "
-                f"LIGHT_MAX = {bigscene_quality.LIGHT_MAX} lights with "
-                f"nee, the scene has {n_lights}")
-        return head + (f"the quality backward kernels K4 and K10 take "
-                       f"max_bounces <= "
-                       f"{megakernel_quality_grad.MAX_BOUNCES}")
-    return head + ("the fused kernels take rng='lcg' with sampler='angle' "
-                   "(K1, K2) or rng='hash' with sampler='cosine' (K3, K4); "
-                   "other estimators run on CPU tensors only")
+        name = "the streamed kernels " + ("K6 and K8" if grad else "K6")
+    elif cfg.rng == "hash" and cfg.sampler == "cosine":
+        name = "the streamed quality kernels " + (
+            "K9 and K10" if grad else "K9")
+    else:
+        name = "the wavefront on the card, at the streamed kernels' caps,"
+    if scene.n_tris > bigscene.BIG_MAX_TRIS:
+        return head + (
+            f"{name} take T <= {bigscene.BIG_MAX_TRIS} (2^20), as the JAX "
+            "package's BIG_MAX_TRIS; so does the wavefront on the card")
+    n_lights = len(bigscene_quality.static_light_idx(scene))
+    return head + (
+        f"{name} take at most LIGHT_MAX = {bigscene_quality.LIGHT_MAX} "
+        f"lights with nee, the scene has {n_lights}; so does the wavefront "
+        "on the card")
 
 
 def forward_renderer(scene: Scene, cfg: RenderConfig) -> Renderer:

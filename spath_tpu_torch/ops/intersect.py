@@ -8,11 +8,15 @@ reference's strict ``<`` scan). Triangles are swept in blocks of
 a component-wise ``(N, B)`` computation in the JAX package's float32 op
 order.
 
-``intersect="pluecker"`` runs this same sweep: the Plücker form exists
-on the TPU to put the sweep on its matrix unit, and Hopper's float32
-tensor-core path is TF32, which is not exact. ``"pallas"`` and
-``"pallas_fast"`` name the standalone Pallas kernel (K5), which is not
-ported yet, and raise.
+Every ``intersect`` method runs this sweep. ``"pluecker"``: the Plücker
+form exists on the TPU to put the sweep on its matrix unit, and Hopper's
+float32 tensor-core path is TF32, which is not exact. ``"pallas"`` names
+the standalone kernel K5, ``"pallas_fast"`` its TPU variant on bf16 split
+features, an alias of it here. On CPU tensors the sweep is ``_sweep``,
+the plain PyTorch version; on CUDA tensors it is K5
+(``ops/kernels/intersect.py``), bit-identical to ``_sweep``, for every
+method. Inside ``plain_sweep()`` CUDA tensors take ``_sweep`` too: the
+kernels' plain versions run there, so that they stay plain PyTorch.
 
 Gradients: ``nearest_hit_edges`` is a ``torch.autograd.Function``, the
 port of the JAX package's custom VJP (``spath_tpu/ops/intersect.py``,
@@ -24,6 +28,8 @@ is the O(N) derivative of the selected triangle's distance
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -33,7 +39,52 @@ EPS = float(np.float32(EPSILON))
 INV_EPS = float(np.float32(1.0 / EPSILON))
 BIG = float(np.float32(MAX_DIST))
 
-METHODS = ("reference", "pluecker")
+METHODS = ("reference", "pluecker", "pallas", "pallas_fast")
+
+#: Depth of ``plain_sweep`` blocks: above 0, CUDA tensors take ``_sweep``.
+_plain_depth = 0
+
+
+@contextlib.contextmanager
+def plain_sweep():
+    """Inside the block every sweep is the plain ``_sweep``, on CUDA
+    tensors too: for the kernels' plain versions and for comparisons with
+    K5, never on a path a user calls."""
+    global _plain_depth
+    _plain_depth += 1
+    try:
+        yield
+    finally:
+        _plain_depth -= 1
+
+
+def sweep_table(v0, e1, e2):
+    """The detached ``(T, 9)`` table K5 reads, packed once for the sweeps
+    of a trace that share these triangles (``table`` of ``sweep`` and
+    ``nearest_hit_edges``); ``None`` where the sweep is ``_sweep`` (CPU
+    tensors, inside ``plain_sweep()``)."""
+    if v0.device.type != "cuda" or _plain_depth:
+        return None
+    from spath_tpu_torch.ops.kernels.intersect import pack_triangles
+
+    with torch.no_grad():
+        return pack_triangles(v0, e1, e2)
+
+
+def sweep(o, d, v0, e1, e2, src_idx, tri_block: int, table=None):
+    """``(dist, idx)``: K5 on CUDA tensors, ``_sweep`` on CPU tensors or
+    inside ``plain_sweep()``. ``table`` (``sweep_table`` of the same
+    triangles) saves K5 packing them again."""
+    if o.device.type == "cuda" and not _plain_depth:
+        from spath_tpu_torch.ops.kernels.intersect import (
+            nearest_hit_call, pack_triangles,
+        )
+
+        if table is None:
+            table = pack_triangles(v0, e1, e2)
+        return nearest_hit_call(o.contiguous(), d.contiguous(), table,
+                                src_idx.to(torch.int64).contiguous())
+    return _sweep(o, d, v0, e1, e2, src_idx, tri_block)
 
 
 def _mt_block(o, d, v0, e1, e2, src_idx, tri_base: int):
@@ -95,7 +146,8 @@ def _dist_selected(o, d, v0, e1, e2, idx):
     triangle, ``BIG`` on a miss: the O(N) backward path. The guard is
     ``|a| > 0``, as in the JAX package, not the sweep's ε."""
     safe = idx.clamp_min(0)
-    a0, e1s, e2s = v0[safe], e1[safe], e2[safe]
+    # index_select, whose backward is index_add_ (models/pathtracer.py)
+    a0, e1s, e2s = (t.index_select(0, safe) for t in (v0, e1, e2))
     h = torch.linalg.cross(d, e2s)
     a = (e1s * h).sum(-1)
     f = 1.0 / torch.where(a.abs() > 0.0, a, torch.ones_like(a))
@@ -105,12 +157,13 @@ def _dist_selected(o, d, v0, e1, e2, idx):
 
 
 class _NearestHit(torch.autograd.Function):
-    """The sweep forward; the selected triangle's distance backward. Saves
-    only the O(N) residuals ``(o, d, v0, e1, e2, idx)``."""
+    """The sweep forward (``sweep``: K5 on CUDA tensors); the selected
+    triangle's distance backward. Saves only the O(N) residuals ``(o, d,
+    v0, e1, e2, idx)``."""
 
     @staticmethod
-    def forward(ctx, o, d, v0, e1, e2, src_idx, tri_block):
-        dist, idx = _sweep(o, d, v0, e1, e2, src_idx, tri_block)
+    def forward(ctx, o, d, v0, e1, e2, src_idx, tri_block, table):
+        dist, idx = sweep(o, d, v0, e1, e2, src_idx, tri_block, table)
         ctx.save_for_backward(o, d, v0, e1, e2, idx)
         ctx.mark_non_differentiable(idx)
         return dist, idx
@@ -122,27 +175,25 @@ class _NearestHit(torch.autograd.Function):
             leaves = [t.detach().requires_grad_() for t in (o, d, v0, e1, e2)]
             grads = torch.autograd.grad(_dist_selected(*leaves, idx), leaves,
                                         dist_bar)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
-def nearest_hit_edges(o, d, v0, e1, e2, src_idx, tri_block: int = 512):
+def nearest_hit_edges(o, d, v0, e1, e2, src_idx, tri_block: int = 512,
+                      table=None):
     """Nearest hit against triangles given as ``v0`` and edges
-    ``e1 = v1 - v0``, ``e2 = v2 - v0`` (each ``(T, 3)``).
+    ``e1 = v1 - v0``, ``e2 = v2 - v0`` (each ``(T, 3)``); ``table``, their
+    ``sweep_table``, where a trace sweeps them more than once.
 
     Returns ``(dist (N,), idx (N,) int64)``: ``idx`` is -1 on a miss.
     ``dist`` is differentiable in ``o``, ``d`` and the triangles through
     the selected triangle only.
     """
-    return _NearestHit.apply(o, d, v0, e1, e2, src_idx, tri_block)
+    return _NearestHit.apply(o, d, v0, e1, e2, src_idx, tri_block, table)
 
 
 def check_method(method: str) -> None:
-    """Raise for an ``intersect`` method this sweep does not stand for."""
-    if method in ("pallas", "pallas_fast"):
-        raise NotImplementedError(
-            f"intersect={method!r} is the Pallas kernel K5 "
-            "(spath_tpu/ops/pallas/intersect_pallas.py), not ported yet; "
-            "use 'reference'")
+    """Raise for an unknown ``intersect`` method; every known one runs
+    ``sweep``."""
     if method not in METHODS:
         raise ValueError(f"unknown intersect method {method!r}")
 

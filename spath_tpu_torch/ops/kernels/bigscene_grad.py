@@ -50,8 +50,9 @@ EVENT_BYTES, EVENT_BUDGET = 40, 2 << 30
 
 
 def supported_grad(scene: Scene, cfg: RenderConfig) -> bool:
-    """Do K6 and K8 differentiate ``(scene, cfg)``?"""
-    return (bigscene.supported(scene, cfg)
+    """Do K6 and K8 differentiate ``(scene, cfg)``? Not with
+    ``vis_grad`` (``VisGradFusedRenderer`` adds its residual)."""
+    return (bigscene.supported(scene, cfg) and not cfg.vis_grad
             and scene.n_tris <= GRAD_MAX_TRIS
             and cfg.max_bounces <= MAX_BOUNCES)
 

@@ -33,16 +33,30 @@ is the last row, as in the wavefront and K3 (``select_light_plain``).
 ``bigq_call`` launches the kernel for CUDA tensors and counts each launch
 in ``bigq_call.launches``; for CPU tensors it computes the same function
 with the plain version.
+
+**K11**, the hit export (``_bigq_hits_kernel``, ``bigq_hits_call`` of the
+JAX module): the same launch with an export flag, which also writes the
+nearest hit ``(dist, idx)`` of every (sample, bounce) into ``(spp, B,
+n)`` buffers, B = ``max_bounces``, for the visibility residual's replay
+(``models/pathtracer.py``: ``render_vis_residual(hits=...)``). A bounce
+the path did not reach alive, or at which it missed, holds ``(BIG, -1)``.
+The radiance is K9's to the bit. ``bigq_hits_call`` counts its launches
+in ``bigq_hits_call.launches``; its plain version is
+``quality_hits_plain``. As in the JAX package it takes at most
+``HITS_MAX_SPP`` samples: the buffers hold 8 bytes a (sample, bounce,
+ray), 663 MB at 1920x1080, 5 bounces and 8 spp.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from spath_tpu_torch.camera import Camera
 from spath_tpu_torch.config import RenderConfig
+from spath_tpu_torch.ops.intersect import BIG, plain_sweep
 from spath_tpu_torch.ops.kernels import megakernel_quality as mq
 from spath_tpu_torch.ops.kernels.build import library
 from spath_tpu_torch.scene import Scene
@@ -53,6 +67,8 @@ BIGQ_MAX_TRIS = 1 << 20
 #: Most lights the route takes with NEE (the JAX package's ``LIGHT_MAX``,
 #: its VMEM light table's cap); the binary search itself has no cap.
 LIGHT_MAX = 65536
+#: Most samples the hit export takes (the JAX package's gate).
+HITS_MAX_SPP = 8
 
 
 def static_light_idx(scene: Scene) -> tuple[int, ...]:
@@ -69,7 +85,7 @@ def supported(scene: Scene, cfg: RenderConfig) -> bool:
     (hash + cosine) up to ``BIGQ_MAX_TRIS`` triangles and, with NEE, up to
     ``LIGHT_MAX`` lights, as the JAX package's ``supported``."""
     return (scene.n_tris <= BIGQ_MAX_TRIS and cfg.rng == "hash"
-            and cfg.sampler == "cosine" and not cfg.vis_grad
+            and cfg.sampler == "cosine"
             and (not cfg.nee or len(static_light_idx(scene)) <= LIGHT_MAX))
 
 
@@ -148,6 +164,73 @@ def bigq_call(origins, directions, keys, tri, light_idx,
 
 
 bigq_call.launches = 0
+
+
+def quality_hits_plain(origins, directions, keys, tri, light_idx,
+                       cfg: RenderConfig):
+    """The plain version of K11: ``(out (n, 3), dist (spp, B, n) float32,
+    idx (spp, B, n) int32)``, ``megakernel_quality.quality_plain``'s
+    radiance and the nearest hit of each (sample, bounce) of its walk
+    (``quality_replay``), ``(BIG, -1)`` where the path did not enter the
+    bounce alive or missed."""
+    n, nb = origins.shape[0], cfg.max_bounces
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=origins.device)
+    dist = torch.empty((cfg.spp, nb, n), dtype=torch.float32,
+                       device=origins.device)
+    idx = torch.empty((cfg.spp, nb, n), dtype=torch.int32,
+                      device=origins.device)
+    with torch.no_grad(), plain_sweep():
+        for s, (rad, saved) in enumerate(mq.quality_replay(
+                origins, directions, keys, tri, light_idx, cfg)):
+            acc = acc + rad
+            for b, sv in enumerate(saved):
+                dist[s, b] = torch.where(sv["hit"], sv["dist"], BIG)
+                idx[s, b] = torch.where(sv["hit"], sv["idx"], -1)
+    return acc * float(np.float32(1.0) / np.float32(cfg.spp)), dist, idx
+
+
+def bigq_hits_call(origins, directions, keys, tri, light_idx,
+                   cfg: RenderConfig):
+    """K11: ``(out (n, 3), dist (spp, B, n), idx (spp, B, n) int32)``, K9's
+    mean radiance and its walk's hits (module docstring), for at most
+    ``HITS_MAX_SPP`` samples. Launches K11 on CUDA tensors, on PyTorch's
+    current stream and without synchronising; a failed build or launch
+    raises. CPU tensors take ``quality_hits_plain``."""
+    _check(origins, directions, keys, tri, light_idx, cfg)
+    if cfg.spp > HITS_MAX_SPP:
+        raise ValueError(f"the hit export takes spp <= {HITS_MAX_SPP}, got "
+                         f"{cfg.spp}")
+    if origins.device.type == "cpu":
+        return quality_hits_plain(origins, directions, keys, tri, light_idx,
+                                  cfg)
+    if origins.device.type != "cuda":
+        raise ValueError(f"no streamed quality kernel for device "
+                         f"{origins.device}")
+    n, n_tris, dev = origins.shape[0], tri.shape[0], origins.device
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    dist = torch.empty((cfg.spp, cfg.max_bounces, n), dtype=torch.float32,
+                       device=dev)
+    idx = torch.empty((cfg.spp, cfg.max_bounces, n), dtype=torch.int32,
+                      device=dev)
+    if n == 0:
+        return out, dist, idx
+    rows, lcdf = kernel_inputs(tri, light_idx, dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.spath_bigscene_quality_forward_hits(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (
+                origins, directions, keys, tri, rows, lcdf, out, dist, idx)),
+            n, *mq.kernel_args(cfg, n_tris, rows.shape[0]),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"hit-export kernel launch failed: CUDA error "
+                           f"{err} ({lib.spath_error_string(err).decode()})")
+    bigq_hits_call.launches += 1
+    return out, dist, idx
+
+
+bigq_hits_call.launches = 0
 
 
 def light_rows(scene: Scene) -> torch.Tensor:

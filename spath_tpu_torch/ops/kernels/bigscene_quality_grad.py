@@ -52,9 +52,10 @@ EVENT_BYTES, EVENT_BUDGET = 80, 2 << 30
 
 
 def supported_grad(scene: Scene, cfg: RenderConfig) -> bool:
-    """Do K9 and K10 differentiate ``(scene, cfg)``? (``vis_grad`` is
-    refused by ``bigscene_quality.supported``.)"""
-    return (bq.supported(scene, cfg) and scene.n_tris <= GRAD_MAX_TRIS
+    """Do K9 and K10 differentiate ``(scene, cfg)``? Not with
+    ``vis_grad`` (``VisGradFusedRenderer`` adds its residual)."""
+    return (bq.supported(scene, cfg) and not cfg.vis_grad
+            and scene.n_tris <= GRAD_MAX_TRIS
             and cfg.max_bounces <= MAX_BOUNCES)
 
 
@@ -153,6 +154,45 @@ class BigQualityRows(torch.autograd.Function):
                                     ctx.light_idx, gbar, ctx.cfg)
         return (mqg.grad_table_from_gtab19(gtab), grays[:, 0:3],
                 grays[:, 3:6], None, None, None)
+
+
+class BigQualityRowsHits(torch.autograd.Function):
+    """K11 forward, K10 + K7 backward: ``BigQualityRowsHits.apply(tri,
+    origins, directions, keys, light_idx, cfg)`` is ``(out (n, 3), dist,
+    idx)``, ``BigQualityRows``' radiance, differentiable as that, with the
+    hit export (``bigscene_quality.bigq_hits_call``), which is detached:
+    its cotangent is ignored, as in the JAX package's ``bigq_rows_hits``."""
+
+    @staticmethod
+    def forward(ctx, tri, origins, directions, keys, light_idx, cfg):
+        ctx.save_for_backward(tri, origins, directions, keys)
+        ctx.light_idx, ctx.cfg = light_idx, cfg
+        out, dist, idx = bq.bigq_hits_call(origins, directions, keys, tri,
+                                           light_idx, cfg)
+        ctx.mark_non_differentiable(dist, idx)
+        return out, dist, idx
+
+    @staticmethod
+    def backward(ctx, gbar, _dist_bar, _idx_bar):
+        return BigQualityRows.backward(ctx, gbar)
+
+
+def render_bigscene_quality_with_hits(scene: Scene, camera: Camera,
+                                      cfg: RenderConfig, seed: int = 0):
+    """``(img (H, W, 3), (dist (spp, B, n), idx (spp, B, n) int32))``: the
+    differentiable streamed quality radiance of
+    ``render_radiance_bigscene_quality_grad`` from K11, with the detached
+    hit export in pixel order that ``render_vis_residual(hits=...)``
+    replays. Takes at most ``bigscene_quality.HITS_MAX_SPP`` samples."""
+    if not supported_grad(scene, cfg):
+        raise ValueError("the streamed quality VJP needs rng='hash', "
+                         f"sampler='cosine', T <= {GRAD_MAX_TRIS}, "
+                         f"max_bounces <= {MAX_BOUNCES}, at most "
+                         f"LIGHT_MAX = {bq.LIGHT_MAX} lights with nee")
+    o, d, keys = mq.pack_rays(camera, cfg, seed)
+    out, dist, idx = BigQualityRowsHits.apply(
+        mq.quality_table(scene), o, d, keys, bq.light_rows(scene), cfg)
+    return out.reshape(cfg.height, cfg.width, 3), (dist, idx)
 
 
 def render_radiance_bigscene_quality_grad(scene: Scene, camera: Camera,

@@ -165,6 +165,10 @@ def library() -> ctypes.CDLL:
     lib.spath_bigscene_quality_forward.argtypes = [ptr] * 7 + quality + [
         ptr]
     lib.spath_bigscene_quality_forward.restype = i32
+    # K11: K9's arguments with the hit buffers after out
+    lib.spath_bigscene_quality_forward_hits.argtypes = (
+        [ptr] * 9 + quality + [ptr])
+    lib.spath_bigscene_quality_forward_hits.restype = i32
     # K10: rays, keys, table, rows, cdf at the rows, gbar, first hit, ray
     # adjoint, events, n, K3's scalars, first sample, samples
     lib.spath_bigscene_quality_backward.argtypes = (
@@ -180,6 +184,9 @@ def library() -> ctypes.CDLL:
         ptr, ptr, ctypes.c_int64, ptr, i32, i32, ptr, ptr, ptr, ptr, i32,
         i32, ptr]
     lib.spath_stream_scatter.restype = i32
+    # K5: origins, directions, src, tri, dist, idx, n, T
+    lib.spath_nearest_hit.argtypes = [ptr] * 6 + [i32, i32, ptr]
+    lib.spath_nearest_hit.restype = i32
     lib.spath_error_string.argtypes = [i32]
     lib.spath_error_string.restype = ctypes.c_char_p
     return lib

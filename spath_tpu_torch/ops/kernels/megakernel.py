@@ -37,6 +37,7 @@ from spath_tpu_torch.models.pathtracer import (
     is_conformance, mean_radiance_geometry, require_conformance,
     scene_geometry,
 )
+from spath_tpu_torch.ops.intersect import plain_sweep
 from spath_tpu_torch.ops.kernels.build import library
 from spath_tpu_torch.ops.rng import pixel_seeds
 from spath_tpu_torch.scene import Scene
@@ -67,9 +68,14 @@ def megakernel_plain(origins, directions, seeds, tri, cfg: RenderConfig):
     """The plain PyTorch version of the kernel: the wavefront walk of
     ``models/pathtracer.py`` over the table's columns. Returns
     ``(n, 3)``. It takes a table of any size: it is also the plain
-    version of the streamed kernel K6 (``ops/kernels/bigscene.py``)."""
+    version of the streamed kernel K6 (``ops/kernels/bigscene.py``).
+    ``vis_grad`` changes no frame, so it is dropped, as the kernel
+    ignores it. The sweeps are the plain ``_sweep`` on any device
+    (``ops/intersect.py``: ``plain_sweep``)."""
     geom = tuple(tri[:, k:k + 3] for k in range(0, 18, 3))
-    return mean_radiance_geometry(geom, origins, directions, seeds, cfg)
+    with plain_sweep():
+        return mean_radiance_geometry(geom, origins, directions, seeds,
+                                      cfg.replace(vis_grad=False))
 
 
 def _check(origins, directions, seeds, tri, cfg: RenderConfig,

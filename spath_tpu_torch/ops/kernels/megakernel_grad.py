@@ -34,7 +34,7 @@ import torch
 
 from spath_tpu_torch.camera import Camera
 from spath_tpu_torch.config import RenderConfig
-from spath_tpu_torch.ops.intersect import nearest_hit_edges
+from spath_tpu_torch.ops.intersect import nearest_hit_edges, plain_sweep
 from spath_tpu_torch.ops.kernels import megakernel
 from spath_tpu_torch.ops.kernels.build import library
 from spath_tpu_torch.ops.rng import lcg_next
@@ -49,18 +49,22 @@ GRAD_UNROLL_TRIS = 64
 #: float32 slice in shared memory, 144 KiB at T = 1024, inside the 227 KB
 #: a Hopper block may use. Equal to K1's ``MAX_TRIS``.
 GRAD_MAX_TRIS = 1024
-#: Longest path K2 replays: it keeps per-bounce state in fixed arrays.
-MAX_BOUNCES = 16
+#: Longest path K2 replays: it keeps per-bounce state in fixed arrays of
+#: ``MAX_BOUNCES`` (``csrc/megakernel_common.cuh``: ``Saved``,
+#: ``kMaxBounces``). Deeper gradients go to the wavefront.
+MAX_BOUNCES = 64
 #: The adjoint columns of the table: normal, albedo, emission.
 ADJ_COLS = slice(9, 18)
 
 
 def supported_grad(scene: Scene, cfg: RenderConfig) -> bool:
-    """Do K1 and K2 differentiate ``(scene, cfg)``?
+    """Do K1 and K2 differentiate ``(scene, cfg)``? Not with
+    ``vis_grad``: its residual is ``VisGradFusedRenderer``'s, as in the
+    JAX package's ``supported_grad``.
 
     Which scenes the router gives K2 and which the streamed backward K8
     is ``models/renderer.py``'s ``GRAD_ROUTE_MAX_TRIS``."""
-    return (megakernel.supported(scene, cfg)
+    return (megakernel.supported(scene, cfg) and not cfg.vis_grad
             and scene.n_tris <= GRAD_MAX_TRIS
             and cfg.max_bounces <= MAX_BOUNCES)
 
@@ -120,7 +124,7 @@ def mega_bwd_plain(origins, directions, seeds, tri, gbar,
     frame's 10⁸-10⁹ terms drops every term below half an ulp of the sum
     (at 1920×1080, 64 spp the largest entry is ~3×10⁵, whose float32 ulp
     is 0.03, while single terms are ~10⁻²)."""
-    with torch.no_grad():
+    with torch.no_grad(), plain_sweep():
         alb, emi = tri[:, 12:15], tri[:, 15:18]
         n, device = origins.shape[0], origins.device
         g = gbar * float(np.float32(1.0) / np.float32(cfg.spp))

@@ -40,7 +40,7 @@ from spath_tpu_torch.models.pathtracer import (
     geometry_lights, n_draws, require_ported, scene_geometry,
 )
 from spath_tpu_torch.ops.fp import sqrt_rn
-from spath_tpu_torch.ops.intersect import nearest_hit_edges
+from spath_tpu_torch.ops.intersect import nearest_hit_edges, plain_sweep
 from spath_tpu_torch.ops.kernels.build import library
 from spath_tpu_torch.ops.nee import INV_PI
 from spath_tpu_torch.ops.rng import fmix32, hash_keys, key_uniforms
@@ -96,7 +96,7 @@ def _check_rows(rows, n_tris: int) -> None:
 def supported(scene: Scene, cfg: RenderConfig) -> bool:
     """Does K3 render ``(scene, cfg)`` exactly?"""
     return (scene.n_tris <= MAX_TRIS and cfg.rng == "hash"
-            and cfg.sampler == "cosine" and not cfg.vis_grad)
+            and cfg.sampler == "cosine")
 
 
 def pack_rays(camera: Camera, cfg: RenderConfig, seed: int = 0):
@@ -134,7 +134,9 @@ def quality_replay(origins, directions, keys, tri, light_idx,
     where the JAX body has ``_detach``. Yields for each sample
     ``(radiance (n, 3), saved)``; ``saved`` holds per bounce what the
     reverse sweep (``megakernel_quality_grad``) reads. Differentiable in
-    ``tri``, ``origins`` and ``directions``."""
+    ``tri``, ``origins`` and ``directions``. ``vis_grad`` is dropped: it
+    changes no frame, and the kernels draw no edge samples."""
+    cfg = cfg.replace(vis_grad=False)
     n, device = origins.shape[0], origins.device
     v0, e1, e2 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
     cdf = tri[:, COL_CDF].detach()
@@ -265,12 +267,14 @@ def quality_replay(origins, directions, keys, tri, light_idx,
 def quality_plain(origins, directions, keys, tri, light_idx,
                   cfg: RenderConfig) -> torch.Tensor:
     """The plain PyTorch version of K3 (``quality_replay``'s mean over
-    samples). Returns ``(n, 3)``."""
+    samples). Returns ``(n, 3)``. Its sweeps are the plain ``_sweep`` on
+    any device (``ops/intersect.py``: ``plain_sweep``)."""
     acc = torch.zeros((origins.shape[0], 3), dtype=torch.float32,
                       device=origins.device)
-    for rad, _ in quality_replay(origins, directions, keys, tri, light_idx,
-                                 cfg):
-        acc = acc + rad
+    with plain_sweep():
+        for rad, _ in quality_replay(origins, directions, keys, tri,
+                                     light_idx, cfg):
+            acc = acc + rad
     return acc * float(np.float32(1.0) / np.float32(cfg.spp))
 
 

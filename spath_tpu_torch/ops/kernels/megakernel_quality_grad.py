@@ -36,6 +36,7 @@ import torch
 from spath_tpu_torch.camera import Camera
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.ops.fp import sqrt_rn
+from spath_tpu_torch.ops.intersect import plain_sweep
 from spath_tpu_torch.ops.kernels import megakernel_quality as mq
 from spath_tpu_torch.ops.kernels.build import library
 from spath_tpu_torch.ops.nee import INV_PI
@@ -46,16 +47,19 @@ from spath_tpu_torch.scene import Scene
 #: Hopper block's shared memory up to T = 1468 (``csrc`` header comment);
 #: equal to K3's ``MAX_TRIS``.
 GRAD_MAX_TRIS = 1024
-#: Longest path K4 replays: it keeps per-bounce state in fixed arrays.
-MAX_BOUNCES = 16
+#: Longest path K4 replays: it keeps per-bounce state in fixed arrays of
+#: ``MAX_BOUNCES`` (``csrc/megakernel_common.cuh``: ``kMaxBounces``);
+#: deeper gradients go to the wavefront.
+MAX_BOUNCES = 64
 #: Adjoint columns per triangle.
 ADJ = 19
 
 
 def supported_grad(scene: Scene, cfg: RenderConfig) -> bool:
-    """Do K3 and K4 differentiate ``(scene, cfg)``? (``vis_grad`` is
-    refused by ``megakernel_quality.supported``.)"""
-    return (mq.supported(scene, cfg) and scene.n_tris <= GRAD_MAX_TRIS
+    """Do K3 and K4 differentiate ``(scene, cfg)``? Not with
+    ``vis_grad`` (``VisGradFusedRenderer`` adds its residual)."""
+    return (mq.supported(scene, cfg) and not cfg.vis_grad
+            and scene.n_tris <= GRAD_MAX_TRIS
             and cfg.max_bounces <= MAX_BOUNCES)
 
 
@@ -162,7 +166,7 @@ def quality_bwd_plain(origins, directions, keys, tri, light_idx, gbar,
     The table adjoint accumulates in float64, as ``mega_bwd_plain``'s: a
     float32 running sum of a frame's ~10⁹ terms drops the small ones. The
     ray adjoint is a per-ray float32 sum over samples, as K4's."""
-    with torch.no_grad():
+    with torch.no_grad(), plain_sweep():
         n = origins.shape[0]
         g3 = gbar * float(np.float32(1.0 / cfg.spp))
         adj = torch.zeros((tri.shape[0], ADJ), dtype=torch.float64,

@@ -86,7 +86,7 @@ def sample_light_points(lt: Lights, u_sel, u1, u2) -> dict:
     """
     idx = torch.searchsorted(lt.cdf, u_sel, right=True)
     idx = idx.clamp(0, lt.cdf.shape[0] - 1)
-    v0, e1, e2 = lt.v0[idx], lt.e1[idx], lt.e2[idx]
+    v0, e1, e2 = (t.index_select(0, idx) for t in (lt.v0, lt.e1, lt.e2))
     su1 = sqrt_rn(u1)
     b1 = 1.0 - su1
     b2 = u2 * su1
@@ -97,22 +97,23 @@ def sample_light_points(lt: Lights, u_sel, u1, u2) -> dict:
     return {
         "y": y,
         "normal": n / torch.clamp_min(norm, 1e-20)[:, None],
-        "emission": lt.emission[idx],
+        "emission": lt.emission.index_select(0, idx),
         "area": 0.5 * norm,
-        "prob": lt.prob[idx],
+        "prob": lt.prob.index_select(0, idx),
         "idx": idx,
     }
 
 
 def direct_light(lt: Lights, p, n_s, hit_idx, u_sel, u1, u2,
-                 cfg: RenderConfig, hit_albedo):
+                 cfg: RenderConfig, hit_albedo, table=None):
     """Direct radiance ``(N, 3)`` at surface points ``p`` with shading
     normals ``n_s`` (flipped toward the incoming ray): the ``albedo/π ·
     emit · G · A/q · V`` estimator, zero where the chosen triangle is dark,
     below the horizon, occluded or the surface itself. ``hit_idx`` is the
     surface's own triangle, excluded from the shadow ray. With ``cfg.mis``
     (and a sampler other than the reference's angle sampler) the
-    contribution carries the detached power-heuristic weight."""
+    contribution carries the detached power-heuristic weight. ``table`` is
+    the triangles' ``sweep_table`` for the shadow ray's sweep."""
     s = sample_light_points(lt, u_sel, u1, u2)
     delta = s["y"] - p
     r2 = dot3(delta, delta)
@@ -124,7 +125,7 @@ def direct_light(lt: Lights, p, n_s, hit_idx, u_sel, u1, u2,
     # shadow ray: the nearest hit other than the surface must be the light
     with torch.no_grad():
         _, occ = nearest_hit_edges(p, omega, lt.v0, lt.e1, lt.e2, hit_idx,
-                                   cfg.tri_block)
+                                   cfg.tri_block, table)
     valid = (occ == s["idx"]) & (s["prob"] > 0) & (cos_s > 0) \
         & (s["idx"] != hit_idx)
 

@@ -400,7 +400,14 @@ def test_guardrails():
                 cfg.replace(sampler="cosine"), cfg.replace(stratify=True)):
         assert not bs.supported(scene, bad)
     assert bs.supported(scene, cfg.replace(max_bounces=20))
-    assert not bg.supported_grad(scene, cfg.replace(max_bounces=17))
+    # K8's saved state holds 64 bounces
+    assert bg.supported_grad(scene, cfg.replace(max_bounces=17))
+    assert not bg.supported_grad(scene, cfg.replace(
+        max_bounces=bg.MAX_BOUNCES + 1))
+    # vis_grad changes no frame: K6 renders it; its gradient is
+    # VisGradFusedRenderer's
+    assert bs.supported(scene, cfg.replace(vis_grad=True))
+    assert not bg.supported_grad(scene, cfg.replace(vis_grad=True))
     assert bs.BIG_MAX_TRIS == bg.GRAD_MAX_TRIS == jbs.BIG_MAX_TRIS
     assert bg.GRAD_MAX_TRIS == jbs.BIG_GRAD_MAX_TRIS
     for fn in (bs.render_radiance_bigscene,
@@ -435,8 +442,7 @@ def _as_if_on_cuda(monkeypatch):
     def forbidden(*args, **kw):
         raise AssertionError("plain version reached for a CUDA scene")
 
-    for module, name in ((pathtracer, "render_radiance"),
-                         (mk, "megakernel_plain"), (mg, "mega_bwd_plain"),
+    for module, name in ((mk, "megakernel_plain"), (mg, "mega_bwd_plain"),
                          (ss, "stream_scatter_plain")):
         monkeypatch.setattr(module, name, forbidden)
     calls = []
@@ -446,6 +452,9 @@ def _as_if_on_cuda(monkeypatch):
             calls.append((tag, scene.n_tris))
             return torch.zeros((cfg.height, cfg.width, 3), requires_grad=True)
         return render
+
+    # the wavefront on the card, its sweeps on K5
+    monkeypatch.setattr(pathtracer, "render_radiance", kernel("wavefront"))
 
     monkeypatch.setattr(mk, "render_radiance_megakernel", kernel("K1"))
     monkeypatch.setattr(mg, "render_radiance_mega", kernel("K1+K2"))
@@ -485,10 +494,10 @@ def test_routing_keeps_scenes_at_the_crossovers_on_the_fused_kernels(
 
 def test_routing_raises_where_no_kernel_takes_a_cuda_scene(monkeypatch):
     """Above 2^20 triangles both directions name the streamed kernels'
-    cap; a gradient above 16 bounces names the backward kernels' cap (the
-    forward takes it); the quality estimator above 1024 triangles goes to
-    the streamed quality kernels K9 and K10, and names them above 16
-    bounces."""
+    cap; a gradient above the backward kernels' 64 bounces goes to the
+    wavefront on the card (the forward kernel takes any depth); the
+    quality estimator above 1024 triangles goes to the streamed quality
+    kernels K9 and K10, and to the wavefront above 64 bounces."""
     from spath_tpu_torch.ops.kernels import bigscene_quality as bq
     from spath_tpu_torch.ops.kernels import bigscene_quality_grad as bqg
 
@@ -500,15 +509,14 @@ def test_routing_raises_where_no_kernel_takes_a_cuda_scene(monkeypatch):
         render_pt_fast(huge, cam, cfg)
     with pytest.raises(NotImplementedError, match="K6 and K8 take T <= "):
         render_radiance_fastgrad(huge, cam, cfg)
-    long = cfg.replace(max_bounces=bg.MAX_BOUNCES + 1)
-    with pytest.raises(NotImplementedError, match="max_bounces <= 16"):
-        render_radiance_fastgrad(big, cam, long)
-    quality = cfg.replace(rng="hash", sampler="cosine", nee=True)
-    with pytest.raises(NotImplementedError, match="K4 and K10 take "
-                       "max_bounces <= 16"):
-        render_radiance_fastgrad(big, cam, quality.replace(
-            max_bounces=bqg.MAX_BOUNCES + 1))
     assert calls == []
+    long = cfg.replace(max_bounces=bg.MAX_BOUNCES + 1)
+    render_radiance_fastgrad(big, cam, long)
+    quality = cfg.replace(rng="hash", sampler="cosine", nee=True)
+    render_radiance_fastgrad(big, cam, quality.replace(
+        max_bounces=bqg.MAX_BOUNCES + 1))
+    assert calls == [("wavefront", 1100)] * 2
+    del calls[:]
     render_pt_fast(big, cam, long)
     assert calls == [("K6", 1100)]
     monkeypatch.setattr(bq, "render_radiance_bigscene_quality",

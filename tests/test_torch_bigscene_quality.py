@@ -80,6 +80,12 @@ def combined():
     return _combined_scene()
 
 
+@pytest.fixture(scope="module")
+def combined256():
+    """The 256-triangle cut of the same scene, built once a module."""
+    return _combined_scene(249)
+
+
 def _port_scene(js):
     return scene_from_numpy(np.asarray(js.vertices), np.asarray(js.albedo),
                             np.asarray(js.emission), js.light_idx,
@@ -164,11 +170,12 @@ def test_light_choice_where_the_blocked_scan_steps_down():
     assert (got != sorted_view).any()
 
 
-def test_light_choice_equals_the_full_table_choice_of_the_wavefront():
+def test_light_choice_equals_the_full_table_choice_of_the_wavefront(
+        combined256):
     """On a scene's table, the binary search over the light rows picks
     the row ``megakernel_quality._select_light`` (searchsorted over the
     same rows) picks, and the wavefront's full-table choice."""
-    ps = _port_scene(_combined_scene(249))
+    ps = _port_scene(combined256)
     tri = mq.quality_table(ps)
     rows, lcdf = bq.kernel_inputs(tri, bq.light_rows(ps), CPU)
     u = torch.from_numpy(np.random.default_rng(3).uniform(
@@ -333,12 +340,12 @@ def _events_backward(o, d, keys, tri, rows, gbar, cfg):
     return adj, grays
 
 
-def test_plain_backward_through_events_equals_the_direct_sum():
+def test_plain_backward_through_events_equals_the_direct_sum(combined):
     """The backward's adjoint summed as K10 and K7 sum it (events at fixed
     slots, then the float64 scatter) equals ``quality_bwd_plain``'s
     direct ``index_add_`` within 1e-6 of each column group's max, and the
     ray adjoint to the bit."""
-    ps = _port_scene(_combined_scene())
+    ps = _port_scene(combined)
     cfg = RenderConfig(**dict(BWD, width=16, height=8, spp=2))
     o, d, keys = mq.pack_rays(Camera.default(CPU), cfg, 0)
     tri, rows = mq.quality_table(ps), bq.light_rows(ps)
@@ -371,7 +378,7 @@ def _weights(cfg_kw, agree):
     return (w * agree[..., None]).astype(np.float32)
 
 
-def test_plain_backward_tracks_jax_streamed_vjp():
+def test_plain_backward_tracks_jax_streamed_vjp(combined256):
     """``BigQualityRows`` on CPU tensors (K9's and K10's plain versions)
     against the VJP of JAX's streamed render in interpret mode, at
     tests/test_bigscene_quality.py::test_bigq_grad_tracks_wavefront's
@@ -380,7 +387,7 @@ def test_plain_backward_tracks_jax_streamed_vjp():
     triangle. On a scene whose every triangle emits (``_tagged``), every
     hit of a path shows in the frame, so the paths agree where the frames
     agree within 1e-5; the others weigh 0 and are under 2% of the frame."""
-    js = _tagged(_combined_scene(249))
+    js = _tagged(combined256)
     cfg = dict(BWD, max_bounces=2)
 
     def render(v, a, e):
@@ -564,19 +571,25 @@ def test_chunks_and_guardrails_follow_the_sizes():
     q = RenderConfig(width=8, height=4, spp=1, **QUALITY)
     assert bq.supported(scene, q) and bqg.supported_grad(scene, q)
     for bad in (q.replace(rng="lcg", sampler="angle", nee=False,
-                          mis=False), q.replace(sampler="uniform"),
-                q.replace(vis_grad=True)):
+                          mis=False), q.replace(sampler="uniform")):
         assert not bq.supported(scene, bad)
-    assert not bqg.supported_grad(scene, q.replace(max_bounces=17))
+    # vis_grad changes no frame: K9 renders it, as the JAX kernel does;
+    # its gradient is VisGradFusedRenderer's
+    assert bq.supported(scene, q.replace(vis_grad=True))
+    assert not bqg.supported_grad(scene, q.replace(vis_grad=True))
+    # K10's saved state holds 64 bounces
+    assert bqg.supported_grad(scene, q.replace(max_bounces=17))
+    assert not bqg.supported_grad(scene, q.replace(
+        max_bounces=bqg.MAX_BOUNCES + 1))
     assert bq.static_light_idx(dataclasses.replace(
         scene, light_idx=None)) == (3, 4) == scene.light_idx
 
 
-def test_big_quality_rows_gives_the_wavefront_gradient():
+def test_big_quality_rows_gives_the_wavefront_gradient(combined256):
     """``BigQualityRows`` on CPU tensors gives the value and, within
     sum-order noise, the gradients of autograd through the port's own
     wavefront, camera position included."""
-    ps = _port_scene(_combined_scene(249))
+    ps = _port_scene(combined256)
     cfg = RenderConfig(**dict(BWD, width=16, height=8))
     wts = torch.from_numpy(_weights(dict(BWD, width=16, height=8),
                                     np.ones((8, 16))))

@@ -26,6 +26,7 @@ from spath_tpu_torch.config import RenderConfig  # noqa: E402
 from spath_tpu_torch.convert import scene_from_numpy  # noqa: E402
 from spath_tpu_torch.ops.kernels import build  # noqa: E402
 from spath_tpu_torch.ops.kernels import megakernel as mk  # noqa: E402
+from spath_tpu_torch.ops.kernels import megakernel_grad as mg  # noqa: E402
 
 CPU = torch.device("cpu")
 #: one 1024-ray tile of K1, 3 samples of 5 bounces
@@ -122,8 +123,15 @@ def test_supported_matches_jax_guardrails():
     assert mk.MAX_TRIS == jmk.MAX_TRIS
     for kw in (dict(rng="threefry"), dict(rng="hash", sampler="cosine"),
                dict(rng="hash", nee=True), dict(rng="hash", rr_start=2),
-               dict(rng="hash", stratify=True), dict(vis_grad=True)):
+               dict(rng="hash", stratify=True)):
         assert not mk.supported(small, RenderConfig(**kw)), kw
+    # vis_grad changes no frame: K1 renders it, as the JAX kernel does,
+    # and only the gradient refuses it (VisGradFusedRenderer's residual)
+    vis = dict(vis_grad=True)
+    assert mk.supported(small, RenderConfig(**vis))
+    assert jmk.supported(j_default_scene(), JConfig(**vis))
+    assert not mg.supported_grad(small, RenderConfig(**vis))
+    assert mg.supported_grad(small, RenderConfig())
 
 
 def test_mega_call_cpu_takes_plain_without_counting():
@@ -169,13 +177,13 @@ def test_build_flags_and_rebuild_hash(tmp_path, monkeypatch):
     assert not any("fast_math" in f or "fast-math" in f for f in cmd)
     assert [p.name for p in build.sources()] == [
         "bigscene.cu", "bigscene_grad.cu", "bigscene_quality.cu",
-        "bigscene_quality_grad.cu", "light_cdf.cu", "megakernel.cu",
-        "megakernel_grad.cu", "megakernel_quality.cu",
+        "bigscene_quality_grad.cu", "intersect.cu", "light_cdf.cu",
+        "megakernel.cu", "megakernel_grad.cu", "megakernel_quality.cu",
         "megakernel_quality_grad.cu", "stream_scatter.cu"]
     assert [p.name for p in build.hashed_files()] == [
         "bigscene.cu", "bigscene_grad.cu", "bigscene_quality.cu",
-        "bigscene_quality_grad.cu", "light_cdf.cu", "megakernel.cu",
-        "megakernel_common.cuh", "megakernel_grad.cu",
+        "bigscene_quality_grad.cu", "intersect.cu", "light_cdf.cu",
+        "megakernel.cu", "megakernel_common.cuh", "megakernel_grad.cu",
         "megakernel_quality.cu", "megakernel_quality_grad.cu",
         "quality_reverse.cuh", "quality_walk.cuh", "stream_scatter.cu",
         "stream_sweep.cuh"]

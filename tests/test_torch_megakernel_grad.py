@@ -215,9 +215,10 @@ def test_mega_bwd_call_rejects_bad_inputs():
 
 
 def _as_if_on_cuda(monkeypatch):
-    """Scenes and cameras report a CUDA device; neither the plain
-    wavefront nor the CPU-only plain versions may be reached, and the
-    fused differentiable render only records its calls."""
+    """Scenes and cameras report a CUDA device; the CPU-only plain
+    versions may not be reached, and the fused differentiable render and
+    the wavefront (on the card, its sweeps on K5) only record their calls,
+    the wavefront's as ``("wavefront", T)``."""
     cuda = torch.device("cuda", 0)
     monkeypatch.setattr(Scene, "device", property(lambda self: cuda))
     monkeypatch.setattr(Camera, "device", property(lambda self: cuda))
@@ -225,10 +226,14 @@ def _as_if_on_cuda(monkeypatch):
     def forbidden(*args, **kw):
         raise AssertionError("plain version reached for a CUDA scene")
 
-    monkeypatch.setattr(pathtracer, "render_radiance", forbidden)
     monkeypatch.setattr(mg, "mega_bwd_plain", forbidden)
     monkeypatch.setattr(mk, "megakernel_plain", forbidden)
     calls = []
+    monkeypatch.setattr(pathtracer, "render_radiance",
+                        lambda scene, camera, cfg, seed=0: calls.append(
+                            ("wavefront", scene.n_tris))
+                        or torch.zeros((cfg.height, cfg.width, 3),
+                                       requires_grad=True))
 
     def kernel(scene, camera, cfg, seed=0):
         calls.append(scene.n_tris)
@@ -260,22 +265,26 @@ def test_grad_routing_sends_cuda_scenes_to_the_kernels(monkeypatch, n_tris):
 
 
 def test_grad_routing_raises_for_cuda_scenes_without_a_kernel(monkeypatch):
-    """No silent plain gradient on a CUDA device: a scene above every
+    """No silent gradient past a cap on a CUDA device: a scene above every
     backward kernel's cap (K2's 1024 triangles, the streamed K8's 2^20)
-    names K8's, a path longer than the kernels' saved state says so, an
-    unported config says what is not ported."""
+    names K8's, which the wavefront on the card keeps. A path longer than
+    the kernels' saved state (64 bounces) and an estimator no fused kernel
+    takes go to the wavefront on the card."""
     big = procedural_scene(bg.GRAD_MAX_TRIS + 1, seed=1, device=CPU)
     small, cam = default_scene(CPU), Camera.default(CPU)
     calls = _as_if_on_cuda(monkeypatch)
     cfg = RenderConfig(width=8, height=4, spp=1)
     with pytest.raises(NotImplementedError, match="K8"):
         render_radiance_fastgrad(big, cam, cfg)
-    with pytest.raises(NotImplementedError, match="max_bounces"):
-        render_radiance_fastgrad(small, cam,
-                                 cfg.replace(max_bounces=mg.MAX_BOUNCES + 1))
-    with pytest.raises(NotImplementedError, match="rng='hash'"):
-        render_radiance_fastgrad(small, cam, cfg.replace(rng="hash"))
     assert calls == []
+    deep = cfg.replace(max_bounces=mg.MAX_BOUNCES + 1)
+    assert renderer.grad_renderer(small, deep).name == "wavefront"
+    render_radiance_fastgrad(small, cam, deep)
+    render_radiance_fastgrad(small, cam, cfg.replace(rng="hash"))
+    assert calls == [("wavefront", 7)] * 2
+    # up to 64 bounces the kernels take the gradient
+    assert renderer.grad_renderer(
+        small, cfg.replace(max_bounces=mg.MAX_BOUNCES)).name == "megakernel"
 
 
 def test_grad_routing_keeps_cpu_tensors_on_the_wavefront(monkeypatch):

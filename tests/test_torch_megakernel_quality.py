@@ -348,8 +348,12 @@ def test_guardrails():
     assert mq.supported(scene, q.replace(nee=False, rr_start=2,
                                          stratify=True))
     for bad in (q.replace(rng="threefry"), q.replace(sampler="uniform"),
-                q.replace(rng="lcg"), q.replace(vis_grad=True)):
+                q.replace(rng="lcg")):
         assert not mq.supported(scene, bad)
+    # vis_grad changes no frame: K3 renders it, as the JAX kernel does,
+    # and only the gradient refuses it (VisGradFusedRenderer's residual)
+    assert mq.supported(scene, q.replace(vis_grad=True))
+    assert not mqg.supported_grad(scene, q.replace(vis_grad=True))
     assert not mqg.supported_grad(scene, q.replace(
         max_bounces=mqg.MAX_BOUNCES + 1))
     big = procedural_scene(mq.MAX_TRIS + 1, device=CPU)
@@ -370,8 +374,7 @@ def _as_if_on_cuda(monkeypatch):
     def forbidden(*args, **kw):
         raise AssertionError("plain version reached for a CUDA scene")
 
-    for module, name in ((pathtracer, "render_radiance"),
-                         (mq, "quality_plain"), (mqg, "quality_bwd_plain")):
+    for module, name in ((mq, "quality_plain"), (mqg, "quality_bwd_plain")):
         monkeypatch.setattr(module, name, forbidden)
     from spath_tpu_torch.ops.kernels import bigscene_quality as bq
     from spath_tpu_torch.ops.kernels import bigscene_quality_grad as bqg
@@ -382,6 +385,11 @@ def _as_if_on_cuda(monkeypatch):
             calls.append((tag, scene.n_tris))
             return torch.zeros((cfg.height, cfg.width, 3), requires_grad=True)
         return render
+
+    # the wavefront on the card (its sweeps on K5) and the vis residual
+    monkeypatch.setattr(pathtracer, "render_radiance", kernel("wavefront"))
+    monkeypatch.setattr(pathtracer, "render_vis_residual",
+                        kernel("residual"))
 
     monkeypatch.setattr(mq, "render_radiance_quality_megakernel",
                         kernel("K3"))
@@ -422,10 +430,12 @@ def test_quality_routing_sends_cuda_scenes_to_k3_k4(monkeypatch, n_tris, kw):
 
 def test_quality_routing_raises_for_cuda_scenes_without_a_kernel(
         monkeypatch):
-    """No silent plain render or gradient on a CUDA device: above 2^20
-    triangles the streamed quality kernels' cap is named; threefry,
-    vis_grad, a path longer than K4's and K10's saved state and a sampler
-    no kernel takes say what is missing."""
+    """No silent render or gradient past a cap on a CUDA device: above
+    2^20 triangles the streamed quality kernels' cap is named; threefry
+    says what is missing. vis_grad renders through K3 and differentiates
+    through K3+K4 with the residual; a path longer than K4's and K10's
+    saved state (64 bounces) and a sampler no kernel takes go to the
+    wavefront on the card."""
     from spath_tpu_torch.ops.kernels import bigscene_quality as bq
 
     big = Scene(torch.zeros((bq.BIGQ_MAX_TRIS + 1, 3, 3)),
@@ -442,14 +452,14 @@ def test_quality_routing_raises_for_cuda_scenes_without_a_kernel(
     for fn in (render_pt_fast, render_radiance_fastgrad):
         with pytest.raises(NotImplementedError, match="threefry"):
             fn(small, cam, q.replace(rng="threefry"))
-        with pytest.raises(NotImplementedError, match="vis_grad"):
-            fn(small, cam, q.replace(vis_grad=True))
-        with pytest.raises(NotImplementedError, match="sampler='uniform'"):
-            fn(small, cam, q.replace(sampler="uniform"))
-    with pytest.raises(NotImplementedError, match="max_bounces"):
-        render_radiance_fastgrad(small, cam, q.replace(
-            max_bounces=mqg.MAX_BOUNCES + 1))
     assert calls == []
+    for fn in (render_pt_fast, render_radiance_fastgrad):
+        fn(small, cam, q.replace(vis_grad=True))
+        fn(small, cam, q.replace(sampler="uniform"))
+    render_radiance_fastgrad(small, cam, q.replace(
+        max_bounces=mqg.MAX_BOUNCES + 1))
+    assert calls == [("K3", 7), ("wavefront", 7), ("K3+K4", 7),
+                     ("residual", 7), ("wavefront", 7), ("wavefront", 7)]
 
 
 def test_quality_routing_keeps_cpu_tensors_on_the_wavefront(monkeypatch):

@@ -123,11 +123,17 @@ def test_trace_radiance_one_sample_matches():
     dict(rng="table", nee=True),
 ])
 def test_unported_configs_raise(kw):
-    """The threefry and table streams and visibility gradients are not
-    ported: the serving path and the wavefront raise, on the CPU too."""
+    """The threefry and table streams are not ported: the serving path and
+    the wavefront raise, on the CPU too. Visibility gradients are ported
+    and change no frame: with ``vis_grad`` both render the frame without
+    it, bit for bit."""
     scene, cam = default_scene(CPU), Camera.default(CPU)
     cfg = RenderConfig(width=8, height=4, spp=1, **kw)
     for fn in (render_pt_fast, render_pt):
+        if cfg.vis_grad:
+            assert torch.equal(fn(scene, cam, cfg),
+                               fn(scene, cam, cfg.replace(vis_grad=False)))
+            continue
         with pytest.raises(NotImplementedError):
             fn(scene, cam, cfg)
 
@@ -139,7 +145,8 @@ def test_routing_keeps_cpu_tensors_off_the_kernel(monkeypatch):
     assert not mega.available(scene) and not mega.supports(scene, cfg)
     assert renderer.forward_renderer(scene, cfg).name == "wavefront"
     assert [r.name for r in renderer.REGISTRY] == [
-        "megakernel", "bigscene", "quality", "quality_bigscene", "wavefront"]
+        "megakernel", "bigscene", "quality", "quality_bigscene", "visgrad",
+        "wavefront"]
 
     def forbidden(*args, **kw):
         raise AssertionError("mega_call reached with CPU tensors")
@@ -149,17 +156,19 @@ def test_routing_keeps_cpu_tensors_off_the_kernel(monkeypatch):
 
 
 def _as_if_on_cuda(monkeypatch):
-    """Scenes and cameras report a CUDA device; the wavefront must not be
-    reached, and the kernel's entry point only records its calls."""
+    """Scenes and cameras report a CUDA device; the kernel's entry point
+    and the wavefront (on the card, its sweeps on K5) only record their
+    calls, the wavefront's as ``("wavefront", T)``."""
     cuda = torch.device("cuda", 0)
     monkeypatch.setattr(Scene, "device", property(lambda self: cuda))
     monkeypatch.setattr(Camera, "device", property(lambda self: cuda))
-
-    def forbidden(*args, **kw):
-        raise AssertionError("plain wavefront reached for a CUDA scene")
-
-    monkeypatch.setattr(pathtracer, "render_radiance", forbidden)
     calls = []
+
+    def wavefront(scene, camera, cfg, seed=0):
+        calls.append(("wavefront", scene.n_tris))
+        return torch.zeros((cfg.height, cfg.width, 3))
+
+    monkeypatch.setattr(pathtracer, "render_radiance", wavefront)
 
     def kernel(scene, camera, cfg, seed=0):
         calls.append(scene.n_tris)
@@ -178,26 +187,30 @@ def test_routing_sends_cuda_scenes_to_the_kernel(monkeypatch, n_tris):
     cam = Camera.default(CPU)
     calls = _as_if_on_cuda(monkeypatch)
     cfg = RenderConfig(width=8, height=4, spp=1)
-    assert not renderer.WavefrontRenderer().available(scene)
+    # the wavefront runs on the card too, last, behind every kernel
+    assert renderer.REGISTRY[-1].name == "wavefront"
     assert renderer.forward_renderer(scene, cfg).name == "megakernel"
     assert render_pt_fast(scene, cam, cfg).shape == (4, 8, 3)
     assert calls == [n_tris]
 
 
 def test_routing_raises_for_cuda_scenes_without_a_kernel(monkeypatch):
-    """No silent plain render on a CUDA device: a scene too big for every
-    kernel (the fused K1 takes 1024 triangles, the streamed K6 2^20)
-    names the streamed kernel's cap, an unported config says what is not
-    ported."""
+    """No silent render past a cap on a CUDA device: a scene too big for
+    every kernel (the fused K1 takes 1024 triangles, the streamed K6 2^20)
+    names the streamed kernel's cap, which the wavefront on the card keeps.
+    An estimator no fused kernel takes (hash with the angle sampler) goes
+    to the wavefront on the card."""
     big = procedural_scene(bigscene.BIG_MAX_TRIS + 1, seed=1, device=CPU)
     small, cam = default_scene(CPU), Camera.default(CPU)
     calls = _as_if_on_cuda(monkeypatch)
     cfg = RenderConfig(width=8, height=4, spp=1)
     with pytest.raises(NotImplementedError, match="K6"):
         render_pt_fast(big, cam, cfg)
-    with pytest.raises(NotImplementedError, match="rng='hash'"):
-        render_pt_fast(small, cam, cfg.replace(rng="hash"))
     assert calls == []
+    assert renderer.forward_renderer(
+        small, cfg.replace(rng="hash")).name == "wavefront"
+    render_pt_fast(small, cam, cfg.replace(rng="hash"))
+    assert calls == [("wavefront", 7)]
 
 
 def test_cli_device_cuda_without_card_exits_nonzero(tmp_path, monkeypatch):

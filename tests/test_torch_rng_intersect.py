@@ -108,10 +108,11 @@ def test_nearest_hit_methods_and_source_exclusion():
     assert (idx == 0).all() and torch.allclose(dist, torch.ones(8))
     _, idx = nearest_hit(o, d, v0, v1, v2, torch.zeros(8, dtype=torch.int64))
     assert (idx == -1).all()
-    # "pluecker" runs the reference sweep; the Pallas kernel K5 is not
-    # ported and says so instead of running something else
-    dp, ip = nearest_hit(o, d, v0, v1, v2, none, method="pluecker")
-    assert torch.equal(dp, dist) and (ip == 0).all()
-    for method in ("pallas", "pallas_fast"):
-        with pytest.raises(NotImplementedError, match="K5"):
-            nearest_hit(o, d, v0, v1, v2, none, method=method)
+    # every method runs the reference sweep: "pallas" names K5, whose
+    # plain version is that sweep on CPU tensors, "pallas_fast" is an
+    # alias of it; an unknown method raises
+    for method in ("pluecker", "pallas", "pallas_fast"):
+        dp, ip = nearest_hit(o, d, v0, v1, v2, none, method=method)
+        assert torch.equal(dp, dist) and (ip == 0).all()
+    with pytest.raises(ValueError, match="unknown intersect"):
+        nearest_hit(o, d, v0, v1, v2, none, method="bvh")

@@ -2,6 +2,7 @@
 """Where the device time of the port's two paths goes, on one CUDA card.
 
     python3 tools/torch_profile.py [--calls 5] [--out build/profile]
+                                   [--paths conformance,quality,big,...]
 
 At 1920x1080, 64 spp, 5 bounces on the default scene, after warm-up,
 traces ``--calls`` calls of each path with ``torch.profiler``, for the
@@ -21,11 +22,20 @@ and 31 run them:
   ``chip_smoke.py`` phase 15 runs it, so the step also carries the
   camera's gradient.
 
+Visibility gradients (``vis``, ``big_vis``): a quality train step with
+``vis_grad`` through ``VisGradFusedRenderer``, as ``chip_smoke.py``
+phases 39 and 40 run it: the default scene at 1920x1080, ``VIS_TRAIN_SPP``
+spp (the interior K3+K4, the residual's sweeps on K5), and the 10k scene
+at ``BIGQ_TRAIN_SPP`` (the interior's forward K11 with its hit export,
+K10 and K7, the residual's edge sweeps on K5).
+
 For each path it prints one JSON line: CUDA-event ms per call around the
 traced calls, the device's busy ms per call (the union of the kernels'
-intervals), the idle share (1 - busy / event time), and the kernels
-grouped by name with their count and ms per call, largest first. The
-chrome traces go under ``--out``.
+intervals), the idle share (1 - busy / event time), the kernels grouped
+by name with their count and ms per call, largest first, and the device
+ms per call split into the port's kernels (K1-K11, the light
+distribution) and the glue, every other kernel. ``--paths`` picks the
+paths (default: all). The chrome traces go under ``--out``.
 """
 
 from __future__ import annotations
@@ -45,6 +55,30 @@ QUALITY = dict(rng="hash", sampler="cosine", nee=True, mis=True)
 BIG_CALLS = 1
 # The quality estimator's large-scene shapes (chip_smoke.py phases 29, 31).
 BIGQ_SERVE_SPP, BIGQ_TRAIN_SPP = 16, 4
+# The vis_grad training cell (chip_smoke.py phase 39).
+VIS_TRAIN_SPP = 8
+PATHS = ("conformance", "quality", "big", "big_quality", "vis", "big_vis")
+#: The port's kernels by a substring of their name, tested in this order
+#: (the streamed kernels' names hold the fused ones'); each is a function
+#: of an anonymous namespace, which sets them apart from PyTorch's own
+#: (``at::native::_scatter_gather_elementwise_kernel``).
+KERNEL_GROUPS = tuple((group, "namespace)::" + key) for group, key in (
+    ("K11", "bigscene_quality_forward<true>"),
+    ("K9", "bigscene_quality_forward"), ("K10", "bigscene_quality_backward"),
+    ("K6", "bigscene_forward"), ("K8", "bigscene_backward"),
+    ("K3", "quality_forward"), ("K4", "quality_backward"),
+    ("K1", "megakernel_forward"), ("K2", "megakernel_backward"),
+    ("K5", "nearest_hit"), ("K7", "scatter_"), ("light", "cdf_"),
+    ("light", "light_cdf")))
+
+
+def split(table) -> dict:
+    """Device ms per call by the port's kernel, the rest as glue."""
+    out: dict[str, float] = {}
+    for name, _, ms in table:
+        group = next((g for g, key in KERNEL_GROUPS if key in name), "glue")
+        out[group] = out.get(group, 0.0) + ms
+    return out
 
 
 def busy_and_kernels(trace: dict, calls: int):
@@ -69,7 +103,10 @@ def busy_and_kernels(trace: dict, calls: int):
     return busy / 1e3 / calls, table
 
 
-def profile(name: str, fn, calls: int, out: Path) -> dict:
+def profile(name: str, fn, calls: int, out: Path, host: bool = True) -> dict:
+    """One path's line. ``host=False`` traces the device alone: a vis_grad
+    step launches ~10^5-10^6 small kernels, whose host-side events would
+    make the trace several times larger."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -77,8 +114,10 @@ def profile(name: str, fn, calls: int, out: Path) -> dict:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with torch_profile(activities=activities) as prof:
         start.record()
         for _ in range(calls):
             fn()
@@ -89,7 +128,7 @@ def profile(name: str, fn, calls: int, out: Path) -> dict:
     busy, table = busy_and_kernels(json.loads(path.read_text()), calls)
     ms = start.elapsed_time(end) / calls
     return dict(path=name, ms_per_call=ms, busy_ms_per_call=busy,
-                idle_share=1.0 - busy / ms,
+                idle_share=1.0 - busy / ms, split_ms=split(table),
                 kernels=[dict(name=n, count=c, ms=t) for n, c, t in table])
 
 
@@ -97,7 +136,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--paths", default=",".join(PATHS),
+                    help="comma-separated, of " + ", ".join(PATHS))
     args = ap.parse_args()
+    paths = args.paths.split(",")
+    if not set(paths) <= set(PATHS):
+        raise SystemExit(f"--paths: unknown {set(paths) - set(PATHS)}")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -120,16 +164,28 @@ def main() -> int:
     pose_at_0 = param_group_optimizer(freeze_pose=False, pose_lr=0.0,
                                       albedo_lr=2e-2)
     quality = RenderConfig(**HEADLINE, **QUALITY)
-    for prefix, scene, cfg, train_cfg, optimizer, calls in (
-            ("", small, RenderConfig(**HEADLINE), None, frozen, args.calls),
-            ("quality_", small, quality, None, pose_at_0, args.calls),
-            ("big_", big, RenderConfig(**HEADLINE),
+    vis = quality.replace(vis_grad=True)
+    for path, prefix, scene, cfg, train_cfg, optimizer, calls in (
+            ("conformance", "", small, RenderConfig(**HEADLINE), None, frozen,
+             args.calls),
+            ("quality", "quality_", small, quality, None, pose_at_0,
+             args.calls),
+            ("big", "big_", big, RenderConfig(**HEADLINE),
              RenderConfig(**dict(HEADLINE, spp=8)), frozen, BIG_CALLS),
-            ("big_quality_", big, quality.replace(spp=BIGQ_SERVE_SPP),
-             quality.replace(spp=BIGQ_TRAIN_SPP), pose_at_0, BIG_CALLS)):
-        print(json.dumps(profile(
-            prefix + "serving", lambda: render_pt_fast(scene, cam, cfg, 0),
-            calls, out)), flush=True)
+            ("big_quality", "big_quality_", big,
+             quality.replace(spp=BIGQ_SERVE_SPP),
+             quality.replace(spp=BIGQ_TRAIN_SPP), pose_at_0, BIG_CALLS),
+            ("vis", "vis_", small, None, vis.replace(spp=VIS_TRAIN_SPP),
+             pose_at_0, BIG_CALLS),
+            ("big_vis", "big_vis_", big, None,
+             vis.replace(spp=BIGQ_TRAIN_SPP), pose_at_0, BIG_CALLS)):
+        if path not in paths:
+            continue
+        if cfg is not None:     # the vis_grad frame is the quality frame
+            print(json.dumps(profile(
+                prefix + "serving",
+                lambda: render_pt_fast(scene, cam, cfg, 0), calls, out)),
+                flush=True)
 
         cfg = train_cfg or cfg
         albedo = scene.albedo.cpu().numpy()
@@ -145,8 +201,8 @@ def main() -> int:
         def train():
             state[0], _ = step(state[0], target)
 
-        print(json.dumps(profile(prefix + "training", train, calls,
-                                 out)), flush=True)
+        print(json.dumps(profile(prefix + "training", train, calls, out,
+                                 host=not cfg.vis_grad)), flush=True)
     return 0
 
 
