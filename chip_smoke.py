@@ -12,7 +12,8 @@ on large scenes (phases 18-25: K6, K8 and K7) and quality estimator on
 large scenes (phases 26-33: the light distribution beyond one block, K9,
 K10 and K7 at 19 columns) and visibility gradients with the wavefront on
 the card (phases 34-41: K5, K11, the backward kernels beyond 16
-bounces), through the entry points a user calls; any failure exits
+bounces), and the matmul-only sweep microbenchmark (phase 42: T1)
+through the entry points a user calls; any failure exits
 non-zero before a result is printed. Every plain wavefront the kernels
 are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
 
@@ -195,6 +196,18 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     1e-3 with and without vis_grad, and how many of the pixels that
     change when the camera moves 1e-6 change their primary triangle.
 
+42. T1, the matmul-only sweep: its ``ptxas -v`` line; the microbenchmark
+    ``spath_tpu_torch/tools/sweep_microbench.py`` at its own shape
+    (640x360 camera rays against procedural_scene(65536, seed=0), 230,400
+    x 65,536), which times K5, T1 at K = 128 and K = 64 and the cuBLAS
+    yardstick in turns and launches no other kernel; then, on the
+    tensors the tool timed, K5 bit-equal to ``_sweep`` and T1 at both
+    depths against ``sweep_mm_plain`` on the whole shape, every ray
+    within TIGHT_SHARE of 2^-16 (sweep_mm_scale + |plain|) while the
+    control without the split's lo terms lands beyond it, two launches
+    bitwise equal, the plain version timed, and single launches timed
+    after an L2 flush.
+
 The last three lines of standard output are the kernels' JSON record,
 the card as ``nvidia-smi`` names it, and ``{"ok": true, "device": ...}``.
 """
@@ -330,6 +343,10 @@ BIGQ_SERVE_SPP, BIGQ_HUGE_SPP, BIGQ_TRAIN_SPP = 16, 1, 4
 #: on an H100, so a step at 16 spp took 24-29 s). The pose measurement
 #: steps at POSE_STEP_LR, the JAX package's default pose rate.
 VIS_TRAIN_SPP, POSE_STEP_LR = 8, 1e-3
+#: The microbenchmark's shape (tools/sweep_microbench.py: 640x360 rays,
+#: procedural_scene(65536, seed=0)) and the CUDA-event calls of each of
+#: its timed lines, twice, after one warm-up call.
+T1_SHAPE, T1_REPS = (640, 360, 65536), 5
 
 
 class SmokeFailure(Exception):
@@ -1361,7 +1378,7 @@ def quality_kernels(big: bool) -> dict:
 def every_kernel() -> dict:
     return {**conformance_kernels(False), **conformance_kernels(True),
             **quality_kernels(False), **quality_kernels(True),
-            **vis_kernels()}
+            **vis_kernels(), **t1_kernels()}
 
 
 def launched_only(expect: dict, what: str) -> dict:
@@ -1593,16 +1610,18 @@ def k5_ray_sets(torch, scene, o, d, seed: int) -> dict:
             "edge": (p, torch.where(hit[:, None], toward, d), src)}
 
 
-def k5_vs_plain(torch, scene, rays, name: str) -> dict:
+def k5_vs_plain(torch, scene, rays, name: str, tri=None) -> dict:
     """K5 against its plain version ``_sweep`` on the same rays, both
-    outputs to the bit."""
+    outputs to the bit; ``tri`` is K5's table where the caller built it."""
     from spath_tpu_torch.models.pathtracer import scene_geometry
     from spath_tpu_torch.ops.intersect import _sweep
     from spath_tpu_torch.ops.kernels import intersect as k5
 
     v0, e1, e2 = scene_geometry(scene)[:3]
     o, d, src = (t.contiguous() for t in rays)
-    dist, idx = k5.nearest_hit_call(o, d, k5.pack_triangles(v0, e1, e2), src)
+    if tri is None:
+        tri = k5.pack_triangles(v0, e1, e2)
+    dist, idx = k5.nearest_hit_call(o, d, tri, src)
     torch.cuda.synchronize()
     want_d, want_i = _sweep(o, d, v0, e1, e2, src, 512)
     same = torch.equal(dist, want_d) and torch.equal(idx, want_i)
@@ -1854,6 +1873,154 @@ def pose_measurement(torch, dev, cam, cfg) -> dict:
                                                   .sum()),
         primary_triangle_changed=int(other_tri.sum()))
     return out
+
+
+# ---- T1, the matmul-only sweep microbenchmark (phase 42) ----
+
+
+def t1_kernels() -> dict:
+    """T1's wrapper, one count for both depths. No render path launches
+    it, so every earlier ``launched_only`` holds it to 0."""
+    from spath_tpu_torch.ops.kernels import sweep_mm as sm
+
+    return {"T1": sm.sweep_mm_call}
+
+
+def t1_ptxas() -> str:
+    """``sweep_mm.cu``'s register and spill lines from the build log."""
+    from spath_tpu_torch.ops.kernels import build
+
+    text = (build.BUILD_DIR / "build.log").read_text()
+    check("== sweep_mm.cu" in text, "sweep_mm.cu is not in the build log")
+    part = text[text.index("== sweep_mm.cu"):]
+    end = part.find("\n== ", 1)
+    part = part if end < 0 else part[:end]
+    return " | ".join(ln.strip() for ln in part.splitlines()
+                      if "registers" in ln or "spill" in ln)
+
+
+def t1_vs_plain(torch, ops: dict, k: int) -> dict:
+    """T1 at depth ``k`` against ``sweep_mm_plain`` on the whole shape:
+    finite, every ray within ``TIGHT_SHARE`` of the bound, two launches
+    bitwise equal; the control, the plain version without the split's
+    lo terms, beyond ``TIGHT_SHARE``; the yardstick's share recorded."""
+    from spath_tpu_torch.ops.kernels import sweep_mm as sm
+    from spath_tpu_torch.tools import sweep_microbench as tool
+
+    g, r = ops["t1"][k]
+    first, second = sm.sweep_mm_call(g, r), sm.sweep_mm_call(g, r)
+    torch.cuda.synchronize()
+    check(tuple(first.shape) == (ops["n_rays"],)
+          and torch.isfinite(first).all().item(),
+          f"T1 K={k}: output not finite or of shape {tuple(first.shape)}")
+    check(torch.equal(first, second), f"T1 K={k}: two launches differ")
+    ref = sm.sweep_mm_plain(g, r)
+    check(ref.abs().max().item() > 1.0, f"T1 K={k}: the plain output is "
+          "near 0, the comparison would be vacuous")
+    scale = sm.sweep_mm_scale(g, r)
+    share = sm.error_ratio(first, ref, scale)
+    check(share <= sm.TIGHT_SHARE, f"T1 K={k}: {share:.4e} of the bound "
+          f"2^-16 · (scale + |plain|), above {sm.TIGHT_SHARE}")
+    control = sm.error_ratio(sm.sweep_mm_plain(*sm.drop_lo(g, r)), ref,
+                             scale)
+    check(control > sm.TIGHT_SHARE, f"T1 K={k}: the lo-dropping control "
+          f"is within {control:.4e} of the bound: the check cannot see a "
+          "16-bit product")
+    yard = tool.yardstick(g, r)
+    return dict(rays=ops["n_rays"], n_tris=ops["n_tris"], bitwise_equal=True,
+                bound_share=share, control_bound_share=control,
+                max_abs_err=(first - ref).abs().max().item(),
+                plain_mean=ref.double().mean().item(),
+                yardstick_bound_share=sm.error_ratio(yard, ref, scale))
+
+
+def cold_l2_ms(torch, fn, reps: int = 3) -> float:
+    """Mean ms of single calls of ``fn``, each after a 256 MB write has
+    evicted the 50 MB L2, CUDA events around the call alone."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def t1_phase(torch) -> tuple:
+    """Phase 42: the microbenchmark through its entry point, with every
+    count zeroed just before and read just after; T1 and K5 held to their
+    plain versions on the tensors the tool timed. Returns T1's two
+    entries of the kernels' record and K5's check at this shape."""
+    from spath_tpu_torch.ops.kernels import sweep_mm as sm
+    from spath_tpu_torch.tools import sweep_microbench as tool
+
+    log(f"[42] T1 ptxas: {t1_ptxas()}")
+    w, h, n_tris = T1_SHAPE
+    zero_counts(every_kernel())
+    bench = tool.run(["--width", str(w), "--height", str(h), "--tris",
+                      str(n_tris), "--reps", str(T1_REPS)])
+    per_line = 1 + 2 * T1_REPS
+    launched = launched_only({"K5": per_line, "T1": 2 * per_line},
+                             "the microbenchmark")
+    lines = bench["lines"]
+    for k in (128, 64):
+        got = lines[f"T1 K={k}"]["launches"]
+        check(got == per_line, f"T1 K={k} launched {got} times in the "
+              f"microbenchmark, want {per_line}")
+    log(f"[42] the microbenchmark at {w}x{h} x {n_tris} triangles "
+        f"launched {launched}")
+    ops = bench["ops"]
+    k5_check = k5_vs_plain(torch, ops["scene"],
+                           (ops["o"], ops["d"], ops["src"]),
+                           "K5 microbenchmark", tri=ops["tri"])
+    k5_check["launches"] = launched["K5"]
+    log(f"[42] K5 vs plain, {k5_check['rays']} rays x {n_tris} triangles "
+        f"(the whole shape, the tool's tensors): {k5_check}")
+    records = []
+    for k in (128, 64):
+        c = t1_vs_plain(torch, ops, k)
+        g, r = ops["t1"][k]
+        plain_ms = [event_ms(torch, lambda: sm.sweep_mm_plain(g, r), 1)
+                    for _ in range(2)]
+        cold = cold_l2_ms(torch, lambda: sm.sweep_mm_call(g, r))
+        t1, yard = lines[f"T1 K={k}"], lines[f"cuBLAS K={k}"]
+        b = sm.bound(ops["n_rays"], n_tris, k)
+        log(f"[42] T1 K={k} vs plain, {c['rays']} rays x {n_tris} "
+            f"triangles (the whole shape, the tool's tensors): {c}; plain "
+            f"{plain_ms} ms; after an L2 flush {cold:.4f} ms")
+        records.append({
+            "name": f"sweep_matmul_k{k}",
+            "route": "cuda",
+            "source": "spath_tpu_torch/csrc/sweep_mm.cu",
+            "replaces": "tools/sweep_microbench.py:"
+                        + ("59" if k == 128 else "74"),
+            "launches": t1["launches"],
+            "launches_by_path": {"microbenchmark": t1["launches"],
+                                 "render paths": 0},
+            "max_abs_err": c["max_abs_err"],
+            "bound_share_of_error": c["bound_share"],
+            "control_bound_share": c["control_bound_share"],
+            "ms": t1["mean_ms"],
+            "ms_in_turns": t1["ms"],
+            "ms_cold_l2": cold,
+            "plain_ms": sum(plain_ms) / 2,
+            "at": f"{ops['n_rays']} rays x {n_tris} triangles",
+            "bound_ms": b["ms"],
+            "bound_by": b["by"],
+            "ceiling_ms": b["ceiling_ms"],
+            "library_ms": yard["mean_ms"],
+            "library_call": "torch.mm of the bf16 operands into float32 "
+                            "(cuBLAS), then amin and the ordered block "
+                            "sum: a GEMM plus amin, not one call",
+            "k5_ms_same_shape": lines["K5"]["mean_ms"],
+        })
+    del ops, bench
+    return records, k5_check
 
 
 def run() -> None:
@@ -2930,6 +3097,9 @@ def run() -> None:
     log(f"[41] pose steps at {POSE_STEP_LR} from the true camera, default "
         f"scene, 320x240 spp8 quality (recorded, not asserted): {pose}")
 
+    # 42. T1, the matmul-only sweep microbenchmark, through its tool
+    t1_records, k5_bench = t1_phase(torch)
+
     print(json.dumps({"kernels": [{
         "name": "megakernel_forward",
         "route": "cuda",
@@ -3090,8 +3260,9 @@ def run() -> None:
         "launches": vtr["launches"]["K5"],
         "launches_by_path": {"vis_grad training": vtr["launches"]["K5"],
                              "vis_grad training, 10k": vbtr["launches"]["K5"],
-                             "wavefront hash+uniform": wlaunched["K5"]},
-        "max_abs_err": k5_err,
+                             "wavefront hash+uniform": wlaunched["K5"],
+                             "microbenchmark": k5_bench["launches"]},
+        "max_abs_err": max(k5_err, k5_bench["max_abs_err"]),
         "ms": sum(k5_slice["ms"]) / len(k5_slice["ms"]),
         "plain_ms": sum(k5_slice["plain_ms"]) / 2,
         "at": f"{k5_slice['rays']} rays x {k5_slice['n_tris']} triangles",
@@ -3119,7 +3290,7 @@ def run() -> None:
         "bound_ms": k11_bound[0],
         "bound_by": k11_bound[1],
         "library_ms": None,
-    }]}))
+    }, *t1_records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

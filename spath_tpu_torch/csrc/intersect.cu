@@ -19,8 +19,9 @@
 // double-buffered (stream_sweep.cuh: stream_nearest, the large-scene
 // kernels' sweep without their walk), each staged row tested with K1's
 // mt_test. The TPU kernel's bf16 split packing of Plucker features for its
-// matrix unit (pack_lhs/pack_rhs) is a TPU layout and is not ported; the
-// products here are exact float32.
+// matrix unit (pack_lhs/pack_rhs) is a TPU layout and not K5's (it is kept
+// only as the operands of the microbenchmark T1, sweep_mm.cu); the products
+// here are exact float32.
 //
 // Bound: operations. Each (ray, triangle) test is ~46 float operations
 // (the origin terms included); device memory sees 36 bytes a ray (origin,

@@ -12,6 +12,10 @@ one exact step: the result r is right when x lies between the squares
 of the midpoints of r and its float32 neighbours, and those squares are
 exact in float64 (a midpoint has 25 significant bits, its square 50).
 Autograd differentiates through the float64 root.
+
+``fma_rn`` is the fused multiply-add ``a·b + c`` rounded once, which
+XLA's CPU programs use where they contract a product into a sum (as in
+``jnp.cross``); PyTorch has no float32 FMA of its own on the CPU.
 """
 
 from __future__ import annotations
@@ -34,3 +38,24 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
                                        torch.zeros_like(r32)))
     # r ± one ulp is exact in float32; the gradient is the root's
     return r + step
+
+
+def fma_rn(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a·b + c`` of float32 tensors, rounded once to float32 (no
+    gradient). The product is exact in float64 and the float64 sum s is
+    exact up to its error e (two-sum); rounding s to float32 is right
+    except where s lies exactly on a float32 midpoint with e != 0, when
+    the result is the neighbour on e's side."""
+    with torch.no_grad():
+        p = a.double() * b.double()
+        c64 = c.double()
+        s = p + c64
+        t = s - p
+        e = (p - (s - t)) + (c64 - t)
+        r = s.float()
+        up = torch.nextafter(r, torch.full_like(r, float("inf")))
+        down = torch.nextafter(r, torch.full_like(r, float("-inf")))
+        r64 = r.double()
+        to_up = (s == (r64 + up.double()) * 0.5) & (e > 0)
+        to_down = (s == (r64 + down.double()) * 0.5) & (e < 0)
+        return torch.where(to_up, up, torch.where(to_down, down, r))

@@ -187,6 +187,11 @@ def library() -> ctypes.CDLL:
     # K5: origins, directions, src, tri, dist, idx, n, T
     lib.spath_nearest_hit.argtypes = [ptr] * 6 + [i32, i32, ptr]
     lib.spath_nearest_hit.restype = i32
+    # T1: gfeat, rfeat, out, n_rays, n_blocks
+    for k in (64, 128):
+        fn = getattr(lib, f"spath_sweep_mm_k{k}")
+        fn.argtypes = [ptr] * 3 + [i32, i32, ptr]
+        fn.restype = i32
     lib.spath_error_string.argtypes = [i32]
     lib.spath_error_string.restype = ctypes.c_char_p
     return lib

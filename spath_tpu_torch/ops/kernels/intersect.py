@@ -20,7 +20,8 @@ Layouts, as the wrapper checks them (all contiguous):
 K5 is bit-identical to its plain version, the reference sweep
 ``ops/intersect.py::_sweep``, in both outputs. The JAX kernel's bf16 split
 packing of Plücker features (``pack_tri_blocks``) is a layout for the
-TPU's matrix unit and is not ported. The backward stays the O(N)
+TPU's matrix unit and is not K5's: the port keeps it only as the operands
+of the matmul-only microbenchmark T1 (``ops/kernels/sweep_mm.py``). The backward stays the O(N)
 derivative of the selected triangle's distance (``ops/intersect.py``:
 ``_dist_selected``), which is XLA in the JAX package too.
 
