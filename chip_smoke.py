@@ -87,8 +87,8 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     equal.
 19. K6 against K1, to the bit, on the default, 25-triangle and
     1024-triangle scenes at phase 2's and phase 6's shapes; against its
-    plain version (phase 2's bounds) on the 1150-triangle combined scene
-    at 320x240x8, procedural_scene(10_000) at 64x48x2 and
+    plain version, to the bit, on the 1150-triangle combined scene at
+    320x240x8, procedural_scene(10_000) at 64x48x2 and
     procedural_scene(2^20) at 32x16x1, 3 bounces.
 20. K8 with K7 against ``mega_bwd_plain`` (phase 6's bounds, columns 0-8
     zero, two launches bitwise equal) at phase 19's shapes, and within
@@ -96,8 +96,9 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
 21. The large-scene serving slice at full width: ``render_pt_fast`` on
     procedural_scene(10_000, seed=0) at 1920x1080, 64 spp, 5 bounces
     through one K6 launch and no other kernel; the frame's rows 536-543
-    against the plain version on the same rays and seeds, and against K6
-    launched on those rows alone; then procedural_scene(100_000) at 2 spp.
+    against the plain version on the same rays and seeds, to the bit, and
+    against K6 launched on those rows alone; then procedural_scene(100_000)
+    at 2 spp.
 22. The gradient entry point on the 1150-triangle scene at 320x240x8
     through K6, K8 and K7, against autograd of the plain wavefront, and
     emission linearity.
@@ -107,12 +108,19 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
 24. The CLI: ``render --scene procedural:10000`` and ``invert --scene
     procedural:2000`` at 640x480.
 25. The routing crossover table (K1 vs K6, K1+K2 vs K6+K8+K7 at T = 64 to
-    1024, 320x240x8); K6 timed at phase 21's shape, K8 and K7 at phase
-    23's (CUDA events; K8's time is the backward call's less its K7
-    calls), the plain versions on
-    rows 536-543 in turns with the kernel on the same rows, ``index_add_``
-    beside K7, and the walk counted on rows spread over the frame for the
-    bounds.
+    1024, 320x240x8, in turns); K6 timed at phase 21's shape: two whole
+    frames bitwise equal (K6's queue hands pixels out in another order
+    every launch), equal to the served frame, and its rows COUNT_ROWS
+    bit-equal to the plain version; K8 and K7 at phase 23's (CUDA events;
+    K8's time is the backward call's less its K7 calls), the plain
+    versions on rows 536-543 in turns with the kernel on the same rows;
+    K7 on that call's first chunk of events held to its plain version
+    (each column within 1e-5 of its max, two launches bitwise equal),
+    timed in turns with ``index_add_`` (its launches one by one:
+    ``tools/kernel_ab.py``);
+    the walk counted on COUNT_ROWS for the bounds, with the idle lane
+    share of the lockstep, regeneration and queue schedules
+    (``bigscene.lane_schedules``) and K6's resident CTAs.
 
 26. The light distribution kernel against its plain version, bit for
     bit, at 8193, 10k, 100k and 2^20 triangles (1% emissive), and K7 at
@@ -147,8 +155,10 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     to 1024, 320x240x8, NEE+MIS); K9 timed at phase 29's shape, K10 and
     K7 at 19 columns at phase 31's (CUDA events; K10's time is the
     backward call's less its K7 calls), the plain versions on rows
-    536-543 in turns with the kernel on the same rows, ``index_add_``
-    beside K7, the walk counted for the bounds and the CTAs' idle lanes.
+    536-543 in turns with the kernel on the same rows; K7 held to its
+    plain version on that call's first events as in phase 25, timed in
+    turns with ``index_add_``; the walk counted for the
+    bounds and the CTAs' idle lanes.
 
 34. K5 against the plain sweep ``_sweep``, both outputs to the bit, on
     one residual slice of rays (512x512 camera rays; bounce-shaped rays
@@ -1069,33 +1079,55 @@ def rows_of(torch, width: int, rows, *tensors):
     return tuple(t[idx].contiguous() for t in tensors)
 
 
-def walk_counts(torch, o, d, seeds, tri, cfg, cta: int = 128) -> dict:
+def walk_counts(torch, o, d, seeds, tri, cfg, cta: int = 128,
+                queue_ctas: int | None = None) -> dict:
     """The conformance walk's work on these rays, from the plain replay:
     ray sweeps (the camera sweep and one after every hit but the last
-    bounce's), hits, and the sweeps of the streamed kernels' 128-ray CTAs
-    (a CTA sweeps while any of its rays still hits), so the share of
-    their lanes that idle through a sweep."""
+    bounce's), hits, and the sweeps of the first port's 128-ray CTAs in
+    lockstep (a CTA sweeps while any of its rays still hits), so the
+    share of their lanes that idle through a sweep. With ``queue_ctas``,
+    also the idle lane shares of the lockstep, regeneration and queue
+    schedules (``bigscene.lane_schedules``, ``queue_ctas`` CTAs sharing
+    the queue) under ``schedules``."""
+    from spath_tpu_torch.ops.kernels import bigscene as bs
     from spath_tpu_torch.ops.kernels import megakernel_grad as mg
 
     n = o.shape[0]
     pad = (-n) % cta
     sweeps, hits, cta_sweeps = n, 0, (n + pad) // cta
+    per_sample = [torch.ones(n, dtype=torch.int64, device=o.device)]
     with torch.no_grad():
         for saved in mg.replay(o, d, seeds, tri, cfg):
             masks = [hit for hit, *_ in saved]
             per_bounce = torch.stack([m.sum() for m in masks])
             hits += int(per_bounce.sum())
             sweeps += int(per_bounce[:-1].sum())
+            per_sample.append(sum((m.long() for m in masks[:-1]),
+                                  torch.zeros_like(per_sample[0])))
             for m in masks[:-1]:
                 live = torch.nn.functional.pad(m, (0, pad))
                 cta_sweeps += int(live.view(-1, cta).any(1).sum())
-    return dict(rays=n, sweeps=sweeps, hits=hits, cta_sweeps=cta_sweeps,
-                idle_lane_share=1.0 - sweeps / (cta_sweeps * cta))
+    out = dict(rays=n, sweeps=sweeps, hits=hits, cta_sweeps=cta_sweeps,
+               idle_lane_share=1.0 - sweeps / (cta_sweeps * cta))
+    if queue_ctas is not None:
+        totals = torch.stack(per_sample, 1).cpu().numpy()
+        out["schedules"] = bs.lane_schedules(totals, cta, queue_ctas)
+    return out
 
 
 def scaled(walk: dict, factor: float) -> dict:
-    return {k: (v * factor if k != "idle_lane_share" else v)
-            for k, v in walk.items()}
+    return {k: (v * factor if k not in ("idle_lane_share", "schedules")
+                else v) for k, v in walk.items()}
+
+
+def queue_ctas(n_frame: int, n_rows: int, per_sm: int, sms: int) -> int:
+    """CTAs sharing the queue in the count of ``n_rows`` rays, so that each
+    lane takes as many pixels as on the whole frame of ``n_frame`` rays
+    (K6's grid, ``bigscene.queue_plan``)."""
+    from spath_tpu_torch.ops.kernels import bigscene as bs
+
+    grid = bs.queue_plan(n_frame, per_sm, sms)
+    return max(1, round(grid * n_rows / n_frame))
 
 
 def scatter_vs_plain(torch, dev, n_tris: int, n_events: int,
@@ -1152,9 +1184,9 @@ def big_vs_k1(torch, cam, scene, cfg, name: str) -> dict:
 
 
 def big_vs_plain(torch, cam, scene, cfg, name: str, tri_block: int) -> dict:
-    """Phase 19: K6 against ``megakernel_plain`` on the same rays, with
-    phase 2's bounds (the plain sweep's ``tri_block`` changes its memory,
-    not its result)."""
+    """Phase 19: K6 against ``megakernel_plain`` on the same rays, to the
+    bit, and with phase 2's bounds (the plain sweep's ``tri_block``
+    changes its memory, not its result)."""
     from spath_tpu_torch.ops.kernels import bigscene as bs
     from spath_tpu_torch.ops.kernels import megakernel as mk
 
@@ -1164,15 +1196,18 @@ def big_vs_plain(torch, cam, scene, cfg, name: str, tri_block: int) -> dict:
     torch.cuda.synchronize()
     want = mk.megakernel_plain(o, d, seeds, tri,
                                cfg.replace(tri_block=tri_block))
-    return check_against_plain(torch, got, want, name)
+    c = check_against_plain(torch, got, want, name)
+    check(c["bit_exact"], f"{name}: K6 differs from its plain version by "
+          f"{c['max_abs_err']:.6g}")
+    return c
 
 
 def big_serving(torch, dev, cam, n_tris: int, cfg, tri_block: int) -> dict:
     """Phase 21: ``render_pt_fast`` on procedural_scene(n_tris, seed=0)
     at full width through one K6 launch and nothing else; the frame's
     band of rows against the plain version on the same rays and seeds
-    (phase 2's bounds) and against K6 launched on the band alone (to the
-    bit); the frame not vacuous."""
+    (to the bit, and phase 2's bounds) and against K6 launched on the
+    band alone (to the bit); the frame not vacuous."""
     from spath_tpu_torch.models.pathtracer import render_pt_fast
     from spath_tpu_torch.ops.kernels import bigscene as bs
     from spath_tpu_torch.ops.kernels import megakernel as mk
@@ -1207,8 +1242,11 @@ def big_serving(torch, dev, cam, n_tris: int, cfg, tri_block: int) -> dict:
                                  cfg.replace(tri_block=tri_block))
     c = check_against_plain(torch, band_k, band_p,
                             f"{n_tris} triangles, rows {BAND_ROWS}")
+    check(c["bit_exact"], f"{n_tris} triangles: the band differs from the "
+          f"plain version by {c['max_abs_err']:.6g}")
     return dict(launches=launched, first_s=first_s, mean=mean,
                 band_vs_plain=c, rays=(o, d, seeds), band=band, tri=tri,
+                img=img,
                 scene=scene)
 
 
@@ -1308,9 +1346,10 @@ def first_chunk_events(torch, call, *args):
 
 
 def scatter_timing(torch, dev, idx, val, n_tris: int) -> dict:
-    """K7 on one chunk's events: timed in turns with its plain version,
-    ``index_add_`` beside it, held to the plain version (SCATTER_RTOL of
-    its max), and its bound."""
+    """K7 on one chunk's events: held to its plain version (each column
+    within SCATTER_RTOL of its max|plain|), two launches bitwise equal;
+    timed in turns with its plain version and in turns with
+    ``index_add_`` (K7, index_add_, index_add_, K7); and its bound."""
     from spath_tpu_torch.ops.kernels import stream_scatter as ss
 
     cols = val.shape[1]
@@ -1327,23 +1366,35 @@ def scatter_timing(torch, dev, idx, val, n_tris: int) -> dict:
     def plain():
         ss.stream_scatter_plain(zeros(), idx, val)
 
-    lib_adj = zeros()
-    kernel()
-    ms, plain_ms = in_turns(torch, kernel, plain, kernel_reps=3)
-    lib_adj.index_add_(0, lidx, lval)
-    library_ms = [event_ms(torch, lambda: lib_adj.index_add_(0, lidx, lval),
-                           3) for _ in range(2)]
     got = ss.stream_scatter_call(zeros(), idx, val)
+    again = ss.stream_scatter_call(zeros(), idx, val)
     want = ss.stream_scatter_plain(zeros(), idx, val)
-    err = (got - want).abs().max().item()
-    check(err <= SCATTER_RTOL * want.abs().max().item(),
-          f"K7 on {cols}-column events off its plain version by {err}")
+    scale = want.abs().amax(0)
+    err = (got - want).abs().amax(0)
+    check(bool((err <= SCATTER_RTOL * scale).all()),
+          f"K7 on {cols}-column events off its plain version by "
+          f"{err.tolist()}, max|plain| {scale.tolist()}")
+    check(torch.equal(got, again), f"K7 on {cols}-column events: two "
+          "launches differ")
+    del got, again, want
+    ms, plain_ms = in_turns(torch, kernel, plain, kernel_reps=3)
+    lib_adj = zeros()
+
+    def library():
+        lib_adj.index_add_(0, lidx, lval)
+
+    library()
+    turns = [event_ms(torch, f, 3) for f in (kernel, library, library,
+                                               kernel)]
+    ms += [turns[0], turns[3]]
     # one add a column an event; each slot's index read, each valid
     # event's values read, the float64 adjoint written
     bound_ = bound(cols * n_valid,
                    idx.shape[0] * 4 + n_valid * 4 * cols + n_tris * 8 * cols)
     return dict(slots=idx.shape[0], events=n_valid, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, max_abs_err=err, bound=bound_)
+                library_ms=turns[1:3], max_abs_err=err.max().item(),
+                rel_err=(err / scale.clamp_min(1e-30)).max().item(),
+                deterministic=True, bound=bound_)
 
 
 def in_turns(torch, kernel, plain, kernel_reps: int = 1):
@@ -2515,21 +2566,44 @@ def run() -> None:
     log(f"[25] route: K1 up to {rt.SMEM_ROUTE_MAX_TRIS} triangles, K1+K2 "
         f"up to {rt.GRAD_ROUTE_MAX_TRIS}; the streamed kernels above")
 
-    # K6 at the serving shape: the checked launch was the warm-up
+    # K6 at the serving shape: the checked launch was the warm-up. The
+    # queue hands pixels out in another order every launch: two whole
+    # frames are bitwise equal, equal the served frame, and their count
+    # rows equal the plain version's
     bo, bd, bseeds = serve["rays"]
     btri = serve["tri"]
     band = serve["band"]
-    k6_ms = [event_ms(torch, lambda: bs.bigscene_call(bo, bd, bseeds, btri,
-                                                      big_cfg), 1)]
+    frames = []
+
+    def k6_frame():
+        frames.append(bs.bigscene_call(bo, bd, bseeds, btri, big_cfg))
+
+    k6_ms = [event_ms(torch, k6_frame, 1)]
     if k6_ms[0] < LONG_LAUNCH_MS:
-        k6_ms.append(event_ms(torch, lambda: bs.bigscene_call(
-            bo, bd, bseeds, btri, big_cfg), 1))
+        k6_ms.append(event_ms(torch, k6_frame, 1))
+    else:
+        k6_frame()
+    check(torch.equal(frames[0], frames[1]), "K6: two whole frames differ")
+    check(torch.equal(frames[0].clamp(0.0, 1.0).reshape(serve["img"].shape),
+                      serve["img"]), "K6: the frame differs from the served "
+          "frame")
     plain_cfg = big_cfg.replace(tri_block=2048)
+    count_rays = rows_of(torch, big_cfg.width, COUNT_ROWS, bo, bd, bseeds)
+    count_plain = mk.megakernel_plain(*count_rays, btri, plain_cfg)
+    count_rows = rows_of(torch, big_cfg.width, COUNT_ROWS, frames[0])[0]
+    check(torch.equal(count_rows, count_plain), "K6: the frame's rows "
+          f"{list(COUNT_ROWS)} differ from the plain version by "
+          f"{(count_rows - count_plain).abs().max().item():.6g}")
+    del frames, count_plain, count_rows
     k6_band_ms, k6_plain_ms = in_turns(
         torch, lambda: bs.bigscene_call(*band, btri, big_cfg),
         lambda: mk.megakernel_plain(*band, btri, plain_cfg))
-    walk = walk_counts(torch, *rows_of(torch, big_cfg.width, COUNT_ROWS, bo,
-                                       bd, bseeds), btri, plain_cfg)
+    per_sm, sms = bs.resident_ctas(dev.index)
+    k6_grid = bs.queue_plan(bo.shape[0], per_sm, sms)
+    walk = walk_counts(torch, *count_rays, btri, plain_cfg,
+                       queue_ctas=queue_ctas(bo.shape[0],
+                                             count_rays[0].shape[0], per_sm,
+                                             sms))
     walk = scaled(walk, big_cfg.height / len(COUNT_ROWS))
     nb_rays, nb_tris = bo.shape[0], btri.shape[0]
     k6_ms_mean = sum(k6_ms) / len(k6_ms)
@@ -2538,11 +2612,14 @@ def run() -> None:
     big_segs = big_cfg.width * big_cfg.height * big_cfg.spp \
         * big_cfg.max_bounces
     log(f"[25] K6, {BIG_T} triangles, {big_frame} on {smi}: {k6_ms} ms a "
-        f"frame ({big_segs / (k6_ms_mean / 1e3):.4e} rays/s); on rows "
-        f"{BAND_ROWS.start}-{BAND_ROWS.stop - 1}: K6 {k6_band_ms} ms, plain "
-        f"{k6_plain_ms} ms; the walk (rows {list(COUNT_ROWS)} counted, "
-        f"scaled to the frame): {walk}; operations {k6_ops:.4e}, bound "
-        f"{k6_bound[0]:.4f} ms ({k6_bound[1]})")
+        f"frame ({big_segs / (k6_ms_mean / 1e3):.4e} rays/s), two frames "
+        f"bitwise equal, rows {list(COUNT_ROWS)} bit-equal to the plain "
+        f"version; grid {k6_grid} CTAs ({per_sm} resident a SM x {sms} "
+        f"SMs); on rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}: K6 "
+        f"{k6_band_ms} ms, plain {k6_plain_ms} ms; the walk (rows "
+        f"{list(COUNT_ROWS)} counted, scaled to the frame): {walk}; "
+        f"operations {k6_ops:.4e}, bound {k6_bound[0]:.4f} ms "
+        f"({k6_bound[1]})")
 
     # K8 and K7 at the training shape
     to, td, tseeds = mk.pack_rays(cam, train_cfg, 0)
@@ -2567,8 +2644,11 @@ def run() -> None:
     log(f"[25] K8 vs plain, {BIG_T} triangles, {big_cfg.width}x"
         f"{big_cfg.height} spp{train_cfg.spp}, rows {BAND_ROWS.start}-"
         f"{BAND_ROWS.stop - 1}: {k8_check}")
-    twalk = walk_counts(torch, *rows_of(torch, big_cfg.width, COUNT_ROWS, to,
-                                        td, tseeds), btri, tplain_cfg)
+    tcount = rows_of(torch, big_cfg.width, COUNT_ROWS, to, td, tseeds)
+    twalk = walk_counts(torch, *tcount, btri, tplain_cfg,
+                        queue_ctas=queue_ctas(to.shape[0],
+                                              tcount[0].shape[0], per_sm,
+                                              sms))
     twalk = scaled(twalk, big_cfg.height / len(COUNT_ROWS))
     slots = to.shape[0] * train_cfg.spp * train_cfg.max_bounces
     k8_ops = twalk["sweeps"] * nb_tris * MT_OPS + twalk["hits"] * K8_HIT_OPS
@@ -2586,9 +2666,11 @@ def run() -> None:
     k7 = scatter_timing(torch, dev, cidx, cval, nb_tris)
     log(f"[25] K7 on one chunk's events ({k7['slots']} slots, {k7['events']} "
         f"events, {BIG_T} triangles) on {smi}: {k7['ms']} ms, plain "
-        f"{k7['plain_ms']} ms, index_add_ {k7['library_ms']} ms; max error "
-        f"{k7['max_abs_err']:.3g}; bound {k7['bound'][0]:.4f} ms "
-        f"({k7['bound'][1]})")
+        f"{k7['plain_ms']} ms, index_add_ {k7['library_ms']} ms (in turns "
+        f"with K7's last two); max error {k7['max_abs_err']:.3g} "
+        f"({k7['rel_err']:.3g} of its "
+        f"column's max), two launches bitwise equal; bound "
+        f"{k7['bound'][0]:.4f} ms ({k7['bound'][1]})")
     del cidx, cval
 
     # ---- the quality estimator on large scenes: the light distribution
@@ -2832,8 +2914,10 @@ def run() -> None:
     log(f"[33] K7 at 19 columns on one chunk's events ({k7q['slots']} "
         f"slots, {k7q['events']} events, {BIG_T} triangles) on {smi}: "
         f"{k7q['ms']} ms, plain {k7q['plain_ms']} ms, index_add_ "
-        f"{k7q['library_ms']} ms; max error {k7q['max_abs_err']:.3g}; bound "
-        f"{k7q['bound'][0]:.4f} ms ({k7q['bound'][1]})")
+        f"{k7q['library_ms']} ms (in turns with K7's last two); max error "
+        f"{k7q['max_abs_err']:.3g} ({k7q['rel_err']:.3g} of its column's "
+        f"max), two launches bitwise equal; bound {k7q['bound'][0]:.4f} ms "
+        f"({k7q['bound'][1]})")
     del qidx, qval
 
     # ---- visibility gradients: K5, K11, deeper gradients (34-41) ----
@@ -3179,6 +3263,10 @@ def run() -> None:
                              "training": btr["k6"]},
         "max_abs_err": serve["band_vs_plain"]["max_abs_err"],
         "ms": k6_ms_mean,
+        "idle_lane_share": {
+            k: v["idle_lane_share"] for k, v in walk["schedules"].items()
+            if isinstance(v, dict)},
+        "grid": {"ctas": k6_grid, "resident_per_sm": per_sm, "sms": sms},
         "band_ms": sum(k6_band_ms) / len(k6_band_ms),
         "plain_ms": sum(k6_plain_ms) / 2,
         "plain_at": f"rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}",

@@ -2,9 +2,11 @@
 // (megakernel.cu) and K6 (bigscene.cu) and their backward kernels K2
 // (megakernel_grad.cu) and K8 (bigscene_grad.cu), so that every replay
 // compiles from one source and takes the same hits, draws and directions
-// bit for bit. The walk (sample_walk) is a template over the nearest-hit
-// sweep: TableSweep here for K1 and K2, StreamSweep (stream_sweep.cuh),
-// which stages rows in shared memory, for K6 and K8. The nearest-hit
+// bit for bit. Each bounce is one walk_step; sample_walk (K1, K2, K8)
+// runs a sample's bounces in order, K6 its own queue of paths. The walk
+// is a template over the nearest-hit sweep: TableSweep here for K1 and
+// K2, StreamSweep (stream_sweep.cuh), which stages rows in shared memory,
+// for K6 and K8. The nearest-hit
 // sweeps take the table's row stride as a template argument: 18 columns
 // for the conformance table, 21 for the quality table of K3 and K4
 // (quality_walk.cuh).
@@ -248,62 +250,100 @@ struct Saved {
   }
 };
 
+// One sample's path between sweeps: the ray (origin o, direction d, and
+// src, the triangle it leaves, -1 for a camera ray), the throughput
+// before the next hit and the radiance gathered so far.
+struct Path {
+  float ox, oy, oz, dx, dy, dz;
+  int src;
+  float thr_r, thr_g, thr_b;
+  float rad_r, rad_g, rad_b;
+
+  // A new sample along the camera ray o0 + t d0.
+  __device__ __forceinline__ void start(float ox0, float oy0, float oz0,
+                                        float dx0, float dy0, float dz0) {
+    ox = ox0;
+    oy = oy0;
+    oz = oz0;
+    dx = dx0;
+    dy = dy0;
+    dz = dz0;
+    src = -1;
+    thr_r = 1.0f;
+    thr_g = 1.0f;
+    thr_b = 1.0f;
+    rad_r = 0.0f;
+    rad_g = 0.0f;
+    rad_b = 0.0f;
+  }
+};
+
+// One bounce of the conformance walk at the hit h (h.idx >= 0) of the
+// path's ray: shade the hit (two LCG draws, the angle sampler), add its
+// emission times the throughput, scale the throughput, and turn the ray
+// into the sampled direction from the hit point. rec(bounce, idx,
+// surface, tr, tg, tb) sees the throughput before the bounce. Every walk
+// of K1, K2, K6 and K8 runs its bounces through this step.
+template <class Rec>
+__device__ __forceinline__ void walk_step(const float* __restrict__ tri,
+                                          const Hit& h, int bounce,
+                                          uint32_t& seed, Path& p,
+                                          Rec& rec) {
+  const Surface sf = surface(tri, h.idx, p.dx, p.dy, p.dz, seed);
+  const float* r = tri + h.idx * kCols;
+  const float ar = __ldg(r + 12), ag = __ldg(r + 13), ab = __ldg(r + 14);
+  const float er = __ldg(r + 15), eg = __ldg(r + 16), eb = __ldg(r + 17);
+  rec(bounce, h.idx, sf, p.thr_r, p.thr_g, p.thr_b);
+
+  p.rad_r = p.rad_r + p.thr_r * er;
+  p.rad_g = p.rad_g + p.thr_g * eg;
+  p.rad_b = p.rad_b + p.thr_b * eb;
+  p.thr_r = p.thr_r * ar * sf.w;
+  p.thr_g = p.thr_g * ag * sf.w;
+  p.thr_b = p.thr_b * ab * sf.w;
+
+  p.ox = p.ox + h.dist * p.dx;
+  p.oy = p.oy + h.dist * p.dy;
+  p.oz = p.oz + h.dist * p.dz;
+  p.dx = sf.sx;
+  p.dy = sf.sy;
+  p.dz = sf.sz;
+  p.src = h.idx;
+}
+
 // One sample of the conformance walk through `sweep`: the camera ray's
 // hit `first` (swept once for all samples), up to max_bounces segments,
-// two LCG draws only on a hit, the angle sampler, forward throughput and
-// radiance. At every hit it calls rec(bounce, idx, surface, tr, tg, tb)
-// with the throughput before the bounce. `live` is false for a thread
-// without a ray. A path that misses stops: every later term of the
-// masked TPU walk is zero and its seed does not move, so this is exact.
-// With a CTA-wide sweep, a thread whose path ended keeps calling it until
-// no thread of the CTA has a live path; otherwise it leaves the loop at
-// once.
+// each hit through walk_step. `live` is false for a thread without a
+// ray. A path that misses stops: every later term of the masked TPU walk
+// is zero and its seed does not move, so this is exact. With a CTA-wide
+// sweep, a thread whose path ended keeps calling it until no thread of
+// the CTA has a live path; otherwise it leaves the loop at once. (K6
+// runs the same steps in its own loop, a lane per path: bigscene.cu.)
 template <class Sweep, class Rec>
 __device__ __forceinline__ void sample_walk(
     const float* __restrict__ tri, const Sweep& sweep, bool live, float ox0,
     float oy0, float oz0, float dx0, float dy0, float dz0, const Hit& first,
     int max_bounces, uint32_t& seed, float& rad_r, float& rad_g,
     float& rad_b, Rec& rec) {
-  float ox = ox0, oy = oy0, oz = oz0;
-  float dx = dx0, dy = dy0, dz = dz0;
-  int src = -1;
-  float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
-  rad_r = 0.0f;
-  rad_g = 0.0f;
-  rad_b = 0.0f;
+  Path p;
+  p.start(ox0, oy0, oz0, dx0, dy0, dz0);
   bool active = live;
   for (int bounce = 0; bounce < max_bounces; ++bounce) {
     Hit h = first;
     if (bounce > 0) {
       if (Sweep::kCtaWide && !__syncthreads_or(active)) break;
-      h = sweep(active, ox, oy, oz, dx, dy, dz, src);
+      h = sweep(active, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.src);
     }
     if (!active || h.idx < 0) {
       if (!Sweep::kCtaWide) break;
       active = false;
       continue;
     }
-    const Surface sf = surface(tri, h.idx, dx, dy, dz, seed);
-    const float* r = tri + h.idx * kCols;
-    const float ar = __ldg(r + 12), ag = __ldg(r + 13), ab = __ldg(r + 14);
-    const float er = __ldg(r + 15), eg = __ldg(r + 16), eb = __ldg(r + 17);
-    rec(bounce, h.idx, sf, thr_r, thr_g, thr_b);
-
-    rad_r = rad_r + thr_r * er;
-    rad_g = rad_g + thr_g * eg;
-    rad_b = rad_b + thr_b * eb;
-    thr_r = thr_r * ar * sf.w;
-    thr_g = thr_g * ag * sf.w;
-    thr_b = thr_b * ab * sf.w;
-
-    ox = ox + h.dist * dx;
-    oy = oy + h.dist * dy;
-    oz = oz + h.dist * dz;
-    dx = sf.sx;
-    dy = sf.sy;
-    dz = sf.sz;
-    src = h.idx;
+    walk_step(tri, h, bounce, seed, p, rec);
   }
+  rad_r = p.rad_r;
+  rad_g = p.rad_g;
+  rad_b = p.rad_b;
 }
 
 }  // namespace spath

@@ -44,13 +44,14 @@ from spath_tpu_torch.scene import Scene
 #: triangles, the streamed ones the larger. Set from the K1/K6 and
 #: K1+K2/K6+K8+K7 timings at T in {64, 128, 256, 512, 1024}, 320x240, 8
 #: spp, on an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase
-#: 25, PERF.md section 6): K1 was no slower than K6 beyond the
-#: run-to-run spread at 64 triangles and 1.1-4.7% faster from 128 to 1024,
-#: so K1 takes every scene it can hold (its cap, ``megakernel.MAX_TRIS``,
-#: which ``megakernel.supported`` tests); K1+K2 was faster than K6+K8+K7
-#: up to 128 triangles, 2.5% slower at 256 and 49% slower at 1024. The JAX
-#: package's 128 and 64 were measured on a TPU v5e.
-SMEM_ROUTE_MAX_TRIS = megakernel.MAX_TRIS
+#: 25, PERF.md section 6): with K6's queue of pixels, in two runs K1 was
+#: 8-14% faster than K6 at 64 to 256 triangles, K6 1-4% faster at 512 and
+#: 16-19% at 1024, so K1 takes scenes of up to 256 triangles (below its
+#: cap, ``megakernel.MAX_TRIS``); K1+K2 was faster than K6+K8+K7 up to 128
+#: triangles, level at 256 (within 2%), and took 23-25% and 63-64% longer
+#: at 512 and 1024. The JAX package's 128 and 64 were measured on a TPU
+#: v5e.
+SMEM_ROUTE_MAX_TRIS = 256
 GRAD_ROUTE_MAX_TRIS = 128
 #: The same crossovers for the quality estimator, between the fused K3
 #: (K3+K4 for a gradient) and the streamed K9 (K9+K10+K7), from the
@@ -142,7 +143,9 @@ class MegakernelRenderer(Renderer):
         return scene.device.type == "cuda"
 
     def supports(self, scene, cfg) -> bool:
-        return self.available(scene) and megakernel.supported(scene, cfg)
+        return (self.available(scene)
+                and scene.n_tris <= SMEM_ROUTE_MAX_TRIS
+                and megakernel.supported(scene, cfg))
 
     def supports_grad(self, scene, cfg) -> bool:
         return (self.available(scene)

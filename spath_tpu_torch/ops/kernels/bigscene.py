@@ -18,9 +18,14 @@ the one table.
 
 K6 computes the same function as K1 with the same arithmetic: it equals
 K1 to the bit at T <= 1024 and ``megakernel.megakernel_plain``, its plain
-version, at every T. (The JAX kernel's Plücker arithmetic differs from
-the reference Möller–Trumbore in the last bits, so the JAX suite holds it
-to its wavefront within a flip budget.)
+version, at every T, whichever lane runs which pixel. (The JAX kernel's
+Plücker arithmetic differs from the reference Möller–Trumbore in the
+last bits, so the JAX suite holds it to its wavefront within a flip
+budget.)
+
+The kernel runs a queue of pixels on a persistent grid (``queue_plan``)
+and regenerates a lane's path at once when it ends, so that its CTA-wide
+sweeps test live rays (``lane_schedules`` counts the schedules).
 
 ``bigscene_call`` launches the kernel for CUDA tensors and counts each
 launch in ``bigscene_call.launches``; for CPU tensors it computes the
@@ -30,7 +35,10 @@ same function with the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
 
+import numpy as np
 import torch
 
 from spath_tpu_torch.camera import Camera
@@ -43,6 +51,80 @@ from spath_tpu_torch.scene import Scene
 #: Largest scene the streamed kernels take (the JAX package's
 #: ``BIG_MAX_TRIS``): a (2^20, 18) float32 table is 75 MB.
 BIG_MAX_TRIS = 1 << 20
+#: Lanes (threads) of a CTA, ``kStreamThreads`` of ``csrc/stream_sweep.cuh``.
+CTA_LANES = 128
+
+
+def queue_plan(n: int, per_sm: int, sms: int) -> int:
+    """CTAs of K6's persistent grid for ``n`` rays: every CTA the card
+    holds at once (``per_sm`` on each of ``sms`` SMs), so that no CTA
+    waits for another to end, and no more than the rays fill at one ray a
+    lane. Each CTA takes pixels from the queue until it is empty."""
+    if n < 1 or per_sm < 1 or sms < 1:
+        raise ValueError(f"no grid for n={n}, {per_sm} CTAs an SM, {sms} "
+                         "SMs")
+    return min(per_sm * sms, -(-n // CTA_LANES))
+
+
+@functools.cache
+def resident_ctas(device_index: int) -> tuple[int, int]:
+    """``(per_sm, sms)``: K6's CTAs resident on one SM of the card
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and its SMs."""
+    lib = library()
+    with torch.cuda.device(device_index):
+        per_sm = lib.spath_bigscene_forward_occupancy()
+    if per_sm <= 0:
+        err = lib.spath_error_string(-per_sm).decode()
+        raise RuntimeError(f"K6 occupancy query failed: CUDA error "
+                           f"{-per_sm} ({err})")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return per_sm, sms
+
+
+def lane_schedules(totals, cta: int = CTA_LANES, ctas: int = 1) -> dict:
+    """The idle share of the lanes of K6's CTA-wide sweeps under three
+    schedules, counted from the sweeps each pixel needs. ``totals`` is an
+    ``(n, spp + 1)`` integer array: column 0 the camera sweep (1), column
+    ``s + 1`` the sweeps of sample ``s`` after its first bounce (0 for every
+    sample of a pixel whose camera ray missed). A lane that takes no part
+    in a sweep idles through it.
+
+    - ``lockstep`` (the first port): a lane a pixel, ``cta`` consecutive
+      pixels a CTA, which sweeps the camera rays once, then, sample by
+      sample, as often as its longest path needs;
+    - ``regeneration``: the same lanes, but a lane starts its pixel's next
+      sample as soon as a path ends, so the CTA sweeps as often as its
+      busiest lane needs in all;
+    - ``queue`` (the shipped design): ``ctas`` CTAs of ``cta`` lanes share
+      one queue of the pixels in order; a lane takes the next pixel when
+      its own is done (a list schedule, ties to the lowest lane), and a
+      CTA sweeps until its last lane is done.
+
+    Returns per schedule the CTA sweeps and the idle lane share,
+    ``1 - useful / (cta_sweeps * cta)``, and the useful lane sweeps."""
+    totals = np.asarray(totals, dtype=np.int64)
+    per_pixel = totals.sum(axis=1)
+    n, useful = totals.shape[0], int(per_pixel.sum())
+    pad = (-n) % cta
+    grid = np.pad(totals, ((0, pad), (0, 0))).reshape(-1, cta,
+                                                      totals.shape[1])
+    lockstep = int(grid.max(axis=1).sum())
+    regeneration = int(grid.sum(axis=2).max(axis=1).sum())
+    lanes = cta * ctas
+    free = [(0, lane) for lane in range(lanes)]
+    finish = np.zeros(lanes, dtype=np.int64)
+    for work in per_pixel.tolist():
+        t, lane = heapq.heappop(free)
+        finish[lane] = t + work
+        heapq.heappush(free, (t + work, lane))
+    queue = int(finish.reshape(ctas, cta).max(axis=1).sum())
+
+    def share(cta_sweeps: int) -> dict:
+        return dict(cta_sweeps=cta_sweeps,
+                    idle_lane_share=1.0 - useful / (cta_sweeps * cta))
+
+    return dict(useful_lane_sweeps=useful, lockstep=share(lockstep),
+                regeneration=share(regeneration), queue=share(queue))
 
 
 def supported(scene: Scene, cfg: RenderConfig) -> bool:
@@ -70,6 +152,10 @@ def bigscene_call(origins, directions, seeds, tri, cfg: RenderConfig):
     if n == 0:
         return out
     lib = library()
+    index = origins.device.index
+    grid = queue_plan(n, *resident_ctas(
+        torch.cuda.current_device() if index is None else index))
+    next_pixel = torch.zeros(1, dtype=torch.int32, device=origins.device)
     with torch.cuda.device(origins.device):
         stream = torch.cuda.current_stream(origins.device).cuda_stream
         err = lib.spath_bigscene_forward(
@@ -78,7 +164,8 @@ def bigscene_call(origins, directions, seeds, tri, cfg: RenderConfig):
             ctypes.c_void_p(seeds.data_ptr()),
             ctypes.c_void_p(tri.data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
-            n, tri.shape[0], cfg.spp, cfg.max_bounces,
+            ctypes.c_void_p(next_pixel.data_ptr()),
+            n, tri.shape[0], cfg.spp, cfg.max_bounces, grid,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"streamed kernel launch failed: CUDA error {err} "

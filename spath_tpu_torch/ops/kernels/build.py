@@ -157,10 +157,12 @@ def library() -> ctypes.CDLL:
     lib.spath_light_cdf.restype = i32
     lib.spath_light_cdf_scratch.argtypes = [i32]
     lib.spath_light_cdf_scratch.restype = i32
-    # K6: K1's arguments
+    # K6: K1's arguments with the queue's counter after out, then the grid
     lib.spath_bigscene_forward.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.spath_bigscene_forward.restype = i32
+    lib.spath_bigscene_forward_occupancy.argtypes = []
+    lib.spath_bigscene_forward_occupancy.restype = i32
     # K9: rays, keys, table, rows, cdf at the rows, out, n, then K3's
     lib.spath_bigscene_quality_forward.argtypes = [ptr] * 7 + quality + [
         ptr]
@@ -178,11 +180,11 @@ def library() -> ctypes.CDLL:
     # spp, max_bounces, first sample, samples
     lib.spath_bigscene_backward.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
     lib.spath_bigscene_backward.restype = i32
-    # K7: idx, val, E, adj, T, columns, hist, starts, order, partial,
-    # groups, splits
+    # K7: idx, val, E, adj, T, columns, order, counts, starts, partial,
+    # arrive, units, splits
     lib.spath_stream_scatter.argtypes = [
-        ptr, ptr, ctypes.c_int64, ptr, i32, i32, ptr, ptr, ptr, ptr, i32,
-        i32, ptr]
+        ptr, ptr, ctypes.c_int64, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, ptr]
     lib.spath_stream_scatter.restype = i32
     # K5: origins, directions, src, tri, dist, idx, n, T
     lib.spath_nearest_hit.argtypes = [ptr] * 6 + [i32, i32, ptr]

@@ -5,10 +5,14 @@ backward K10).
 The port of ``spath_tpu/ops/pallas/megakernel_bigscene.py::
 stream_scatter_rmw``, the read-modify-write pass the streamed backward
 kernels run over their adjoint in blocks of 256 triangles. The kernel,
-``csrc/stream_scatter.cu``, sorts the events by triangle block (a stable
-counting sort) and adds each block's events in event order, in float64,
-while the block sits in shared memory; its sums are in an order fixed by
-the events, so two launches give the same bits (no float atomics).
+``csrc/stream_scatter.cu``, reads the event slots once in units of
+``UNIT`` slots and sorts each unit's events stably by triangle block
+into the unit's own section (the bin launch, a persistent grid); then a
+CTA per block and part of its events adds them window by window, each
+window sorted by row and each (row, column) summed in float64 by its own
+thread, and the block's last CTA adds the parts in order (the accumulate
+launch). Its sums are in an order fixed by the events and the sizes, so
+two launches give the same bits (no float atomics).
 
 Layouts (all contiguous): ``idx`` int32 ``(E,)``, the event's triangle or
 -1 for none; ``val`` float32 ``(E, C)``; ``adj`` float32 ``(T, C)``,
@@ -34,25 +38,26 @@ TILE_T = 256
 COLS = 9
 QUALITY_COLS = 19
 WIDTHS = (COLS, QUALITY_COLS)
-#: Largest scene: the sort keeps one counter per block in shared memory.
+#: Largest scene: the bin keeps 9 counters per block in shared memory.
 MAX_TRIS = 1 << 20
-#: Events a group of the sort counts, at least; and the largest
-#: histogram (blocks × groups) the one-CTA scan walks.
-GROUP_EVENTS, MAX_HIST = 4096, 1 << 18
-#: CTAs the accumulation aims for, so that a hot block is shared by
-#: several: a block's events are split into up to MAX_SPLITS parts.
-TARGET_CTAS, MAX_SPLITS = 528, 64
+#: Event slots a unit of the bin (``kUnit``): one CTA reads them once.
+UNIT = 4096
+#: CTAs the accumulation aims for (8 on each of an H100's 132 SMs, about
+#: three waves of its 3 resident CTAs an SM, so that the parts of unequal
+#: blocks even out), so that a hot block is shared by several: a block's
+#: events are split into up to MAX_SPLITS parts of equal count.
+TARGET_CTAS, MAX_SPLITS = 1056, 64
 
 
 def plan(n_events: int, n_tris: int) -> tuple[int, int, int]:
-    """``(n_blocks, groups, splits)`` of a launch: blocks of ``TILE_T``
-    triangles, groups of consecutive events for the sort, parts of each
-    block's events for the accumulation. Fixed by the sizes alone, so
-    two launches on the same events sum in the same order."""
+    """``(n_blocks, units, splits)`` of a launch: blocks of ``TILE_T``
+    triangles, units of ``UNIT`` consecutive event slots for the bin,
+    parts of each block's events for the accumulation. Fixed by the sizes
+    alone, so two launches on the same events sum in the same order."""
     n_blocks = -(-n_tris // TILE_T)
-    groups = max(1, min(-(-n_events // GROUP_EVENTS), MAX_HIST // n_blocks))
+    units = -(-n_events // UNIT)
     splits = max(1, min(MAX_SPLITS, -(-TARGET_CTAS // n_blocks)))
-    return n_blocks, groups, splits
+    return n_blocks, units, splits
 
 
 def stream_scatter_plain(adj, idx, val) -> torch.Tensor:
@@ -100,23 +105,25 @@ def stream_scatter_call(adj, idx, val) -> torch.Tensor:
     n_events, (n_tris, cols) = idx.shape[0], adj.shape
     if n_events == 0:
         return adj
-    n_blocks, groups, splits = plan(n_events, n_tris)
+    n_blocks, units, splits = plan(n_events, n_tris)
     i32 = dict(dtype=torch.int32, device=adj.device)
-    hist = torch.empty(n_blocks * groups, **i32)
-    starts = torch.empty(n_blocks + 1, **i32)
     order = torch.empty(n_events, **i32)
-    partial = torch.empty(n_blocks * splits * TILE_T * cols,
-                          dtype=torch.float64, device=adj.device)
+    counts = torch.empty(n_blocks * units, **i32)
+    starts = torch.empty(n_blocks * units, **i32)
+    arrive = torch.empty(n_blocks, **i32)
+    partial = torch.empty(n_blocks * splits * TILE_T * cols if splits > 1
+                          else 1, dtype=torch.float64, device=adj.device)
     lib = library()
     with torch.cuda.device(adj.device):
         stream = torch.cuda.current_stream(adj.device).cuda_stream
         err = lib.spath_stream_scatter(
             ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(val.data_ptr()),
             n_events, ctypes.c_void_p(adj.data_ptr()), n_tris, cols,
-            ctypes.c_void_p(hist.data_ptr()),
-            ctypes.c_void_p(starts.data_ptr()),
             ctypes.c_void_p(order.data_ptr()),
-            ctypes.c_void_p(partial.data_ptr()), groups, splits,
+            ctypes.c_void_p(counts.data_ptr()),
+            ctypes.c_void_p(starts.data_ptr()),
+            ctypes.c_void_p(partial.data_ptr()),
+            ctypes.c_void_p(arrive.data_ptr()), units, splits,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"stream scatter launch failed: CUDA error {err} "

@@ -382,14 +382,68 @@ def test_scatter_call_rejects_bad_inputs(case):
 def test_plan_and_chunks_follow_the_sizes():
     """The scatter's plan and K8's chunks depend on the sizes alone, so
     two launches on the same inputs sum in the same order."""
-    assert ss.plan(1 << 20, 1 << 20) == (4096, 64, 1)
-    n_blocks, groups, splits = ss.plan(3_000_000, 1150)
+    assert ss.plan(1 << 20, 1 << 20) == (4096, 256, 1)
+    n_blocks, units, splits = ss.plan(3_000_000, 1150)
     assert n_blocks == 5 and splits == ss.MAX_SPLITS
-    assert n_blocks * groups <= ss.MAX_HIST
+    assert units == 733 and (units - 1) * ss.UNIT < 3_000_000
+    # the two cells K7 is timed on: a K8 chunk and a K10 sample at 10k
+    assert ss.plan(51_840_000, 10_000) == (40, 12_657, 27)
+    assert ss.plan(20_736_000, 10_000) == (40, 5_063, 27)
+    # the largest launch: 2^31 - 1 events in 2^19 units
+    assert ss.plan(2**31 - 1, 1000)[1] == 1 << 19
     cfg = RenderConfig(width=1920, height=1080, spp=8, max_bounces=5)
     assert bg.chunk_samples(1920 * 1080, cfg) == 5
     assert bg.chunk_samples(512, cfg) == 8
     assert bg.chunk_samples(1 << 27, cfg.replace(max_bounces=16)) == 1
+
+
+def test_queue_plan_fills_the_card_or_the_rays():
+    """K6's persistent grid: every resident CTA, unless the rays fill
+    fewer at one a lane."""
+    assert bs.queue_plan(1920 * 1080, 6, 132) == 792
+    assert bs.queue_plan(320 * 240, 6, 132) == 600
+    assert bs.queue_plan(129, 6, 132) == 2 and bs.queue_plan(1, 1, 1) == 1
+    for bad in ((0, 6, 132), (100, 0, 132), (100, 6, 0)):
+        with pytest.raises(ValueError):
+            bs.queue_plan(*bad)
+
+
+#: Sweeps of 8 pixels at 2 samples: the camera sweep, then each sample's
+#: sweeps after its first bounce (pixel 1 and 5 and 7 missed).
+HAND_SWEEPS = [[1, 2, 2], [1, 0, 0], [1, 4, 0], [1, 1, 1],
+               [1, 1, 0], [1, 0, 0], [1, 2, 1], [1, 0, 0]]
+
+
+@pytest.mark.parametrize("ctas, want", [
+    # 4-lane CTAs: lockstep sweeps 1 + 4 + 2 and 1 + 2 + 1 times (44 lane
+    # slots); regeneration as often as its busiest lane, 5 and 4 (36);
+    # with 8 lanes the queue gives each lane one pixel, as regeneration
+    (2, dict(lockstep=(11, 1 - 22 / 44), regeneration=(9, 1 - 22 / 36),
+             queue=(9, 1 - 22 / 36))),
+    # one CTA of 4 lanes takes the 8 pixels in order: pixel 4 goes to lane
+    # 1 at step 1, pixel 5 to lane 1 at 3 (a tie with lane 3, the lower
+    # lane wins), 6 to lane 3 at 3, 7 to lane 1 at 4; the last lane ends
+    # at 7 (28 lane slots)
+    (1, dict(lockstep=(11, 1 - 22 / 44), regeneration=(9, 1 - 22 / 36),
+             queue=(7, 1 - 22 / 28))),
+])
+def test_lane_schedules_by_hand(ctas, want):
+    got = bs.lane_schedules(np.array(HAND_SWEEPS), cta=4, ctas=ctas)
+    assert got["useful_lane_sweeps"] == 22
+    for name, (sweeps, idle) in want.items():
+        assert got[name]["cta_sweeps"] == sweeps, name
+        assert got[name]["idle_lane_share"] == pytest.approx(idle), name
+
+
+def test_lane_schedules_of_a_uniform_frame_idle_nothing():
+    """Every pixel the same work, a whole number of CTAs: no schedule
+    idles a lane; a ragged last CTA idles its missing lanes."""
+    even = bs.lane_schedules(np.full((256, 3), 2), cta=128, ctas=2)
+    for name in ("lockstep", "regeneration", "queue"):
+        assert even[name]["idle_lane_share"] == 0.0
+    ragged = bs.lane_schedules(np.full((130, 3), 2), cta=128, ctas=2)
+    assert ragged["lockstep"]["idle_lane_share"] == pytest.approx(
+        1 - 130 / 256)
 
 
 def test_guardrails():

@@ -1,0 +1,392 @@
+#!/usr/bin/env python3
+"""Time the port's kernels at their main paths' shapes, for comparing
+two checkouts on one CUDA card.
+
+    python3 tools/kernel_ab.py [--root DIR] [--label NAME] [--check]
+                               [--kernels K1,K2,...]
+
+Imports ``spath_tpu_torch`` from ``--root`` (default: this checkout),
+builds its kernels there, and prints one JSON line: the card as
+``nvidia-smi`` names it with its power limit, the build's seconds and
+``ptxas -v`` lines, and CUDA-event ms of each kernel at the shape its
+main path runs it at, after a warm-up launch:
+
+- K1, K2 (conformance) and K3, K4 (quality, the CLI's ``--mode
+  quality``) on the default scene at 1920x1080, 64 spp, 5 bounces;
+- K5 on 512x512 camera rays against procedural_scene(10_000, seed=0);
+- on procedural_scene(10_000, seed=0) at 1920x1080, 5 bounces: K6 on the
+  serving frame (64 spp) and on the train step's (8 spp); K8 in a train
+  step's backward call (8 spp, the call less its K7 calls, as
+  ``chip_smoke.py`` phase 25); K9 on the quality serving frame (16 spp),
+  K10 in a quality train step's backward call (4 spp, less K7) and K11
+  at 4 spp;
+- K7 on the first chunk of events of each of those backward calls (9
+  and 19 columns), in turns with ``index_add_`` (K7, index_add_,
+  index_add_, K7), and each of its launches' device ms from
+  ``torch.profiler``; K6's resident CTAs an SM where the package has a
+  queue plan.
+
+To compare two commits, unpack the other with ``git archive`` into a
+directory that ``.gitignore`` lists (``build/``) and run both in one
+call, in turns: parent, change, change, parent. ``--check`` also holds K6
+and K7 to their plain versions (K6 bit-equal to K1 and to
+``megakernel_plain``, two whole frames bitwise equal; K7 within 1e-5 of
+each column's max on synthetic hot-triangle events and on both event
+sets, two launches bitwise equal) and exits non-zero on a failure.
+Without a card it exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HEADLINE = dict(width=1920, height=1080, spp=64, max_bounces=5)
+QUALITY = dict(rng="hash", sampler="cosine", nee=True, mis=True)
+BIG_T, BIG_TRAIN_SPP = 10_000, 8
+BIGQ_SERVE_SPP, BIGQ_TRAIN_SPP = 16, 4
+SCATTER_RTOL = 1e-5
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
+           "K11")
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def event_ms(torch, fn, reps: int = 1) -> float:
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def timed(torch, fn, reps: int = 1) -> float:
+    """A warm-up launch, then CUDA-event ms a launch over ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    return event_ms(torch, fn, reps)
+
+
+def split_call(torch, call, *args):
+    """``(ms of the call less its K7 calls, ms of its K7 calls, the first
+    K7 call's events)`` of one streamed backward call."""
+    from spath_tpu_torch.ops.kernels import stream_scatter as ss
+
+    module = sys.modules[call.__module__]
+    marks, first = [], []
+
+    def scatter(adj, idx, val):
+        if not first:
+            first.append((idx.clone(), val.clone()))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = ss.stream_scatter_call(adj, idx, val)
+        b.record()
+        marks.append((a, b))
+        return out
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    module.stream_scatter_call = scatter
+    try:
+        call(*args)
+        torch.cuda.synchronize()
+        marks.clear()
+        start.record()
+        call(*args)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        module.stream_scatter_call = ss.stream_scatter_call
+    k7 = sum(a.elapsed_time(b) for a, b in marks)
+    return start.elapsed_time(end) - k7, k7, first[0]
+
+
+def scatter_ms(torch, idx, val, n_tris: int) -> dict:
+    """K7 and ``index_add_`` in turns on one chunk's events, and K7's
+    launches by name (device ms a call, ``torch.profiler``, 3 calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spath_tpu_torch.ops.kernels import stream_scatter as ss
+
+    adj = torch.zeros((n_tris, val.shape[1]), device=idx.device)
+    valid = idx >= 0
+    lidx, lval = idx[valid].long(), val[valid]
+
+    def kernel():
+        ss.stream_scatter_call(adj, idx, val)
+
+    def library():
+        adj.index_add_(0, lidx, lval)
+
+    kernel(), library()
+    t = [event_ms(torch, f, 3) for f in (kernel, library, library, kernel)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            kernel()
+        torch.cuda.synchronize()
+    launches = {}
+    for e in prof.key_averages():
+        if "scatter_" in e.key:
+            name = e.key.split("::")[-1].split("(")[0]
+            us = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0.0))
+            launches[name] = launches.get(name, 0.0) + us / 1e3 / 3
+    return dict(slots=idx.shape[0], events=int(valid.sum()),
+                ms=[t[0], t[3]], index_add_ms=t[1:3], ms_by_launch=launches)
+
+
+def window_runs(torch, idx, n_tris: int, window: int) -> dict:
+    """How K7's accumulation windows fill on these events: each block's
+    valid events in event order cut into windows of ``window`` events;
+    per window the longest run of one triangle (its (row, column) tasks
+    add that many values one after another). Returns the windows, the
+    mean and largest longest run, and the sum of the longest runs over
+    the events (1/``window`` if every row of every window held one
+    event)."""
+    valid = idx >= 0
+    tri = idx[valid].long()
+    blk = tri // 256
+    order = torch.sort(blk, stable=True).indices
+    tri, blk = tri[order], blk[order]
+    first = torch.searchsorted(blk, blk, right=False)
+    win = (torch.arange(tri.numel(), device=tri.device) - first) // window
+    key = (blk * (1 << 24) + win) * 256 + (tri % 256)
+    _, counts = torch.unique_consecutive(torch.sort(key).values,
+                                         return_counts=True)
+    wkey = torch.unique_consecutive(torch.sort(key).values) // 256
+    longest = torch.zeros(int(wkey.max()) + 1, dtype=torch.int64,
+                          device=tri.device).scatter_reduce(
+        0, wkey, counts, reduce="amax")
+    longest = longest[longest > 0]
+    return dict(windows=longest.numel(),
+                mean_longest=longest.float().mean().item(),
+                max_longest=int(longest.max()),
+                longest_share=longest.sum().item() / tri.numel())
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"kernel_ab: check failed: {msg}")
+
+
+def scatter_check(torch, idx, val, n_tris: int, name: str) -> dict:
+    from spath_tpu_torch.ops.kernels import stream_scatter as ss
+
+    def zeros():
+        return torch.zeros((n_tris, val.shape[1]), device=idx.device)
+
+    got = ss.stream_scatter_call(zeros(), idx, val)
+    again = ss.stream_scatter_call(zeros(), idx, val)
+    want = ss.stream_scatter_plain(zeros(), idx, val)
+    scale = want.abs().amax(0)
+    err = (got - want).abs().amax(0)
+    if not bool((err <= SCATTER_RTOL * scale).all()):
+        fail(f"K7 {name}: errors {err.tolist()} of max {scale.tolist()}")
+    if not torch.equal(got, again):
+        fail(f"K7 {name}: two launches differ")
+    return dict(max_abs_err=err.max().item(),
+                rel_err=(err / scale.clamp_min(1e-30)).max().item())
+
+
+def synthetic_events(torch, dev, n_tris: int, n_events: int, cols: int):
+    """``chip_smoke.py``'s phase 18 events: half on 4 hot triangles, a
+    tenth -1."""
+    import numpy as np
+
+    rng = np.random.default_rng(n_tris)
+    idx = rng.integers(0, n_tris, size=n_events).astype(np.int32)
+    hot = rng.integers(0, n_tris, size=4)
+    on_hot = rng.random(n_events) < 0.5
+    idx[on_hot] = hot[rng.integers(0, 4, size=int(on_hot.sum()))]
+    idx[rng.random(n_events) < 0.1] = -1
+    val = rng.normal(size=(n_events, cols)).astype(np.float32)
+    return torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev)
+
+
+def k6_checks(torch, dev, cam, big_scene) -> dict:
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.ops.kernels import bigscene as bs
+    from spath_tpu_torch.ops.kernels import megakernel as mk
+    from spath_tpu_torch.scene import default_scene, procedural_scene
+
+    out = {}
+    small = RenderConfig(width=320, height=240, spp=8, max_bounces=5)
+    for name, scene in (("default", default_scene(dev)),
+                        ("1024", procedural_scene(1024, seed=1, device=dev))):
+        o, d, s = mk.pack_rays(cam, small, 0)
+        tri = mk.scene_table(scene)
+        got = bs.bigscene_call(o, d, s, tri, small)
+        if not torch.equal(got, mk.mega_call(o, d, s, tri, small)):
+            fail(f"K6 differs from K1 on {name}")
+        out[f"k6_vs_k1_{name}"] = True
+    tri = mk.scene_table(big_scene)
+    for cfg in (RenderConfig(width=64, height=48, spp=2, max_bounces=5),
+                RenderConfig(width=32, height=16, spp=3, max_bounces=1),
+                RenderConfig(width=32, height=16, spp=1, max_bounces=0)):
+        o, d, s = mk.pack_rays(cam, cfg, 0)
+        got = bs.bigscene_call(o, d, s, tri, cfg)
+        want = mk.megakernel_plain(o, d, s, tri, cfg.replace(tri_block=2048))
+        if not torch.equal(got, want):
+            fail(f"K6 differs from its plain version at {cfg}")
+    out["k6_vs_plain_10k"] = True
+    frame = RenderConfig(width=1920, height=1080, spp=2, max_bounces=5)
+    o, d, s = mk.pack_rays(cam, frame, 0)
+    if not torch.equal(bs.bigscene_call(o, d, s, tri, frame),
+                       bs.bigscene_call(o, d, s, tri, frame)):
+        fail("K6: two whole frames differ")
+    out["k6_two_frames_equal"] = True
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--kernels", default=",".join(KERNELS))
+    ap.add_argument("--check", action="store_true")
+    args = ap.parse_args()
+    want = set(args.kernels.split(","))
+    if not want <= set(KERNELS):
+        raise SystemExit(f"--kernels: unknown {want - set(KERNELS)}")
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import spath_tpu_torch
+
+    if Path(spath_tpu_torch.__file__).resolve().parents[1] != root:
+        raise SystemExit(f"kernel_ab: imported {spath_tpu_torch.__file__}, "
+                         f"not the package under {root}")
+    from spath_tpu_torch.camera import Camera
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.ops.kernels import bigscene as bs
+    from spath_tpu_torch.ops.kernels import bigscene_grad as bg
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+    from spath_tpu_torch.ops.kernels import bigscene_quality_grad as bqg
+    from spath_tpu_torch.ops.kernels import build
+    from spath_tpu_torch.ops.kernels import intersect as k5
+    from spath_tpu_torch.ops.kernels import megakernel as mk
+    from spath_tpu_torch.ops.kernels import megakernel_grad as mg
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+    from spath_tpu_torch.ops.kernels import megakernel_quality_grad as mqg
+    from spath_tpu_torch.models.pathtracer import scene_geometry
+    from spath_tpu_torch.scene import default_scene, procedural_scene
+
+    dev = torch.device("cuda", 0)
+    result = dict(label=args.label, root=str(root), card=card())
+    t0 = time.perf_counter()
+    build.library()
+    result["build_s"] = time.perf_counter() - t0
+    result["ptxas"] = [ln.strip() for ln in
+                       (build.BUILD_DIR / "build.log").read_text()
+                       .splitlines() if "registers" in ln]
+    if hasattr(bs, "resident_ctas"):
+        result["k6_resident_per_sm"], result["sms"] = bs.resident_ctas(0)
+    cam = Camera.default(dev)
+    head = RenderConfig(**HEADLINE)
+    qhead = head.replace(**QUALITY)
+    gen = torch.Generator().manual_seed(3)
+    ms = {}
+
+    small = default_scene(dev)
+    o, d, s = mk.pack_rays(cam, head, 0)
+    tri = mk.scene_table(small)
+    g = torch.rand((o.shape[0], 3), generator=gen).to(dev)
+    if "K1" in want:
+        ms["K1"] = timed(torch, lambda: mk.mega_call(o, d, s, tri, head), 5)
+    if "K2" in want:
+        ms["K2"] = timed(torch, lambda: mg.mega_bwd_call(o, d, s, tri, g,
+                                                         head), 3)
+    qo, qd, qk = mq.pack_rays(cam, qhead, 0)
+    qtri, qrows = mq.quality_table(small), mq.light_rows(small)
+    if "K3" in want:
+        ms["K3"] = timed(torch, lambda: mq.quality_call(qo, qd, qk, qtri,
+                                                        qrows, qhead), 3)
+    if "K4" in want:
+        ms["K4"] = timed(torch, lambda: mqg.quality_bwd_call(
+            qo, qd, qk, qtri, qrows, g, qhead), 2)
+    del o, d, s, g, qo, qd, qk
+
+    big = procedural_scene(BIG_T, seed=0, device=dev)
+    if "K5" in want:
+        cfg5 = RenderConfig(width=512, height=512, spp=1)
+        o5, d5, _ = mk.pack_rays(cam, cfg5, 0)
+        v0, e1, e2 = scene_geometry(big)[:3]
+        t5 = k5.pack_triangles(v0, e1, e2)
+        none = torch.full((o5.shape[0],), -1, dtype=torch.int64, device=dev)
+        ms["K5"] = timed(torch, lambda: k5.nearest_hit_call(o5, d5, t5,
+                                                            none), 3)
+    btri = mk.scene_table(big)
+    train = head.replace(spp=BIG_TRAIN_SPP)
+    o, d, s = mk.pack_rays(cam, head, 0)
+    if "K6" in want:
+        ms["K6"] = event_ms(torch, lambda: bs.bigscene_call(o, d, s, btri,
+                                                            head))
+        ms["K6_train"] = timed(torch, lambda: bs.bigscene_call(
+            o, d, s, btri, train))
+    if {"K7", "K8"} & want:
+        g = (torch.rand((o.shape[0], 3), generator=gen) * 0.9 + 0.1).to(dev)
+        k8, k7_call, (cidx, cval) = split_call(
+            torch, bg.bigscene_bwd_call, o, d, s, btri, g, train)
+        ms["K8"], ms["K7_in_train_step"] = k8, k7_call
+        if "K7" in want:
+            ms["K7_9"] = scatter_ms(torch, cidx, cval, BIG_T)
+            ms["K7_9"]["windows"] = window_runs(torch, cidx, BIG_T, 1024)
+            if args.check:
+                result["k7_check_9"] = scatter_check(torch, cidx, cval,
+                                                     BIG_T, "9 columns")
+        del cidx, cval, g
+    del o, d, s
+    bqcfg = qhead.replace(spp=BIGQ_SERVE_SPP)
+    qtrain = qhead.replace(spp=BIGQ_TRAIN_SPP)
+    qo, qd, qk = mq.pack_rays(cam, qhead, 0)
+    qbtri, qbrows = mq.quality_table(big), bq.light_rows(big)
+    if "K9" in want:
+        ms["K9"] = event_ms(torch, lambda: bq.bigq_call(qo, qd, qk, qbtri,
+                                                        qbrows, bqcfg))
+    if "K11" in want:
+        ms["K11"] = timed(torch, lambda: bq.bigq_hits_call(
+            qo, qd, qk, qbtri, qbrows, qtrain))
+    if {"K7", "K10"} & want:
+        g = (torch.rand((qo.shape[0], 3), generator=gen) * 0.9
+             + 0.1).to(dev)
+        k10, k7q_call, (qidx, qval) = split_call(
+            torch, bqg.bigq_bwd_call, qo, qd, qk, qbtri, qbrows, g, qtrain)
+        ms["K10"], ms["K7_in_quality_train_step"] = k10, k7q_call
+        if "K7" in want:
+            ms["K7_19"] = scatter_ms(torch, qidx, qval, BIG_T)
+            ms["K7_19"]["windows"] = window_runs(torch, qidx, BIG_T, 512)
+            if args.check:
+                result["k7_check_19"] = scatter_check(torch, qidx, qval,
+                                                      BIG_T, "19 columns")
+        del qidx, qval, g
+    result["ms"] = ms
+    if args.check:
+        for n_tris, n_events in ((1 << 20, 1 << 20), (1000, 1 << 16)):
+            for cols in (9, 19):
+                i, v = synthetic_events(torch, dev, n_tris, n_events, cols)
+                result[f"k7_check_{n_tris}_{cols}"] = scatter_check(
+                    torch, i, v, n_tris, f"synthetic T={n_tris}, {cols}")
+        result.update(k6_checks(torch, dev, cam, big))
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
