@@ -120,7 +120,10 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     ``tools/kernel_ab.py``);
     the walk counted on COUNT_ROWS for the bounds, with the idle lane
     share of the lockstep, regeneration and queue schedules
-    (``bigscene.lane_schedules``) and K6's resident CTAs.
+    (``bigscene.lane_schedules``) and K6's resident CTAs; K8's two calls'
+    table gradients bitwise equal (its queue hands pixels out in another
+    order every launch), the schedules of each of its launches
+    (``bigscene.chunk_totals``) and its resident CTAs.
 
 26. The light distribution kernel against its plain version, bit for
     bit, at 8193, 10k, 100k and 2^20 triangles (1% emissive), and K7 at
@@ -158,7 +161,12 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     536-543 in turns with the kernel on the same rows; K7 held to its
     plain version on that call's first events as in phase 25, timed in
     turns with ``index_add_``; the walk counted for the
-    bounds and the CTAs' idle lanes.
+    bounds and the CTAs' idle lanes; two whole K9 frames bitwise equal,
+    equal to the served frame, and their rows COUNT_ROWS bit-equal to
+    ``quality_plain``; each pixel's sweeps on COUNT_ROWS
+    (``bigscene_quality.quality_sweep_totals``) under the three schedules
+    for K9 at 16 spp and for K10 and K11 at 4 spp, with K9's and K11's
+    resident CTAs.
 
 34. K5 against the plain sweep ``_sweep``, both outputs to the bit, on
     one residual slice of rays (512x512 camera rays; bounce-shaped rays
@@ -1080,7 +1088,8 @@ def rows_of(torch, width: int, rows, *tensors):
 
 
 def walk_counts(torch, o, d, seeds, tri, cfg, cta: int = 128,
-                queue_ctas: int | None = None) -> dict:
+                queue_ctas: int | None = None,
+                chunk: int | None = None) -> dict:
     """The conformance walk's work on these rays, from the plain replay:
     ray sweeps (the camera sweep and one after every hit but the last
     bounce's), hits, and the sweeps of the first port's 128-ray CTAs in
@@ -1088,7 +1097,10 @@ def walk_counts(torch, o, d, seeds, tri, cfg, cta: int = 128,
     share of their lanes that idle through a sweep. With ``queue_ctas``,
     also the idle lane shares of the lockstep, regeneration and queue
     schedules (``bigscene.lane_schedules``, ``queue_ctas`` CTAs sharing
-    the queue) under ``schedules``."""
+    the queue) under ``schedules``; with ``chunk`` as well, K8's: the
+    schedules of each launch of ``chunk`` samples (``bigscene.
+    chunk_totals``: the first sweeps the camera rays, the later ones read
+    their hits back) under ``chunk_schedules``."""
     from spath_tpu_torch.ops.kernels import bigscene as bs
     from spath_tpu_torch.ops.kernels import megakernel_grad as mg
 
@@ -1112,18 +1124,25 @@ def walk_counts(torch, o, d, seeds, tri, cfg, cta: int = 128,
     if queue_ctas is not None:
         totals = torch.stack(per_sample, 1).cpu().numpy()
         out["schedules"] = bs.lane_schedules(totals, cta, queue_ctas)
+        if chunk is not None:
+            out["chunk_schedules"] = [
+                bs.lane_schedules(bs.chunk_totals(
+                    totals, s0, min(chunk, cfg.spp - s0)), cta, queue_ctas)
+                for s0 in range(0, cfg.spp, chunk)]
     return out
 
 
 def scaled(walk: dict, factor: float) -> dict:
-    return {k: (v * factor if k not in ("idle_lane_share", "schedules")
+    return {k: (v * factor if k not in ("idle_lane_share", "schedules",
+                                        "chunk_schedules")
                 else v) for k, v in walk.items()}
 
 
 def queue_ctas(n_frame: int, n_rows: int, per_sm: int, sms: int) -> int:
     """CTAs sharing the queue in the count of ``n_rows`` rays, so that each
     lane takes as many pixels as on the whole frame of ``n_frame`` rays
-    (K6's grid, ``bigscene.queue_plan``)."""
+    (a queue kernel's grid, ``bigscene.queue_plan`` of its own resident
+    CTAs ``per_sm``)."""
     from spath_tpu_torch.ops.kernels import bigscene as bs
 
     grid = bs.queue_plan(n_frame, per_sm, sms)
@@ -1290,11 +1309,11 @@ def big_cli(cli) -> str:
             f"{text.strip()}")
 
 
-def bwd_split_ms(torch, call, *args) -> tuple[float, float]:
+def bwd_split_ms(torch, call, *args) -> tuple:
     """CUDA-event ms of one streamed backward call (``bigscene_bwd_call``
     or ``bigq_bwd_call``) on ``args``, split into its K7 calls (events
     around each) and the rest, which is its K8 or K10 launches and a few
-    small fills and copies."""
+    small fills and copies; and the call's output."""
     from spath_tpu_torch.ops.kernels import stream_scatter as ss
 
     module = sys.modules[call.__module__]
@@ -1314,13 +1333,13 @@ def bwd_split_ms(torch, call, *args) -> tuple[float, float]:
     module.stream_scatter_call = timed
     try:
         start.record()
-        call(*args)
+        out = call(*args)
         end.record()
         torch.cuda.synchronize()
     finally:
         module.stream_scatter_call = ss.stream_scatter_call
     k7 = sum(a.elapsed_time(b) for a, b in marks)
-    return start.elapsed_time(end) - k7, k7
+    return start.elapsed_time(end) - k7, k7, out
 
 
 def first_chunk_events(torch, call, *args):
@@ -1523,7 +1542,7 @@ def quality_serving(torch, dev, cam, n_tris: int, cfg, tri_block: int
                             f"quality, {n_tris} triangles, rows {BAND_ROWS}")
     return dict(launches=launched, first_s=first_s, mean=mean,
                 band_vs_plain=c, rays=(o, d, keys), band=band, tri=tri,
-                rows=rows, scene=scene)
+                rows=rows, scene=scene, img=img)
 
 
 def quality_big_cli(cli) -> str:
@@ -1569,29 +1588,25 @@ def quality_big_cli(cli) -> str:
             f"{ {k: v for k, v in inverted.items() if v} }: {text.strip()}")
 
 
-def quality_cta_walk(torch, o, d, keys, tri, rows, cfg, cta: int = 128
-                     ) -> dict:
+def quality_cta_walk(torch, o, d, keys, tri, rows, cfg, cta: int = 128,
+                     queue_ctas: int = 1) -> dict:
     """The quality walk's work on these rays from the plain replay, as
-    ``quality_walk_counts``, and the streamed kernels' CTA sweeps after
-    the camera's: a 128-ray CTA sweeps at a bounce while any of its rays
-    is alive there (with NEE at every bounce, without from bounce 1), so
-    the share of its lanes that idle through those sweeps."""
-    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+    ``quality_walk_counts``, and the streamed kernels' CTA sweeps: each
+    pixel's sweeps (``bigscene_quality.quality_sweep_totals``) under the
+    lockstep, regeneration and queue schedules (``bigscene.
+    lane_schedules``, ``queue_ctas`` CTAs sharing the queue) under
+    ``schedules``; ``cta_sweeps`` and ``idle_lane_share`` are lockstep's,
+    K10's schedule (a 128-ray CTA sweeps at a bounce while any of its
+    rays is alive there), the queue's K9's and K11's."""
+    from spath_tpu_torch.ops.kernels import bigscene as bs
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
 
     walk = quality_walk_counts(torch, o, d, keys, tri, rows, cfg)
-    n = o.shape[0]
-    pad = (-n) % cta
-    lane_sweeps = cta_sweeps = 0
-    with torch.no_grad():
-        for _, saved in mq.quality_replay(o, d, keys, tri, rows, cfg):
-            for b, sv in enumerate(saved):
-                if not cfg.nee and b == 0:
-                    continue
-                live = torch.nn.functional.pad(sv["hit"], (0, pad))
-                lane_sweeps += int(live.sum())
-                cta_sweeps += int(live.view(-1, cta).any(1).sum())
-    return dict(walk, cta_sweeps=cta_sweeps,
-                idle_lane_share=1.0 - lane_sweeps / max(cta_sweeps * cta, 1))
+    sched = bs.lane_schedules(
+        bq.quality_sweep_totals(o, d, keys, tri, rows, cfg), cta, queue_ctas)
+    return dict(walk, cta_sweeps=sched["lockstep"]["cta_sweeps"],
+                idle_lane_share=sched["lockstep"]["idle_lane_share"],
+                schedules=sched)
 
 
 # ---- visibility gradients, K5 and K11 (phases 34-41) ----
@@ -2598,7 +2613,7 @@ def run() -> None:
     k6_band_ms, k6_plain_ms = in_turns(
         torch, lambda: bs.bigscene_call(*band, btri, big_cfg),
         lambda: mk.megakernel_plain(*band, btri, plain_cfg))
-    per_sm, sms = bs.resident_ctas(dev.index)
+    per_sm, sms = bs.resident_ctas(dev.index, "K6")
     k6_grid = bs.queue_plan(bo.shape[0], per_sm, sms)
     walk = walk_counts(torch, *count_rays, btri, plain_cfg,
                        queue_ctas=queue_ctas(bo.shape[0],
@@ -2631,6 +2646,12 @@ def run() -> None:
                           tgbar, train_cfg) for _ in range(2)]
     k8_ms = [t[0] for t in split]
     k7_in_call_ms = [t[1] for t in split]
+    # K8's queue hands pixels out in another order every launch; its
+    # events stay at their fixed slots, so two calls' table gradients are
+    # the same bits
+    check(torch.equal(split[0][2], split[1][2]), "K8+K7: two calls' table "
+          "gradients differ at the training shape")
+    del split
     tband = rows_of(torch, big_cfg.width, BAND_ROWS, to, td, tseeds, tgbar)
     tplain_cfg = train_cfg.replace(tri_block=2048)
     k8_band_ms, k8_plain_ms = in_turns(
@@ -2645,10 +2666,13 @@ def run() -> None:
         f"{big_cfg.height} spp{train_cfg.spp}, rows {BAND_ROWS.start}-"
         f"{BAND_ROWS.stop - 1}: {k8_check}")
     tcount = rows_of(torch, big_cfg.width, COUNT_ROWS, to, td, tseeds)
+    k8_per_sm = bs.resident_ctas(dev.index, "K8")[0]
+    k8_grid = bs.queue_plan(to.shape[0], k8_per_sm, sms)
     twalk = walk_counts(torch, *tcount, btri, tplain_cfg,
                         queue_ctas=queue_ctas(to.shape[0],
-                                              tcount[0].shape[0], per_sm,
-                                              sms))
+                                              tcount[0].shape[0], k8_per_sm,
+                                              sms),
+                        chunk=bg.chunk_samples(to.shape[0], train_cfg))
     twalk = scaled(twalk, big_cfg.height / len(COUNT_ROWS))
     slots = to.shape[0] * train_cfg.spp * train_cfg.max_bounces
     k8_ops = twalk["sweeps"] * nb_tris * MT_OPS + twalk["hits"] * K8_HIT_OPS
@@ -2657,7 +2681,10 @@ def run() -> None:
     log(f"[25] K8, {BIG_T} triangles, {big_cfg.width}x{big_cfg.height} "
         f"spp{train_cfg.spp} on {smi}: {k8_ms} ms of K8 launches a call "
         f"({chunks} launches), K7 {k7_in_call_ms} ms a call "
-        f"(CUDA events around each K7 call; K8 the rest of the call); on rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}: "
+        f"(CUDA events around each K7 call; K8 the rest of the call), two "
+        f"calls' gradients bitwise equal; grid {k8_grid} CTAs ({k8_per_sm} "
+        f"resident a SM x {sms} SMs); on rows {BAND_ROWS.start}-"
+        f"{BAND_ROWS.stop - 1}: "
         f"K8+K7 {k8_band_ms} ms, plain {k8_plain_ms} ms; the walk: {twalk}; "
         f"operations {k8_ops:.4e}, bound {k8_bound[0]:.4f} ms "
         f"({k8_bound[1]})")
@@ -2830,21 +2857,44 @@ def run() -> None:
         f"up to {rt.QUALITY_GRAD_ROUTE_MAX_TRIS}; the streamed quality "
         "kernels above")
 
-    # K9 at the serving shape: the checked launch was the warm-up
+    # K9 at the serving shape: the checked launch was the warm-up. The
+    # queue hands pixels out in another order every launch: two whole
+    # frames are bitwise equal, equal the served frame, and their count
+    # rows equal the plain version's
     qo, qd, qk = serve_q["rays"]
     qbtri, qbrows, qband = serve_q["tri"], serve_q["rows"], serve_q["band"]
-    k9_ms = [event_ms(torch, lambda: bq.bigq_call(qo, qd, qk, qbtri, qbrows,
-                                                  serve_q_cfg), 1)]
+    qframes = []
+
+    def k9_frame():
+        qframes.append(bq.bigq_call(qo, qd, qk, qbtri, qbrows, serve_q_cfg))
+
+    k9_ms = [event_ms(torch, k9_frame, 1)]
     if k9_ms[0] < LONG_LAUNCH_MS:
-        k9_ms.append(event_ms(torch, lambda: bq.bigq_call(
-            qo, qd, qk, qbtri, qbrows, serve_q_cfg), 1))
+        k9_ms.append(event_ms(torch, k9_frame, 1))
+    else:
+        k9_frame()
+    check(torch.equal(qframes[0], qframes[1]), "K9: two whole frames differ")
+    check(torch.equal(qframes[0].clamp(0.0, 1.0).reshape(
+        serve_q["img"].shape), serve_q["img"]), "K9: the frame differs from "
+          "the served frame")
     qplain_cfg = serve_q_cfg.replace(tri_block=2048)
+    qcount_rays = rows_of(torch, serve_q_cfg.width, COUNT_ROWS, qo, qd, qk)
+    qcount_plain = mq.quality_plain(*qcount_rays, qbtri, qbrows, qplain_cfg)
+    qcount_rows = rows_of(torch, serve_q_cfg.width, COUNT_ROWS,
+                          qframes[0])[0]
+    check(torch.equal(qcount_rows, qcount_plain), "K9: the frame's rows "
+          f"{list(COUNT_ROWS)} differ from quality_plain by "
+          f"{(qcount_rows - qcount_plain).abs().max().item():.6g}")
+    del qframes, qcount_plain, qcount_rows
     k9_band_ms, k9_plain_ms = in_turns(
         torch, lambda: bq.bigq_call(*qband, qbtri, qbrows, serve_q_cfg),
         lambda: mq.quality_plain(*qband, qbtri, qbrows, qplain_cfg))
-    qwalk = quality_cta_walk(torch, *rows_of(torch, serve_q_cfg.width,
-                                             COUNT_ROWS, qo, qd, qk),
-                             qbtri, qbrows, qplain_cfg)
+    k9_per_sm, q_sms = bs.resident_ctas(dev.index, "K9")
+    k9_grid = bs.queue_plan(qo.shape[0], k9_per_sm, q_sms)
+    qwalk = quality_cta_walk(torch, *qcount_rays, qbtri, qbrows, qplain_cfg,
+                             queue_ctas=queue_ctas(qo.shape[0],
+                                                   qcount_rays[0].shape[0],
+                                                   k9_per_sm, q_sms))
     qwalk = scaled(qwalk, serve_q_cfg.height / len(COUNT_ROWS))
     nq_rays, nq_tris, nq_rows = qo.shape[0], qbtri.shape[0], len(qbrows)
     k9_ms_mean = sum(k9_ms) / len(k9_ms)
@@ -2857,7 +2907,10 @@ def run() -> None:
     q_segs = serve_q_cfg.width * serve_q_cfg.height * serve_q_cfg.spp \
         * serve_q_cfg.max_bounces
     log(f"[33] K9, {BIG_T} triangles, {serve_q_frame} on {smi}: {k9_ms} ms a "
-        f"frame ({q_segs / (k9_ms_mean / 1e3):.4e} rays/s); on rows "
+        f"frame ({q_segs / (k9_ms_mean / 1e3):.4e} rays/s), two frames "
+        f"bitwise equal and equal to the served frame, rows "
+        f"{list(COUNT_ROWS)} bit-equal to quality_plain; grid {k9_grid} CTAs "
+        f"({k9_per_sm} resident a SM x {q_sms} SMs); on rows "
         f"{BAND_ROWS.start}-{BAND_ROWS.stop - 1}: K9 {k9_band_ms} ms, plain "
         f"{k9_plain_ms} ms; the walk (rows {list(COUNT_ROWS)} counted, "
         f"scaled to the frame): {qwalk}; operations {k9_ops:.4e}, bound "
@@ -2888,9 +2941,14 @@ def run() -> None:
     log(f"[33] K10 vs plain, {BIG_T} triangles, {train_q_cfg.width}x"
         f"{train_q_cfg.height} spp{train_q_cfg.spp}, rows {BAND_ROWS.start}-"
         f"{BAND_ROWS.stop - 1}: {k10_check}")
-    tqwalk = quality_cta_walk(torch, *rows_of(torch, train_q_cfg.width,
-                                              COUNT_ROWS, to, td, tk),
-                              qbtri, qbrows, qtplain_cfg)
+    # the 4-spp walk: K10's lockstep, and the queue on K11's own grid
+    k11_per_sm = bs.resident_ctas(dev.index, "K11")[0]
+    k11_grid = bs.queue_plan(to.shape[0], k11_per_sm, q_sms)
+    tqcount = rows_of(torch, train_q_cfg.width, COUNT_ROWS, to, td, tk)
+    tqwalk = quality_cta_walk(torch, *tqcount, qbtri, qbrows, qtplain_cfg,
+                              queue_ctas=queue_ctas(to.shape[0],
+                                                    tqcount[0].shape[0],
+                                                    k11_per_sm, q_sms))
     tqwalk = scaled(tqwalk, train_q_cfg.height / len(COUNT_ROWS))
     q_slots = to.shape[0] * train_q_cfg.spp * train_q_cfg.max_bounces
     k10_ops = (tqwalk["sweep_tests"] * MT_OPS
@@ -3029,6 +3087,8 @@ def run() -> None:
         f"{BAND_ROWS.stop - 1}: K11 {k11_band_ms} ms, plain {k11_plain_ms} "
         f"ms; bound {k11_bound[0]:.4f} ms ({k11_bound[1]}; the walk as "
         f"K10's above, and {q_slots * 8 / 1e6:.1f} MB of hits written); "
+        f"grid {k11_grid} CTAs ({k11_per_sm} resident a SM x {q_sms} SMs), "
+        f"idle lanes {tqwalk['schedules']}; "
         f"the frame's radiance bit-equal to K9's, and on the rows its "
         f"radiance and hits ({k11_hits} hits in the frame) bit-equal to "
         f"quality_hits_plain's, max error {k11_err}")
@@ -3303,6 +3363,10 @@ def run() -> None:
         "launches_by_path": {"serving": 0, "training": btr["k8"]},
         "max_abs_err": k8_check["max_abs_err"],
         "ms": sum(k8_ms) / 2,
+        "idle_lane_share": [
+            {k: v["idle_lane_share"] for k, v in c.items()
+             if isinstance(v, dict)} for c in twalk["chunk_schedules"]],
+        "grid": {"ctas": k8_grid, "resident_per_sm": k8_per_sm, "sms": sms},
         "band_ms": sum(k8_band_ms) / len(k8_band_ms),
         "plain_ms": sum(k8_plain_ms) / 2,
         "plain_at": f"rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}, K8+K7",
@@ -3319,6 +3383,11 @@ def run() -> None:
                              "training": qbtr["k9"]},
         "max_abs_err": serve_q["band_vs_plain"]["max_abs_err"],
         "ms": k9_ms_mean,
+        "idle_lane_share": {
+            k: v["idle_lane_share"] for k, v in qwalk["schedules"].items()
+            if isinstance(v, dict)},
+        "grid": {"ctas": k9_grid, "resident_per_sm": k9_per_sm,
+                 "sms": q_sms},
         "band_ms": sum(k9_band_ms) / len(k9_band_ms),
         "plain_ms": sum(k9_plain_ms) / 2,
         "plain_at": f"rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}",
@@ -3371,6 +3440,11 @@ def run() -> None:
         "launches_by_path": {"vis_grad training, 10k": vbtr["launches"]["K11"]},
         "max_abs_err": k11_err,
         "ms": sum(k11_ms) / len(k11_ms),
+        "idle_lane_share": {
+            k: v["idle_lane_share"] for k, v in tqwalk["schedules"].items()
+            if isinstance(v, dict)},
+        "grid": {"ctas": k11_grid, "resident_per_sm": k11_per_sm,
+                 "sms": q_sms},
         "k9_ms_in_turns": sum(k9_turn_ms) / len(k9_turn_ms),
         "band_ms": sum(k11_band_ms) / len(k11_band_ms),
         "plain_ms": sum(k11_plain_ms) / 2,

@@ -7,15 +7,14 @@
 // export, ::_bigq_hits_kernel (launched by bigq_hits_call). K9 computes K3's
 // function (megakernel_quality.cu: hash draws, cosine sampler, NEE with
 // MIS, Russian roulette, stratification) for 1 <= T <= 2^20 triangles:
-// one thread owns one ray, and the walk is K3's (quality_walk.cuh:
-// quality_sample) through its streamed backend, StreamQuality: the table's
-// v0/e1/e2 columns staged through shared memory in 256-row blocks
+// every bounce is K3's (quality_walk.cuh: bounce_begin, the bounce's
+// sweep, bounce_end) through the streamed backend StreamQuality: the
+// table's v0/e1/e2 columns staged through shared memory in 256-row blocks
 // (stream_sweep.cuh), the shadow ray and the next bounce's ray tested
-// against each staged block together from their shared origin
-// (stream_nearest2: each block staged once a bounce), and the light chosen
-// by a binary search of the cdf at the light rows. With the same
-// arithmetic (-fmad=false, no fast math) the result equals K3's to the
-// bit at T <= 1024 and the plain version's (quality_plain) at every T.
+// against each staged block together from their shared origin, and the
+// light chosen by a binary search of the cdf at the light rows. With the
+// same arithmetic (-fmad=false, no fast math) the result equals K3's to
+// the bit at T <= 1024 and the plain version's (quality_plain) at every T.
 //
 // Not ported from the TPU kernel, with their contracts kept: the Plucker
 // features in bf16 split terms and the one-hot attribute gather (exact
@@ -25,21 +24,44 @@
 // at every light, the light is the last row, T - 1, as in the wavefront
 // and K3; the JAX kernel clips to the last light there.
 //
-// Bound: compute. Each bounce sweeps every triangle for two rays (the
-// shared origin terms computed once), ~75 float operations a staged row;
-// the light choice is ~log2(L) loads. The cost the design accepts: a ray
-// whose path ended idles through its CTA's remaining sweeps, and each
-// 256-row block costs two CTA barriers.
+// Bound: compute. A bounce sweeps every triangle for two rays (the shared
+// origin terms computed once), ~75 float operations a staged row; the
+// light choice is ~log2(L) loads. The sweep synchronises the CTA, so a
+// lane without a live ray idles through it: with one ray a lane in
+// lockstep (the first port), 79% of the lanes idled through the sweeps
+// of a 10k-triangle 1080p 16-spp frame (camera misses, paths that ended
+// early, samples done). The design keeps the lanes on live rays instead,
+// as K6's (bigscene.cu):
+//
+//   - a queue of pixels: a persistent grid (the card's resident CTAs of
+//     this kernel, ops/kernels/bigscene.py::queue_plan) takes pixels from
+//     one int32 counter in device memory (zeroed by the wrapper), a warp at
+//     a time with one atomic; a lane whose pixel is done, or whose camera
+//     ray missed, takes the next unstarted pixel;
+//   - regeneration: when a sample's path ends (a miss, the roulette, or its
+//     last bounce) the lane adds its radiance and starts the pixel's next
+//     sample at once from the camera hit, which needs no sweep.
+//
+// So one CTA-wide sweep carries, lane by lane, one of three loads: a new
+// pixel's camera ray; a bounce's shadow ray and next ray (two rays from the
+// hit point); or one ray, a last (or roulette-ending) bounce's shadow ray, or
+// without NEE the next ray (StreamQuality::mixed: the two-ray sweep for every
+// lane if any lane of the CTA carries two). A pixel's result is the same
+// function of its ray and key as before: the hash stream is stateless
+// (draw(h1, s * C1, b, k)), so a lane's state is its pixel, sample and bounce;
+// the samples' radiances are summed in sample order and multiplied by 1/spp.
+// Which lane runs which pixel, and when, varies from launch to launch; no sum
+// spans pixels, so the bits do not.
 //
 // K11 is K9 with an export flag, not a second walk: the kernel is a
-// template over the walk's recorder, spath::NoSave for K9 (so K9's code
-// and bits are its own) and spath::HitSaver for K11, which writes each
-// (sample, bounce) nearest hit the walk took (quality_walk.cuh: HitSaver),
-// a miss (1e12, -1) where the path had missed or ended. The radiance is
-// K9's to the bit. The export adds 8 bytes a (sample, bounce, ray) of
-// writes; the JAX package unrolls its sample loop for it and gates it at
-// spp <= 8, and the wrapper keeps that gate (the buffers take 663 MB at
-// 1920x1080, 5 bounces and 8 spp).
+// template over it. K11 writes each (sample, bounce) nearest hit the walk
+// took (quality_walk.cuh: HitSaver) at its fixed slot
+// (s * max_bounces + b) * n + pixel, from whichever lane runs the pixel,
+// and a miss (1e12, -1) from the path's length on. The radiance is K9's to
+// the bit. The export adds 8 bytes a (sample, bounce, ray) of writes, no
+// longer coalesced across a warp; the JAX package unrolls its sample loop
+// for it and gates it at spp <= 8, and the wrapper keeps that gate (the
+// buffers take 663 MB at 1920x1080, 5 bounces and 8 spp).
 //
 // Layouts (checked by the Python wrapper ops/kernels/bigscene_quality.py),
 // all row-major and contiguous:
@@ -51,6 +73,7 @@
 //   out                  float32 (n, 3): mean radiance r, g, b
 //   hit_dist, hit_idx    float32, int32 (spp, max_bounces, n): K11's
 //                        export, null for K9
+//   next_pixel           int32 (1): the queue's counter, 0 at launch
 // The launch goes on the caller's stream, allocates nothing and does not
 // synchronise; the entry point returns a cudaError_t.
 
@@ -62,6 +85,11 @@ using spath::Hit;
 using spath::kStreamThreads;
 using spath::QualityArgs;
 
+constexpr unsigned kFull = 0xffffffffu;
+
+// What a lane's next sweep carries.
+enum Mode : int { kIdle = 0, kCamera = 1, kBounce = 2 };
+
 template <bool kExport>
 __global__ void __launch_bounds__(kStreamThreads)
     bigscene_quality_forward(const float* __restrict__ origins,
@@ -70,103 +98,211 @@ __global__ void __launch_bounds__(kStreamThreads)
                              const float* __restrict__ lcdf,
                              float* __restrict__ out,
                              float* __restrict__ hit_dist,
-                             int* __restrict__ hit_idx, int n,
+                             int* __restrict__ hit_idx,
+                             int* __restrict__ next_pixel, int n,
                              QualityArgs a) {
   __shared__ __align__(16) float tiles[2 * spath::kTileFloats];
-  const int i = blockIdx.x * kStreamThreads + threadIdx.x;
-  // No early return: every thread takes part in the CTA's sweeps.
-  const bool live = i < n;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f;
-  float dx = 0.0f, dy = 0.0f, dz = 0.0f;
-  uint32_t h1 = 0u;
-  if (live) {
-    ox = origins[3 * i + 0];
-    oy = origins[3 * i + 1];
-    oz = origins[3 * i + 2];
-    dx = directions[3 * i + 0];
-    dy = directions[3 * i + 1];
-    dz = directions[3 * i + 2];
-    h1 = spath::fmix(static_cast<uint32_t>(keys[i]));
-  }
   const spath::StreamQuality be{a.tri, a.n_tris, tiles, a.rows, lcdf,
                                 a.n_rows};
-  // Camera rays are the same for every sample.
-  const Hit first = be.one(live, ox, oy, oz, dx, dy, dz, -1);
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  for (int s = 0; s < a.spp; ++s) {
-    float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
+  const int lane = threadIdx.x & 31;
+  const int nb = a.max_bounces;
+
+  // The export of sample s's bounces from `from` on as misses.
+  auto export_misses = [&](int pix, int s, int from) {
     if constexpr (kExport) {
-      const size_t at = static_cast<size_t>(s) * a.max_bounces * n + i;
-      const spath::HitSaver save{hit_dist + at, hit_idx + at,
-                                 static_cast<size_t>(n)};
-      const int len =
-          spath::quality_sample(a, be, live, ox, oy, oz, dx, dy, dz, first,
-                                h1, s, rad_r, rad_g, rad_b, save);
-      if (live) {
-        for (int b = len; b < a.max_bounces; ++b) {
-          hit_dist[at + static_cast<size_t>(b) * n] = spath::kBig;
-          hit_idx[at + static_cast<size_t>(b) * n] = -1;
+      const size_t at = static_cast<size_t>(s) * nb * n + pix;
+      for (int b = from; b < nb; ++b) {
+        hit_dist[at + static_cast<size_t>(b) * n] = spath::kBig;
+        hit_idx[at + static_cast<size_t>(b) * n] = -1;
+      }
+    }
+  };
+
+  int mode = kIdle;
+  bool drained = false;  // the queue is empty for this lane
+  int pix = 0;
+  float ox0 = 0.0f, oy0 = 0.0f, oz0 = 0.0f;  // the pixel's camera ray
+  float dx0 = 0.0f, dy0 = 0.0f, dz0 = 0.0f;
+  uint32_t h1 = 0u;
+  Hit first{spath::kBig, -1};
+  spath::QualityPath p;
+  p.start(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+  spath::QualityStep x;
+  x.omx = x.omy = x.omz = 0.0f;
+  x.more = false;
+  int s = 0, b = 0;  // the sample, and its bounces done
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+
+  for (;;) {
+    // Lanes without work take the next pixels, one atomic a warp.
+    const bool wants = mode == kIdle && !drained;
+    const unsigned takers = __ballot_sync(kFull, wants);
+    if (takers != 0u) {
+      const int leader = __ffs(takers) - 1;
+      int base = 0;
+      if (lane == leader) base = atomicAdd(next_pixel, __popc(takers));
+      base = __shfl_sync(kFull, base, leader);
+      if (wants) {
+        const int k = base + __popc(takers & ((1u << lane) - 1u));
+        if (k < n) {
+          pix = k;
+          ox0 = origins[3 * k + 0];
+          oy0 = origins[3 * k + 1];
+          oz0 = origins[3 * k + 2];
+          dx0 = directions[3 * k + 0];
+          dy0 = directions[3 * k + 1];
+          dz0 = directions[3 * k + 2];
+          h1 = spath::fmix(static_cast<uint32_t>(keys[k]));
+          mode = kCamera;
+        } else {
+          drained = true;
         }
       }
-    } else {
-      spath::quality_sample(a, be, live, ox, oy, oz, dx, dy, dz, first, h1,
-                            s, rad_r, rad_g, rad_b, spath::NoSave{});
     }
-    acc_r = acc_r + rad_r;
-    acc_g = acc_g + rad_g;
-    acc_b = acc_b + rad_b;
+    // Every lane idle means the queue is empty and every pixel done.
+    if (!__syncthreads_or(mode != kIdle)) break;
+
+    // One CTA-wide sweep: a camera ray; or with NEE the bounce's shadow
+    // ray and, if the path goes on, its next ray; or without NEE the next
+    // ray alone.
+    const bool camera = mode == kCamera;
+    Hit r1, r2;
+    be.mixed(mode != kIdle, mode == kBounce && a.nee && x.more,
+             camera ? ox0 : p.ox, camera ? oy0 : p.oy, camera ? oz0 : p.oz,
+             camera ? dx0 : (a.nee ? x.omx : p.dx),
+             camera ? dy0 : (a.nee ? x.omy : p.dy),
+             camera ? dz0 : (a.nee ? x.omz : p.dz), p.dx, p.dy, p.dz,
+             camera ? -1 : p.src, r1, r2);
+    if (mode == kIdle) continue;
+
+    Hit h;               // the hit of the sample's bounce b
+    bool ended = false;  // the sample's path is over after b bounces
+    if (camera) {
+      // Camera rays are the same for every sample: swept once a pixel.
+      first = r1;
+      acc_r = 0.0f;
+      acc_g = 0.0f;
+      acc_b = 0.0f;
+      s = 0;
+      b = 0;
+      h = first;
+      p.start(ox0, oy0, oz0, dx0, dy0, dz0);
+    } else if (a.nee) {
+      if constexpr (kExport) {
+        const size_t at = static_cast<size_t>(s) * nb * n + pix;
+        spath::bounce_end(a, b, r1.idx, p, x,
+                          spath::HitSaver{hit_dist + at, hit_idx + at,
+                                          static_cast<size_t>(n)});
+      } else {
+        spath::bounce_end(a, b, r1.idx, p, x, spath::NoSave{});
+      }
+      ++b;
+      h = r2;
+      ended = !x.more;
+    } else {
+      h = r1;  // the next ray's hit; bounce b - 1 ended before the sweep
+    }
+
+    // Walk on until this lane's next sweep: the bounces that need none
+    // before them, and the samples that start when one ends.
+    for (;;) {
+      if (!ended && b < nb && h.idx >= 0) {
+        spath::bounce_begin(a, be, h, b, h1, s, true, p, x);
+        if (a.nee) break;  // the shadow ray (and the next ray) to sweep
+        if constexpr (kExport) {
+          const size_t at = static_cast<size_t>(s) * nb * n + pix;
+          spath::bounce_end(a, b, -1, p, x,
+                            spath::HitSaver{hit_dist + at, hit_idx + at,
+                                            static_cast<size_t>(n)});
+        } else {
+          spath::bounce_end(a, b, -1, p, x, spath::NoSave{});
+        }
+        ++b;
+        if (x.more) break;  // the next ray to sweep
+      }
+      // The sample's path is over after b bounces: its radiance is added
+      // in sample order, and the pixel's next sample starts at once from
+      // the camera hit.
+      export_misses(pix, s, b);
+      acc_r = acc_r + p.rad_r;
+      acc_g = acc_g + p.rad_g;
+      acc_b = acc_b + p.rad_b;
+      if (++s == a.spp) break;
+      p.start(ox0, oy0, oz0, dx0, dy0, dz0);
+      h = first;
+      b = 0;
+      ended = false;
+    }
+    if (s == a.spp) {
+      const float inv = 1.0f / static_cast<float>(a.spp);
+      out[3 * pix + 0] = acc_r * inv;
+      out[3 * pix + 1] = acc_g * inv;
+      out[3 * pix + 2] = acc_b * inv;
+      mode = kIdle;
+    } else {
+      mode = kBounce;
+    }
   }
-  if (live) {
-    const float inv = 1.0f / static_cast<float>(a.spp);
-    out[3 * i + 0] = acc_r * inv;
-    out[3 * i + 1] = acc_g * inv;
-    out[3 * i + 2] = acc_b * inv;
-  }
+}
+
+template <bool kExport>
+int occupancy() {
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, bigscene_quality_forward<kExport>, kStreamThreads, 0);
+  return err == cudaSuccess ? per_sm : -static_cast<int>(err);
 }
 
 int launch(const float* origins, const float* directions, const int64_t* keys,
            const float* tri, const int* rows, const float* lcdf, float* out,
-           float* hit_dist, int* hit_idx, int n, int n_tris, int n_rows,
-           int spp, int max_bounces, int rr_start, int flags, float inv_spp,
-           void* stream) {
+           float* hit_dist, int* hit_idx, int* next_pixel, int n, int n_tris,
+           int n_rows, int spp, int max_bounces, int rr_start, int flags,
+           float inv_spp, int grid, void* stream) {
   if (n < 1 || n_tris < 1 || n_tris > spath::kBigMaxTris || n_rows < 0 ||
-      spp < 1 || max_bounces < 0 || rr_start < 0) {
+      spp < 1 || max_bounces < 0 || rr_start < 0 || grid < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const QualityArgs a = spath::make_args(tri, rows, n_tris, n_rows, spp,
                                          max_bounces, rr_start, flags,
                                          inv_spp);
-  const int grid = (n + kStreamThreads - 1) / kStreamThreads;
   auto* kernel = hit_dist != nullptr ? &bigscene_quality_forward<true>
                                      : &bigscene_quality_forward<false>;
   kernel<<<grid, kStreamThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      origins, directions, keys, lcdf, out, hit_dist, hit_idx, n, a);
+      origins, directions, keys, lcdf, out, hit_dist, hit_idx, next_pixel, n,
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// CTAs of K9 (export == 0) or K11 (export != 0) resident on one SM (the
+// persistent grid is this times the SMs), or a negative cudaError_t.
+extern "C" int spath_bigscene_quality_forward_occupancy(int export_hits) {
+  return export_hits != 0 ? occupancy<true>() : occupancy<false>();
+}
+
 // K9. flags: as spath::make_args takes them.
 extern "C" int spath_bigscene_quality_forward(
     const float* origins, const float* directions, const int64_t* keys,
-    const float* tri, const int* rows, const float* lcdf, float* out, int n,
-    int n_tris, int n_rows, int spp, int max_bounces, int rr_start,
-    int flags, float inv_spp, void* stream) {
+    const float* tri, const int* rows, const float* lcdf, float* out,
+    int* next_pixel, int n, int n_tris, int n_rows, int spp, int max_bounces,
+    int rr_start, int flags, float inv_spp, int grid, void* stream) {
   return launch(origins, directions, keys, tri, rows, lcdf, out, nullptr,
-                nullptr, n, n_tris, n_rows, spp, max_bounces, rr_start, flags,
-                inv_spp, stream);
+                nullptr, next_pixel, n, n_tris, n_rows, spp, max_bounces,
+                rr_start, flags, inv_spp, grid, stream);
 }
 
 // K11: K9 with the hit export into hit_dist and hit_idx.
 extern "C" int spath_bigscene_quality_forward_hits(
     const float* origins, const float* directions, const int64_t* keys,
     const float* tri, const int* rows, const float* lcdf, float* out,
-    float* hit_dist, int* hit_idx, int n, int n_tris, int n_rows, int spp,
-    int max_bounces, int rr_start, int flags, float inv_spp, void* stream) {
+    float* hit_dist, int* hit_idx, int* next_pixel, int n, int n_tris,
+    int n_rows, int spp, int max_bounces, int rr_start, int flags,
+    float inv_spp, int grid, void* stream) {
   if (hit_dist == nullptr || hit_idx == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch(origins, directions, keys, tri, rows, lcdf, out, hit_dist,
-                hit_idx, n, n_tris, n_rows, spp, max_bounces, rr_start, flags,
-                inv_spp, stream);
+                hit_idx, next_pixel, n, n_tris, n_rows, spp, max_bounces,
+                rr_start, flags, inv_spp, grid, stream);
 }

@@ -3,9 +3,10 @@
 // Replaces the TPU kernel
 // spath_tpu/ops/pallas/megakernel_bigscene_quality.py::_bigq_bwd_kernel
 // (launched there by bigq_bwd_call). One thread owns one ray. For each
-// sample it replays K9's walk (quality_walk.cuh: quality_sample through
-// the streamed backend StreamQuality, the same instantiation as K9's but
-// for the recorder: the same hits, draws and lights bit for bit), saving
+// sample it replays K9's walk in lockstep (quality_walk.cuh:
+// quality_sample through the streamed backend StreamQuality: K9's bounce
+// halves, bounce_begin and bounce_end, and its sweeps, so the same hits,
+// draws and lights bit for bit), saving
 // per bounce what K4 saves, then runs K4's reverse sweep with the live
 // position chain (quality_reverse.cuh: reverse_bounce) from the last hit
 // back to the camera.

@@ -30,9 +30,9 @@
 // multiply and add rounds on its own as in the plain PyTorch version
 // (megakernel_plain), division is IEEE, and cosf/sinf are the accurate
 // library forms. A 1-ulp difference in any of these flips chaotic paths.
-// The walk (sample_walk, through TableSweep) lives in
-// megakernel_common.cuh, which the backward kernel K2 (megakernel_grad.cu)
-// and the streamed kernels K6 and K8 replay it from.
+// The walk (sample_walk through TableSweep, a bounce a walk_step) lives
+// in megakernel_common.cuh, from which the backward kernel K2
+// (megakernel_grad.cu) and the streamed kernels K6 and K8 replay it.
 //
 // Layouts (checked by the Python wrapper ops/kernels/megakernel.py), all
 // row-major and contiguous:

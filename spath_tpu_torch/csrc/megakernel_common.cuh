@@ -2,11 +2,11 @@
 // (megakernel.cu) and K6 (bigscene.cu) and their backward kernels K2
 // (megakernel_grad.cu) and K8 (bigscene_grad.cu), so that every replay
 // compiles from one source and takes the same hits, draws and directions
-// bit for bit. Each bounce is one walk_step; sample_walk (K1, K2, K8)
-// runs a sample's bounces in order, K6 its own queue of paths. The walk
-// is a template over the nearest-hit sweep: TableSweep here for K1 and
-// K2, StreamSweep (stream_sweep.cuh), which stages rows in shared memory,
-// for K6 and K8. The nearest-hit
+// bit for bit. Each bounce is one walk_step; sample_walk (K1, K2) runs a
+// sample's bounces in order through TableSweep, each thread reading the
+// table through the cache on its own; K6 and K8 run theirs in their own
+// queue of paths through StreamSweep (stream_sweep.cuh), which stages rows
+// in shared memory for the CTA. The nearest-hit
 // sweeps take the table's row stride as a template argument: 18 columns
 // for the conformance table, 21 for the quality table of K3 and K4
 // (quality_walk.cuh).
@@ -198,13 +198,11 @@ __device__ __forceinline__ Surface surface(const float* __restrict__ tri,
 }
 
 // K1's and K2's sweep: each thread tests its ray against the whole table,
-// read through the cache, on its own. kCtaWide says whether every thread
-// of the CTA must take part in every call (a sweep that synchronises it).
+// read through the cache, on its own.
 struct TableSweep {
   const float* __restrict__ tri;
   int n_tris;
 
-  static constexpr bool kCtaWide = false;
   __device__ __forceinline__ Hit operator()(bool, float ox, float oy,
                                             float oz, float dx, float dy,
                                             float dz, int src) const {
@@ -311,14 +309,13 @@ __device__ __forceinline__ void walk_step(const float* __restrict__ tri,
   p.src = h.idx;
 }
 
-// One sample of the conformance walk through `sweep`: the camera ray's
-// hit `first` (swept once for all samples), up to max_bounces segments,
-// each hit through walk_step. `live` is false for a thread without a
-// ray. A path that misses stops: every later term of the masked TPU walk
-// is zero and its seed does not move, so this is exact. With a CTA-wide
-// sweep, a thread whose path ended keeps calling it until no thread of
-// the CTA has a live path; otherwise it leaves the loop at once. (K6
-// runs the same steps in its own loop, a lane per path: bigscene.cu.)
+// One sample of the conformance walk through `sweep` (K1, K2): the
+// camera ray's hit `first` (swept once for all samples), up to
+// max_bounces segments, each hit through walk_step. `live` is false for a
+// thread without a ray. A path that misses stops: every later term of the
+// masked TPU walk is zero and its seed does not move, so this is exact.
+// (K6 and K8 run the same steps in their own loop, a lane per path:
+// bigscene.cu, bigscene_grad.cu.)
 template <class Sweep, class Rec>
 __device__ __forceinline__ void sample_walk(
     const float* __restrict__ tri, const Sweep& sweep, bool live, float ox0,
@@ -327,18 +324,12 @@ __device__ __forceinline__ void sample_walk(
     float& rad_b, Rec& rec) {
   Path p;
   p.start(ox0, oy0, oz0, dx0, dy0, dz0);
-  bool active = live;
   for (int bounce = 0; bounce < max_bounces; ++bounce) {
     Hit h = first;
     if (bounce > 0) {
-      if (Sweep::kCtaWide && !__syncthreads_or(active)) break;
-      h = sweep(active, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.src);
+      h = sweep(live, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.src);
     }
-    if (!active || h.idx < 0) {
-      if (!Sweep::kCtaWide) break;
-      active = false;
-      continue;
-    }
+    if (!live || h.idx < 0) break;
     walk_step(tri, h, bounce, seed, p, rec);
   }
   rad_r = p.rad_r;

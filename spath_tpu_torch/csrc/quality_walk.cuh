@@ -3,13 +3,15 @@
 // kernels K4 (megakernel_quality_grad.cu) and K10
 // (bigscene_quality_grad.cu): each backward kernel replays its forward's
 // walk from this one source, so it takes the same hits, draws, lights and
-// directions bit for bit. The walk (quality_sample) is a template over the
-// backend, which sweeps for nearest hits and reads the cdf for the light
-// choice (search_light, a binary search): TableQuality for K3 and K4 (each
-// thread reads the whole table through the cache), StreamQuality for K9
-// and K10 (the CTA stages the table through shared memory,
-// stream_sweep.cuh). With the same arithmetic, K9 equals K3 to the bit at
-// T <= 1024.
+// directions bit for bit. A bounce is two halves around its sweep,
+// bounce_begin and bounce_end; quality_sample runs a sample's bounces in
+// order (K3, K4, K10), K9 and K11 their own queue of paths. The halves
+// are templates over the backend, which sweeps for nearest hits and reads
+// the cdf for the light choice (search_light, a binary search):
+// TableQuality for K3 and K4 (each thread reads the whole table through
+// the cache), StreamQuality for K9, K10 and K11 (the CTA stages the table
+// through shared memory, stream_sweep.cuh). With the same arithmetic, K9
+// equals K3 to the bit at T <= 1024.
 //
 // It is the port of spath_tpu/ops/pallas/megakernel_quality.py::
 // _sample_walk for one ray: the counter-based hash draws (_hash_draws),
@@ -24,9 +26,10 @@
 //
 // A masked TPU lane becomes a thread that leaves its loop: once a path
 // misses or loses the roulette, every later term of the masked walk is
-// zero, so stopping is exact. Under a CTA-wide sweep (StreamQuality) an
-// ended path keeps joining its CTA's sweeps, without a ray, until no path
-// of the CTA is alive.
+// zero, so stopping is exact. Under a CTA-wide sweep in lockstep (K10's
+// quality_sample on StreamQuality) an ended path keeps joining its CTA's
+// sweeps, without a ray, until no path of the CTA is alive; K9 and K11
+// start the next sample or pixel in that lane instead.
 
 #pragma once
 
@@ -196,6 +199,27 @@ struct StreamQuality {
     stream_nearest2<kQCols>(tri, n_tris, tiles, live, ox, oy, oz, d1x, d1y,
                             d1z, d2x, d2y, d2z, src, h1, h2);
   }
+  // K9's and K11's sweep, whose lanes carry one ray (d1) or, where `two`
+  // is set, two from one origin (d1 and d2): two() for every lane if any
+  // lane of the CTA carries two, else one(); h2 is a miss for a lane
+  // without a second ray. Measured against skipping the second ray's
+  // tests lane by lane (8.8% slower on K9's 10k serving frame) and two
+  // rays for every lane (7.4% slower), on an H100 (PERF.md).
+  __device__ __forceinline__ void mixed(bool live, bool two, float ox,
+                                        float oy, float oz, float d1x,
+                                        float d1y, float d1z, float d2x,
+                                        float d2y, float d2z, int src,
+                                        Hit& h1, Hit& h2) const {
+    if (__syncthreads_or(live && two)) {
+      stream_nearest2<kQCols>(tri, n_tris, tiles, live, ox, oy, oz, d1x, d1y,
+                              d1z, d2x, d2y, d2z, src, h1, h2);
+      if (!two) h2 = Hit{kBig, -1};
+    } else {
+      h1 = stream_nearest<kQCols>(tri, n_tris, tiles, live, ox, oy, oz, d1x,
+                                  d1y, d1z, src);
+      h2 = Hit{kBig, -1};
+    }
+  }
   __device__ __forceinline__ int light(float u) const {
     const float* __restrict__ c = lcdf;
     return search_light([c](int k) { return __ldg(c + k); }, rows, n_rows,
@@ -250,10 +274,237 @@ struct HitSaver {
   }
 };
 
+// One sample's walk between its sweeps: the ray into the next hit (origin
+// o, direction d, and src, the triangle it leaves, -1 for a camera ray),
+// the throughput, the MIS pdf of the direction d (with mis) and the
+// radiance gathered so far.
+struct QualityPath {
+  float ox, oy, oz, dx, dy, dz;
+  int src;
+  float tr, tg, tb;
+  float prev_pdf;
+  float rad_r, rad_g, rad_b;
+
+  // A new sample along the camera ray o0 + t d0.
+  __device__ __forceinline__ void start(float ox0, float oy0, float oz0,
+                                        float dx0, float dy0, float dz0) {
+    ox = ox0;
+    oy = oy0;
+    oz = oz0;
+    dx = dx0;
+    dy = dy0;
+    dz = dz0;
+    src = -1;
+    tr = 1.0f;
+    tg = 1.0f;
+    tb = 1.0f;
+    prev_pdf = 0.0f;
+    rad_r = 0.0f;
+    rad_g = 0.0f;
+    rad_b = 0.0f;
+  }
+};
+
+// What a bounce leaves between its two halves: the shadow ray's direction
+// om from the hit point (the path's new origin), the light li, whether
+// its NEE term counts if the shadow ray reaches the light (lit) and that
+// term (c), whether the path goes on after the bounce (more: not its last
+// bounce, and not lost to the roulette) and the bounce's record.
+struct QualityStep {
+  float omx, omy, omz;
+  int li;
+  bool lit;
+  float cr, cg, cb;
+  bool more;
+  Bounce st;
+};
+
+// The first half of bounce b at the hit h of the path's ray, everything
+// before the bounce's sweep: the emitter term with its MIS weight, the
+// cosine-weighted direction, the light choice with the shadow ray and its
+// NEE term, the throughput and the roulette. Moves the path to the hit
+// point along the sampled direction (its ray for the next bounce) and
+// fills x. `active` is false only for a thread of a CTA-wide walk whose
+// path has ended: it reads row 0 in place of a hit for values that are
+// dropped, and its radiance is not touched.
+template <class Backend>
+__device__ __forceinline__ void bounce_begin(const QualityArgs& a,
+                                             const Backend& be, const Hit& h,
+                                             int b, uint32_t h1, int s,
+                                             bool active, QualityPath& p,
+                                             QualityStep& x) {
+  const float* __restrict__ tri = a.tri;
+  const uint32_t sc = static_cast<uint32_t>(s) * kC1;
+  const bool last = b == a.max_bounces - 1;
+  const int hit = active ? h.idx : 0;
+  const float* r = tri + hit * kQCols;
+  const float nx = __ldg(r + 9), ny = __ldg(r + 10), nz = __ldg(r + 11);
+  const float ar = __ldg(r + 12), ag = __ldg(r + 13), ab = __ldg(r + 14);
+  const float er = __ldg(r + 15), eg = __ldg(r + 16), eb = __ldg(r + 17);
+  const float px = p.ox + h.dist * p.dx;
+  const float py = p.oy + h.dist * p.dy;
+  const float pz = p.oz + h.dist * p.dz;
+  const bool flip = nx * p.dx + ny * p.dy + nz * p.dz > 0.0f;
+  const float anx = flip ? -nx : nx;
+  const float any_ = flip ? -ny : ny;
+  const float anz = flip ? -nz : nz;
+
+  // emitter-hit term (BSDF strategy)
+  float w_b = 1.0f;
+  if (a.nee) {
+    if (b > 0) {
+      if (a.mis) {
+        const float cos_l_hit = fabsf(nx * p.dx + ny * p.dy + nz * p.dz);
+        const float dmin = fminf(h.dist, kMillion);
+        const float p_here =
+            __ldg(r + kColProb) / fmaxf(__ldg(r + kColArea), kTiny20) *
+            dmin * dmin / fmaxf(cos_l_hit, kTiny6);
+        w_b = p.prev_pdf * p.prev_pdf /
+              fmaxf(p.prev_pdf * p.prev_pdf + p_here * p_here, kTiny30);
+      } else {
+        w_b = 0.0f;  // pure NEE drops BSDF-sampled emitter hits
+      }
+    }
+    if (active) {
+      p.rad_r = p.rad_r + p.tr * er * w_b;
+      p.rad_g = p.rad_g + p.tg * eg * w_b;
+      p.rad_b = p.rad_b + p.tb * eb * w_b;
+    }
+  } else {
+    p.rad_r = p.rad_r + p.tr * er;
+    p.rad_g = p.rad_g + p.tg * eg;
+    p.rad_b = p.rad_b + p.tb * eb;
+  }
+
+  // cosine-weighted direction (ops/sampling.py)
+  float u0 = draw(h1, sc, b, 0);
+  const float u1 = draw(h1, sc, b, 1);
+  if (a.stratify && b == 0) {
+    u0 = (static_cast<float>(s) + u0) * a.inv_spp;
+  }
+  const float phi = u0 * kTwoPi;
+  const float rr = sqrtf(fmaxf(1.0f - u1, 0.0f));
+  const float z = sqrtf(u1);
+  const float sgn = anz >= 0.0f ? 1.0f : -1.0f;
+  const float fa = -1.0f / (sgn + anz);
+  const float fb = anx * any_ * fa;
+  const float tx = 1.0f + sgn * anx * anx * fa;
+  const float ty = sgn * fb;
+  const float tz = -sgn * anx;
+  const float btx = fb;
+  const float bty = sgn + any_ * any_ * fa;
+  const float btz = -any_;
+  const float cp = cosf(phi) * rr;
+  const float sp = sinf(phi) * rr;
+  const float ndx = tx * cp + btx * sp + anx * z;
+  const float ndy = ty * cp + bty * sp + any_ * z;
+  const float ndz = tz * cp + btz * sp + anz * z;
+
+  // next-event estimation (ops/nee.py::direct_light): everything but the
+  // shadow ray's occlusion, which the sweep gives
+  float misw = 1.0f;
+  x.li = -1;
+  x.lit = false;
+  x.omx = 0.0f;
+  x.omy = 0.0f;
+  x.omz = 0.0f;
+  x.cr = 0.0f;
+  x.cg = 0.0f;
+  x.cb = 0.0f;
+  if (a.nee) {
+    const int li = be.light(draw(h1, sc, b, 2));
+    const float* l = tri + li * kQCols;
+    const float su1 = sqrtf(draw(h1, sc, b, 3));
+    const float b1 = 1.0f - su1;
+    const float b2 = draw(h1, sc, b, 4) * su1;
+    const float yx = __ldg(l + 0) + b1 * __ldg(l + 3) + b2 * __ldg(l + 6);
+    const float yy = __ldg(l + 1) + b1 * __ldg(l + 4) + b2 * __ldg(l + 7);
+    const float yz = __ldg(l + 2) + b1 * __ldg(l + 5) + b2 * __ldg(l + 8);
+    const float delx = yx - px, dely = yy - py, delz = yz - pz;
+    const float r2 = delx * delx + dely * dely + delz * delz;
+    const float rl = sqrtf(fmaxf(r2, kTiny20));
+    const float omx = delx / rl, omy = dely / rl, omz = delz / rl;
+    const float cos_s = anx * omx + any_ * omy + anz * omz;
+    const float cos_l =
+        fabsf(__ldg(l + 9) * omx + __ldg(l + 10) * omy + __ldg(l + 11) * omz);
+    const float lprob = __ldg(l + kColProb);
+    const float larea = __ldg(l + kColArea);
+    const float g = cos_s * cos_l / fmaxf(r2, kTiny12);
+    const float wgt = larea / fmaxf(lprob, kTiny20);
+    float scale = g * wgt * kInvPi;
+    if (a.mis) {
+      const float p_nee = lprob / fmaxf(larea, kTiny20) * fminf(r2, kBig) /
+                          fmaxf(cos_l, kTiny6);
+      const float p_bsdf = fmaxf(cos_s, 0.0f) * kInvPi;
+      misw = p_nee * p_nee / fmaxf(p_nee * p_nee + p_bsdf * p_bsdf, kTiny30);
+    }
+    scale = scale * misw;
+    x.omx = omx;
+    x.omy = omy;
+    x.omz = omz;
+    x.li = li;
+    x.lit = lprob > 0.0f && cos_s > 0.0f && li != h.idx;
+    x.cr = p.tr * ar * __ldg(l + 15) * scale;
+    x.cg = p.tg * ag * __ldg(l + 16) * scale;
+    x.cb = p.tb * ab * __ldg(l + 17) * scale;
+  }
+
+  x.st = Bounce{p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, h.dist, h.idx,
+                p.tr, p.tg, p.tb, w_b, misw, -1, 0.0f};
+
+  // advance (cosine weight 1: the pdf cancels BRDF * cos)
+  p.tr = p.tr * ar;
+  p.tg = p.tg * ag;
+  p.tb = p.tb * ab;
+  p.ox = px;
+  p.oy = py;
+  p.oz = pz;
+  p.dx = ndx;
+  p.dy = ndy;
+  p.dz = ndz;
+  p.src = h.idx;
+  x.more = !last;
+  if (a.rr_start && b >= a.rr_start && !last) {
+    // Russian roulette on the continuation: survive with probability
+    // q = max throughput component, reweight by 1/q
+    const float q = fminf(fmaxf(fmaxf(fmaxf(p.tr, p.tg), p.tb), kRrMin),
+                          1.0f);
+    if (!(draw(h1, sc, b, a.n_draws - 1) < q)) {
+      x.more = false;
+    } else {
+      p.tr = p.tr / q;
+      p.tg = p.tg / q;
+      p.tb = p.tb / q;
+      x.st.rrq = q;
+    }
+  }
+  if (a.mis) {
+    p.prev_pdf = fmaxf(ndx * anx + ndy * any_ + ndz * anz, 0.0f) * kInvPi;
+  }
+}
+
+// The second half of bounce b, after its sweep: the NEE term where the
+// shadow ray's nearest hit `occ` is the chosen light, then the bounce's
+// record to `save`.
+template <class Save>
+__device__ __forceinline__ void bounce_end(const QualityArgs& a, int b,
+                                           int occ, QualityPath& p,
+                                           QualityStep& x, Save save) {
+  if (a.nee && x.lit && occ == x.li) {
+    p.rad_r = p.rad_r + x.cr;
+    p.rad_g = p.rad_g + x.cg;
+    p.rad_b = p.rad_b + x.cb;
+    x.st.li = x.li;
+  }
+  save(b, x.st);
+}
+
 // One sample's walk for one ray through the backend `be`: adds its
 // radiance to (rad_r, rad_g, rad_b) and hands each bounce that hit to
 // `save`. `live` is false for a thread without a ray (h is then a miss).
-// Returns the number of bounces that hit.
+// Returns the number of bounces that hit. Each bounce is bounce_begin,
+// the bounce's sweep, bounce_end (K9 and K11 run the same halves in
+// their own loop, a lane per path: bigscene_quality.cu).
 //
 // The sweeps: with NEE, at each bounce the shadow ray and the next
 // bounce's ray together (two), the shadow ray alone (one) at the last;
@@ -269,18 +520,18 @@ __device__ __forceinline__ int quality_sample(
     const QualityArgs& a, const Backend& be, bool live, float ox, float oy,
     float oz, float dx, float dy, float dz, Hit h, uint32_t h1, int s,
     float& rad_r, float& rad_g, float& rad_b, Save save) {
-  const float* __restrict__ tri = a.tri;
-  const uint32_t sc = static_cast<uint32_t>(s) * kC1;
-  int src = -1;
-  float tr = 1.0f, tg = 1.0f, tb = 1.0f;
-  float prev_pdf = 0.0f;
+  QualityPath p;
+  p.start(ox, oy, oz, dx, dy, dz);
+  p.rad_r = rad_r;
+  p.rad_g = rad_g;
+  p.rad_b = rad_b;
   int len = 0;
   bool active = live;
   for (int b = 0; b < a.max_bounces; ++b) {
     const bool last = b == a.max_bounces - 1;
     if (b > 0 && !a.nee) {
       if (Backend::kCtaWide && !__syncthreads_or(active)) break;
-      h = be.one(active, ox, oy, oz, dx, dy, dz, src);
+      h = be.one(active, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.src);
     }
     active = active && h.idx >= 0;
     if (!Backend::kCtaWide) {
@@ -290,160 +541,35 @@ __device__ __forceinline__ int quality_sample(
     } else if (!active) {
       continue;  // no sweep before the next bounce's
     }
-    const int hit = Backend::kCtaWide && !active ? 0 : h.idx;
-    const float* r = tri + hit * kQCols;
-    const float nx = __ldg(r + 9), ny = __ldg(r + 10), nz = __ldg(r + 11);
-    const float ar = __ldg(r + 12), ag = __ldg(r + 13), ab = __ldg(r + 14);
-    const float er = __ldg(r + 15), eg = __ldg(r + 16), eb = __ldg(r + 17);
-    const float px = ox + h.dist * dx;
-    const float py = oy + h.dist * dy;
-    const float pz = oz + h.dist * dz;
-    const bool flip = nx * dx + ny * dy + nz * dz > 0.0f;
-    const float anx = flip ? -nx : nx;
-    const float any_ = flip ? -ny : ny;
-    const float anz = flip ? -nz : nz;
-
-    // emitter-hit term (BSDF strategy)
-    float w_b = 1.0f;
-    if (a.nee) {
-      if (b > 0) {
-        if (a.mis) {
-          const float cos_l_hit = fabsf(nx * dx + ny * dy + nz * dz);
-          const float dmin = fminf(h.dist, kMillion);
-          const float p_here =
-              __ldg(r + kColProb) / fmaxf(__ldg(r + kColArea), kTiny20) *
-              dmin * dmin / fmaxf(cos_l_hit, kTiny6);
-          w_b = prev_pdf * prev_pdf /
-                fmaxf(prev_pdf * prev_pdf + p_here * p_here, kTiny30);
-        } else {
-          w_b = 0.0f;  // pure NEE drops BSDF-sampled emitter hits
-        }
-      }
-      if (!Backend::kCtaWide || active) {
-        rad_r = rad_r + tr * er * w_b;
-        rad_g = rad_g + tg * eg * w_b;
-        rad_b = rad_b + tb * eb * w_b;
-      }
-    } else {
-      rad_r = rad_r + tr * er;
-      rad_g = rad_g + tg * eg;
-      rad_b = rad_b + tb * eb;
-    }
-
-    // cosine-weighted direction (ops/sampling.py)
-    float u0 = draw(h1, sc, b, 0);
-    const float u1 = draw(h1, sc, b, 1);
-    if (a.stratify && b == 0) {
-      u0 = (static_cast<float>(s) + u0) * a.inv_spp;
-    }
-    const float phi = u0 * kTwoPi;
-    const float rr = sqrtf(fmaxf(1.0f - u1, 0.0f));
-    const float z = sqrtf(u1);
-    const float sgn = anz >= 0.0f ? 1.0f : -1.0f;
-    const float fa = -1.0f / (sgn + anz);
-    const float fb = anx * any_ * fa;
-    const float tx = 1.0f + sgn * anx * anx * fa;
-    const float ty = sgn * fb;
-    const float tz = -sgn * anx;
-    const float btx = fb;
-    const float bty = sgn + any_ * any_ * fa;
-    const float btz = -any_;
-    const float cp = cosf(phi) * rr;
-    const float sp = sinf(phi) * rr;
-    const float ndx = tx * cp + btx * sp + anx * z;
-    const float ndy = ty * cp + bty * sp + any_ * z;
-    const float ndz = tz * cp + btz * sp + anz * z;
-
-    // next-event estimation (ops/nee.py::direct_light)
+    QualityStep x;
+    bounce_begin(a, be, h, b, h1, s, active, p, x);
+    // the shadow ray and, pipelined, the next bounce's nearest hit
     Hit next = h;
-    float misw = 1.0f;
-    int li_ok = -1;
+    int occ = -1;
     if (a.nee) {
-      const int li = be.light(draw(h1, sc, b, 2));
-      const float* l = tri + li * kQCols;
-      const float su1 = sqrtf(draw(h1, sc, b, 3));
-      const float b1 = 1.0f - su1;
-      const float b2 = draw(h1, sc, b, 4) * su1;
-      const float yx = __ldg(l + 0) + b1 * __ldg(l + 3) + b2 * __ldg(l + 6);
-      const float yy = __ldg(l + 1) + b1 * __ldg(l + 4) + b2 * __ldg(l + 7);
-      const float yz = __ldg(l + 2) + b1 * __ldg(l + 5) + b2 * __ldg(l + 8);
-      const float delx = yx - px, dely = yy - py, delz = yz - pz;
-      const float r2 = delx * delx + dely * dely + delz * delz;
-      const float rl = sqrtf(fmaxf(r2, kTiny20));
-      const float omx = delx / rl, omy = dely / rl, omz = delz / rl;
-      const float cos_s = anx * omx + any_ * omy + anz * omz;
-      const float cos_l =
-          fabsf(__ldg(l + 9) * omx + __ldg(l + 10) * omy + __ldg(l + 11) * omz);
-      // the shadow ray and, pipelined, the next bounce's nearest hit
-      int occ;
       if (last) {
-        occ = be.one(active, px, py, pz, omx, omy, omz, h.idx).idx;
+        occ = be.one(active, p.ox, p.oy, p.oz, x.omx, x.omy, x.omz, p.src)
+                  .idx;
       } else {
         Hit shadow;
-        be.two(active, px, py, pz, omx, omy, omz, ndx, ndy, ndz, h.idx,
-               shadow, next);
+        be.two(active, p.ox, p.oy, p.oz, x.omx, x.omy, x.omz, p.dx, p.dy,
+               p.dz, p.src, shadow, next);
         occ = shadow.idx;
       }
       if (Backend::kCtaWide && !active) continue;
-      const float lprob = __ldg(l + kColProb);
-      const float larea = __ldg(l + kColArea);
-      const bool valid = occ == li && lprob > 0.0f && cos_s > 0.0f &&
-                         li != h.idx;
-      const float g = cos_s * cos_l / fmaxf(r2, kTiny12);
-      const float wgt = larea / fmaxf(lprob, kTiny20);
-      float scale = g * wgt * kInvPi;
-      if (a.mis) {
-        const float p_nee = lprob / fmaxf(larea, kTiny20) * fminf(r2, kBig) /
-                            fmaxf(cos_l, kTiny6);
-        const float p_bsdf = fmaxf(cos_s, 0.0f) * kInvPi;
-        misw = p_nee * p_nee /
-               fmaxf(p_nee * p_nee + p_bsdf * p_bsdf, kTiny30);
-      }
-      scale = scale * misw;
-      if (valid) {
-        rad_r = rad_r + tr * ar * __ldg(l + 15) * scale;
-        rad_g = rad_g + tg * ag * __ldg(l + 16) * scale;
-        rad_b = rad_b + tb * ab * __ldg(l + 17) * scale;
-        li_ok = li;
-      }
     }
-
-    Bounce st{ox, oy, oz, dx, dy, dz, h.dist, h.idx, tr, tg, tb,
-              w_b, misw, li_ok, 0.0f};
+    bounce_end(a, b, occ, p, x, save);
     len = b + 1;
-
-    // advance (cosine weight 1: the pdf cancels BRDF * cos)
-    tr = tr * ar;
-    tg = tg * ag;
-    tb = tb * ab;
-    ox = px;
-    oy = py;
-    oz = pz;
-    dx = ndx;
-    dy = ndy;
-    dz = ndz;
-    src = h.idx;
-    if (a.rr_start && b >= a.rr_start && !last) {
-      // Russian roulette on the continuation: survive with probability
-      // q = max throughput component, reweight by 1/q
-      const float q = fminf(fmaxf(fmaxf(fmaxf(tr, tg), tb), kRrMin), 1.0f);
-      if (!(draw(h1, sc, b, a.n_draws - 1) < q)) {
-        save(b, st);
-        if (!Backend::kCtaWide) break;
-        active = false;
-        continue;
-      }
-      tr = tr / q;
-      tg = tg / q;
-      tb = tb / q;
-      st.rrq = q;
-    }
-    save(b, st);
-    if (a.mis) {
-      prev_pdf = fmaxf(ndx * anx + ndy * any_ + ndz * anz, 0.0f) * kInvPi;
+    if (!x.more && !last) {  // lost to the roulette
+      if (!Backend::kCtaWide) break;
+      active = false;
+      continue;
     }
     h = next;
   }
+  rad_r = p.rad_r;
+  rad_g = p.rad_g;
+  rad_b = p.rad_b;
   return len;
 }
 

@@ -1,16 +1,16 @@
 // The streamed nearest-hit sweep of the large-scene kernels: the
 // conformance forward K6 (bigscene.cu) and its backward K8
 // (bigscene_grad.cu), which run the conformance walk of K1
-// (megakernel_common.cuh: sample_walk) through it, and the quality
+// (megakernel_common.cuh: walk_step) through it, and the quality
 // forward K9 (bigscene_quality.cu) and its backward K10
 // (bigscene_quality_grad.cu), which run the quality walk of K3
-// (quality_walk.cuh: quality_sample) through it. So K8 replays K6's hits,
-// and K10 K9's, bit for bit. The sweeps take the table's row stride as a
-// template argument: 18 floats for the conformance table, 21 for the
-// quality table; both rows start with v0, e1, e2.
+// (quality_walk.cuh: bounce_begin, bounce_end) through it. So K8 replays K6's
+// hits, and K10 K9's, bit for bit. The sweeps take the table's row stride as a
+// template argument: 18 floats for the conformance table, 21 for the quality
+// table; both rows start with v0, e1, e2.
 //
 // Counterpart of spath_tpu/ops/pallas/megakernel_bigscene.py::_sweep
-// (the walk, _bigscene_walk, is sample_walk). The TPU kernel streams
+// (its walk, _bigscene_walk, is K6's loop over walk_step). The TPU kernel streams
 // blocks of 256 triangles from HBM into VMEM and runs the Moller-Trumbore tests as matrix products; here a
 // CTA of kStreamThreads threads (one ray each) stages blocks of kTileRows
 // rows of the table's v0, e1, e2 columns (9 floats a row) into shared
@@ -25,8 +25,10 @@
 //
 // The sweep synchronises the CTA, so every thread of a CTA calls it the
 // same number of times: a thread whose path has ended (or that has no
-// ray) helps stage rows and skips the tests, and the walk stops sweeping
-// when no thread of the CTA still has a live path (__syncthreads_or).
+// ray) helps stage rows and skips the tests. The lockstep walk (K10's
+// quality_sample) stops sweeping when no thread of the CTA still has a
+// live path (__syncthreads_or); the queue kernels (K6, K8, K9, K11) keep
+// each lane on a live ray and stop when the queue of pixels is empty.
 //
 // Numerics: as K1 (-fmad=false, no fast math); see megakernel_common.cuh.
 
@@ -139,16 +141,14 @@ __device__ __forceinline__ void stream_nearest2(
                        });
 }
 
-// K6's and K8's sweep for sample_walk (megakernel_common.cuh): the
-// streamed sweep above, through the CTA's `tiles`. It synchronises the
-// CTA, so the walk goes on sweeping while any thread of the CTA has a
-// live path (__syncthreads_or).
+// K6's and K8's sweep: the streamed sweep above, through the CTA's
+// `tiles`. It synchronises the CTA, so every thread calls it the same
+// number of times.
 struct StreamSweep {
   const float* __restrict__ tri;
   int n_tris;
   float* tiles;
 
-  static constexpr bool kCtaWide = true;
   __device__ __forceinline__ Hit operator()(bool active, float ox, float oy,
                                             float oz, float dx, float dy,
                                             float dz, int src) const {

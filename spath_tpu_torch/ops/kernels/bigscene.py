@@ -55,11 +55,22 @@ BIG_MAX_TRIS = 1 << 20
 CTA_LANES = 128
 
 
+#: The kernels that run a queue of pixels on a persistent grid, and each
+#: one's occupancy query in the library: its entry point and arguments.
+QUEUE_KERNELS = {
+    "K6": ("spath_bigscene_forward_occupancy", ()),
+    "K8": ("spath_bigscene_backward_occupancy", ()),
+    "K9": ("spath_bigscene_quality_forward_occupancy", (0,)),
+    "K11": ("spath_bigscene_quality_forward_occupancy", (1,)),
+}
+
+
 def queue_plan(n: int, per_sm: int, sms: int) -> int:
-    """CTAs of K6's persistent grid for ``n`` rays: every CTA the card
-    holds at once (``per_sm`` on each of ``sms`` SMs), so that no CTA
-    waits for another to end, and no more than the rays fill at one ray a
-    lane. Each CTA takes pixels from the queue until it is empty."""
+    """CTAs of a queue kernel's persistent grid for ``n`` rays: every CTA
+    of that kernel the card holds at once (``per_sm`` on each of ``sms``
+    SMs), so that no CTA waits for another to end, and no more than the
+    rays fill at one ray a lane. Each CTA takes pixels from the queue
+    until it is empty."""
     if n < 1 or per_sm < 1 or sms < 1:
         raise ValueError(f"no grid for n={n}, {per_sm} CTAs an SM, {sms} "
                          "SMs")
@@ -67,27 +78,40 @@ def queue_plan(n: int, per_sm: int, sms: int) -> int:
 
 
 @functools.cache
-def resident_ctas(device_index: int) -> tuple[int, int]:
-    """``(per_sm, sms)``: K6's CTAs resident on one SM of the card
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and its SMs."""
+def resident_ctas(device_index: int, kernel: str) -> tuple[int, int]:
+    """``(per_sm, sms)``: the CTAs of ``kernel`` (a key of
+    ``QUEUE_KERNELS``) resident on one SM of the card
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, asked of that
+    kernel: registers and stack differ kernel to kernel) and its SMs."""
+    entry, args = QUEUE_KERNELS[kernel]
     lib = library()
     with torch.cuda.device(device_index):
-        per_sm = lib.spath_bigscene_forward_occupancy()
+        per_sm = getattr(lib, entry)(*args)
     if per_sm <= 0:
         err = lib.spath_error_string(-per_sm).decode()
-        raise RuntimeError(f"K6 occupancy query failed: CUDA error "
+        raise RuntimeError(f"{kernel} occupancy query failed: CUDA error "
                            f"{-per_sm} ({err})")
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return per_sm, sms
 
 
+def queue_grid(n: int, device: torch.device, kernel: str) -> int:
+    """The persistent grid of ``kernel`` for ``n`` rays on the CUDA
+    ``device``: ``queue_plan`` of that kernel's own resident CTAs."""
+    index = device.index
+    return queue_plan(n, *resident_ctas(
+        torch.cuda.current_device() if index is None else index, kernel))
+
+
 def lane_schedules(totals, cta: int = CTA_LANES, ctas: int = 1) -> dict:
-    """The idle share of the lanes of K6's CTA-wide sweeps under three
-    schedules, counted from the sweeps each pixel needs. ``totals`` is an
-    ``(n, spp + 1)`` integer array: column 0 the camera sweep (1), column
-    ``s + 1`` the sweeps of sample ``s`` after its first bounce (0 for every
-    sample of a pixel whose camera ray missed). A lane that takes no part
-    in a sweep idles through it.
+    """The idle share of the lanes of a streamed kernel's CTA-wide sweeps
+    under three schedules, counted from the sweeps each pixel needs.
+    ``totals`` is an ``(n, samples + 1)`` integer array: column 0 the
+    camera sweep (1; 0 in a later chunk of K8, which reads the camera hit
+    back), column ``s + 1`` the sweeps of sample ``s`` after its camera
+    hit (0 for every sample of a pixel whose camera ray missed). A lane
+    that takes no part in a sweep idles through it, and a pixel with no
+    sweep to make takes none.
 
     - ``lockstep`` (the first port): a lane a pixel, ``cta`` consecutive
       pixels a CTA, which sweeps the camera rays once, then, sample by
@@ -120,11 +144,21 @@ def lane_schedules(totals, cta: int = CTA_LANES, ctas: int = 1) -> dict:
     queue = int(finish.reshape(ctas, cta).max(axis=1).sum())
 
     def share(cta_sweeps: int) -> dict:
-        return dict(cta_sweeps=cta_sweeps,
-                    idle_lane_share=1.0 - useful / (cta_sweeps * cta))
+        return dict(cta_sweeps=cta_sweeps, idle_lane_share=(
+            1.0 - useful / (cta_sweeps * cta) if cta_sweeps else 0.0))
 
     return dict(useful_lane_sweeps=useful, lockstep=share(lockstep),
                 regeneration=share(regeneration), queue=share(queue))
+
+
+def chunk_totals(totals, s0: int, count: int) -> np.ndarray:
+    """The sweeps each pixel needs in the K8 launch that replays samples
+    ``s0`` to ``s0 + count - 1`` of ``totals`` (``lane_schedules``' layout
+    for the whole frame): that launch's samples' columns, after a camera
+    column that only the first launch (``s0 == 0``) sweeps."""
+    totals = np.asarray(totals, dtype=np.int64)
+    camera = totals[:, :1] if s0 == 0 else np.zeros_like(totals[:, :1])
+    return np.concatenate([camera, totals[:, 1 + s0:1 + s0 + count]], axis=1)
 
 
 def supported(scene: Scene, cfg: RenderConfig) -> bool:
@@ -152,9 +186,7 @@ def bigscene_call(origins, directions, seeds, tri, cfg: RenderConfig):
     if n == 0:
         return out
     lib = library()
-    index = origins.device.index
-    grid = queue_plan(n, *resident_ctas(
-        torch.cuda.current_device() if index is None else index))
+    grid = queue_grid(n, origins.device, "K6")
     next_pixel = torch.zeros(1, dtype=torch.int32, device=origins.device)
     with torch.cuda.device(origins.device):
         stream = torch.cuda.current_stream(origins.device).cuda_stream

@@ -5,8 +5,11 @@ The port of ``spath_tpu/ops/pallas/megakernel_bigscene_grad.py``
 (``supported_grad``, ``_bigscene_bwd_kernel``, ``bigscene_bwd_call``, the
 custom VJP ``bigscene_rows`` and ``render_radiance_bigscene_grad``): one
 launch of ``csrc/bigscene_grad.cu`` per chunk of samples replays K6's walk
-(``csrc/megakernel_common.cuh`` through ``csrc/stream_sweep.cuh``) and runs K2's reverse sweep, writing one
-adjoint event per (sample, bounce, ray) to a buffer; the stream scatter K7
+(``csrc/megakernel_common.cuh`` through ``csrc/stream_sweep.cuh``) on K6's
+schedule, a queue of pixels on a persistent grid (``bigscene.queue_grid``
+of K8's own resident CTAs) with regeneration, and runs K2's reverse sweep
+of each sample as it ends, writing one adjoint event per (sample,
+bounce, ray) to a buffer at a fixed slot; the stream scatter K7
 (``ops/kernels/stream_scatter.py``) then adds the chunk's events into the
 ``(T, 9)`` adjoint of the table's shading columns. ``BigRows`` puts K6
 forward and K8 + K7 backward under ``torch.autograd``.
@@ -95,16 +98,20 @@ def bigscene_bwd_call(origins, directions, seeds, tri, gbar,
     state = torch.empty(n, dtype=torch.int32, device=dev)
     ev_idx = torch.empty(n_events, dtype=torch.int32, device=dev)
     ev_val = torch.empty((n_events, 9), dtype=torch.float32, device=dev)
+    starts = range(0, cfg.spp, chunk)
+    # one queue counter a launch, zeroed on the stream before the first
+    next_pixel = torch.zeros(len(starts), dtype=torch.int32, device=dev)
+    grid = bigscene.queue_grid(n, dev, "K8")
     lib = library()
-    for s0 in range(0, cfg.spp, chunk):
+    for k, s0 in enumerate(starts):
         count = min(chunk, cfg.spp - s0)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.spath_bigscene_backward(
                 *(ctypes.c_void_p(t.data_ptr()) for t in (
                     origins, directions, seeds, tri, gbar, first_dist,
-                    first_idx, state, ev_idx, ev_val)),
-                n, n_tris, cfg.spp, cfg.max_bounces, s0, count,
+                    first_idx, state, ev_idx, ev_val, next_pixel[k])),
+                n, n_tris, cfg.spp, cfg.max_bounces, s0, count, grid,
                 ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(

@@ -25,10 +25,15 @@ Layouts, as the wrapper checks them (all contiguous):
 
 K9 computes K3's function with the same arithmetic: it equals K3 to the
 bit at T <= 1024 and ``megakernel_quality.quality_plain``, its plain
-version, at every T. The JAX kernel's sublane-chunked light table and its
-one-hot MXU row fetch are a TPU layout; the port reads the table's rows
-by index. Where ``u`` lies at or above the cdf at every light, the light
-is the last row, as in the wavefront and K3 (``select_light_plain``).
+version, at every T, whichever lane runs which pixel: like K6 it runs a
+queue of pixels on a persistent grid (``bigscene.queue_grid`` of its own
+resident CTAs) and starts a pixel's next sample in a lane as soon as a
+path ends, so that its CTA-wide sweeps test live rays
+(``quality_sweep_totals`` counts each pixel's sweeps for
+``bigscene.lane_schedules``). The JAX kernel's sublane-chunked light table and
+its one-hot MXU row fetch are a TPU layout; the port reads the table's rows by
+index. Where ``u`` lies at or above the cdf at every light, the light is the
+last row, as in the wavefront and K3 (``select_light_plain``).
 
 ``bigq_call`` launches the kernel for CUDA tensors and counts each launch
 in ``bigq_call.launches``; for CPU tensors it computes the same function
@@ -57,6 +62,7 @@ import torch
 from spath_tpu_torch.camera import Camera
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.ops.intersect import BIG, plain_sweep
+from spath_tpu_torch.ops.kernels import bigscene
 from spath_tpu_torch.ops.kernels import megakernel_quality as mq
 from spath_tpu_torch.ops.kernels.build import library
 from spath_tpu_torch.scene import Scene
@@ -147,13 +153,16 @@ def bigq_call(origins, directions, keys, tri, light_idx,
     if n == 0:
         return out
     rows, lcdf = kernel_inputs(tri, light_idx, origins.device)
+    grid = bigscene.queue_grid(n, origins.device, "K9")
+    next_pixel = torch.zeros(1, dtype=torch.int32, device=origins.device)
     lib = library()
     with torch.cuda.device(origins.device):
         stream = torch.cuda.current_stream(origins.device).cuda_stream
         err = lib.spath_bigscene_quality_forward(
             *(ctypes.c_void_p(t.data_ptr()) for t in (
-                origins, directions, keys, tri, rows, lcdf, out)),
-            n, *mq.kernel_args(cfg, n_tris, rows.shape[0]),
+                origins, directions, keys, tri, rows, lcdf, out,
+                next_pixel)),
+            n, *mq.kernel_args(cfg, n_tris, rows.shape[0]), grid,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"streamed quality kernel launch failed: CUDA "
@@ -164,6 +173,29 @@ def bigq_call(origins, directions, keys, tri, light_idx,
 
 
 bigq_call.launches = 0
+
+
+def quality_sweep_totals(origins, directions, keys, tri, light_idx,
+                         cfg: RenderConfig) -> np.ndarray:
+    """The CTA sweeps each pixel takes part in under K9's and K11's queue,
+    counted with the plain replay (``quality_replay``), as an ``(n, spp +
+    1)`` int64 array for ``bigscene.lane_schedules``: column 0 the camera
+    sweep (1), column ``s + 1`` those of sample ``s``. With NEE a sample
+    sweeps once at each bounce it enters alive and hits (its shadow ray,
+    with the next ray unless the path ends there); without NEE once after
+    each bounce that hits and goes on (not the last, not lost to the
+    roulette: its next ray)."""
+    n = origins.shape[0]
+    cols = [torch.ones(n, dtype=torch.int64, device=origins.device)]
+    with torch.no_grad(), plain_sweep():
+        for _, saved in mq.quality_replay(origins, directions, keys, tri,
+                                          light_idx, cfg):
+            col = torch.zeros(n, dtype=torch.int64, device=origins.device)
+            for sv in (saved if cfg.nee else saved[:-1]):
+                col += sv["rrs" if not cfg.nee and "rrs" in sv
+                          else "hit"].long()
+            cols.append(col)
+    return torch.stack(cols, 1).cpu().numpy()
 
 
 def quality_hits_plain(origins, directions, keys, tri, light_idx,
@@ -215,13 +247,16 @@ def bigq_hits_call(origins, directions, keys, tri, light_idx,
     if n == 0:
         return out, dist, idx
     rows, lcdf = kernel_inputs(tri, light_idx, dev)
+    grid = bigscene.queue_grid(n, dev, "K11")
+    next_pixel = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.spath_bigscene_quality_forward_hits(
             *(ctypes.c_void_p(t.data_ptr()) for t in (
-                origins, directions, keys, tri, rows, lcdf, out, dist, idx)),
-            n, *mq.kernel_args(cfg, n_tris, rows.shape[0]),
+                origins, directions, keys, tri, rows, lcdf, out, dist, idx,
+                next_pixel)),
+            n, *mq.kernel_args(cfg, n_tris, rows.shape[0]), grid,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"hit-export kernel launch failed: CUDA error "

@@ -163,23 +163,29 @@ def library() -> ctypes.CDLL:
     lib.spath_bigscene_forward.restype = i32
     lib.spath_bigscene_forward_occupancy.argtypes = []
     lib.spath_bigscene_forward_occupancy.restype = i32
-    # K9: rays, keys, table, rows, cdf at the rows, out, n, then K3's
-    lib.spath_bigscene_quality_forward.argtypes = [ptr] * 7 + quality + [
-        ptr]
+    # K9: rays, keys, table, rows, cdf at the rows, out, the queue's
+    # counter, n, then K3's, then the grid
+    lib.spath_bigscene_quality_forward.argtypes = [ptr] * 8 + quality + [
+        i32, ptr]
     lib.spath_bigscene_quality_forward.restype = i32
     # K11: K9's arguments with the hit buffers after out
     lib.spath_bigscene_quality_forward_hits.argtypes = (
-        [ptr] * 9 + quality + [ptr])
+        [ptr] * 10 + quality + [i32, ptr])
     lib.spath_bigscene_quality_forward_hits.restype = i32
+    # K9's (0) or K11's (1) resident CTAs an SM
+    lib.spath_bigscene_quality_forward_occupancy.argtypes = [i32]
+    lib.spath_bigscene_quality_forward_occupancy.restype = i32
     # K10: rays, keys, table, rows, cdf at the rows, gbar, first hit, ray
     # adjoint, events, n, K3's scalars, first sample, samples
     lib.spath_bigscene_quality_backward.argtypes = (
         [ptr] * 12 + quality + [i32, i32, ptr])
     lib.spath_bigscene_quality_backward.restype = i32
-    # K8: rays, seeds, table, gbar, first hit, state, events, n, n_tris,
-    # spp, max_bounces, first sample, samples
-    lib.spath_bigscene_backward.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+    # K8: rays, seeds, table, gbar, first hit, state, events, the queue's
+    # counter, n, n_tris, spp, max_bounces, first sample, samples, grid
+    lib.spath_bigscene_backward.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
     lib.spath_bigscene_backward.restype = i32
+    lib.spath_bigscene_backward_occupancy.argtypes = []
+    lib.spath_bigscene_backward_occupancy.restype = i32
     # K7: idx, val, E, adj, T, columns, order, counts, starts, partial,
     # arrive, units, splits
     lib.spath_stream_scatter.argtypes = [

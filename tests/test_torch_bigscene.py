@@ -446,6 +446,117 @@ def test_lane_schedules_of_a_uniform_frame_idle_nothing():
         1 - 130 / 256)
 
 
+#: HAND_SWEEPS cut into K8's two launches of one sample each: the second
+#: has no camera column (it reads the camera hits back).
+HAND_CHUNKS = {0: [[1, 2], [1, 0], [1, 4], [1, 1], [1, 1], [1, 0], [1, 2],
+                   [1, 0]],
+               1: [[0, 2], [0, 0], [0, 0], [0, 1], [0, 0], [0, 0], [0, 1],
+                   [0, 0]]}
+
+
+@pytest.mark.parametrize("s0", [0, 1])
+def test_chunk_totals_cut_the_frame_by_launch(s0):
+    got = bs.chunk_totals(np.array(HAND_SWEEPS), s0, 1)
+    assert got.dtype == np.int64
+    assert got.tolist() == HAND_CHUNKS[s0]
+
+
+def test_lane_schedules_by_hand_on_a_later_chunk():
+    """The second launch's pixels, one CTA of 4 lanes: work 2, 0, 0, 1, 0,
+    0, 1, 0. Pixels without work take no sweep: lane 1 takes pixels 1 and
+    2 at step 0 and pixel 3 (to step 1), lane 2 pixels 4, 5 and 6 (to step
+    1), lane 3 pixel 7; lane 0's pixel 0 ends last, at 2 (8 lane slots).
+    Lockstep and regeneration sweep 2 + 1 (12 slots)."""
+    got = bs.lane_schedules(np.array(HAND_CHUNKS[1]), cta=4, ctas=1)
+    assert got["useful_lane_sweeps"] == 4
+    for name, (sweeps, idle) in dict(
+            lockstep=(3, 1 - 4 / 12), regeneration=(3, 1 - 4 / 12),
+            queue=(2, 1 - 4 / 8)).items():
+        assert got[name]["cta_sweeps"] == sweeps, name
+        assert got[name]["idle_lane_share"] == pytest.approx(idle), name
+    # a chunk whose every camera ray missed sweeps nothing, idles nothing
+    none = bs.lane_schedules(np.zeros((8, 2), dtype=np.int64), cta=4, ctas=2)
+    for name in ("lockstep", "regeneration", "queue"):
+        assert none[name] == dict(cta_sweeps=0, idle_lane_share=0.0), name
+
+
+class _FakeOccupancy:
+    """The library's occupancy queries, each kernel its own answer (K6 8,
+    K8 5, K9 4, K11 3 CTAs an SM), recording what was asked."""
+
+    def __init__(self):
+        self.asked = []
+
+    def spath_bigscene_forward_occupancy(self):
+        self.asked.append("K6")
+        return 8
+
+    def spath_bigscene_backward_occupancy(self):
+        self.asked.append("K8")
+        return 5
+
+    def spath_bigscene_quality_forward_occupancy(self, export_hits):
+        self.asked.append("K11" if export_hits else "K9")
+        return 3 if export_hits else 4
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """A card of 132 SMs behind ``_FakeOccupancy``, with the cache of
+    ``resident_ctas`` emptied before and after."""
+    import contextlib
+    import types
+
+    lib = _FakeOccupancy()
+    monkeypatch.setattr(bs, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda index: types.SimpleNamespace(
+                            multi_processor_count=132))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    bs.resident_ctas.cache_clear()
+    yield lib
+    bs.resident_ctas.cache_clear()
+
+
+@pytest.mark.parametrize("kernel, per_sm", [("K6", 8), ("K8", 5), ("K9", 4),
+                                            ("K11", 3)])
+def test_queue_grid_asks_each_kernel_its_own_occupancy(fake_card, kernel,
+                                                       per_sm):
+    """Each queue kernel's persistent grid is its own resident CTAs times
+    the SMs, once a device (cached), unless the rays fill fewer CTAs."""
+    assert bs.resident_ctas(0, kernel) == (per_sm, 132)
+    cuda = torch.device("cuda", 0)
+    assert bs.queue_grid(1920 * 1080, cuda, kernel) == per_sm * 132
+    assert bs.queue_grid(1920 * 1080, torch.device("cuda"), kernel) \
+        == per_sm * 132
+    assert bs.queue_grid(300, cuda, kernel) == 3
+    assert fake_card.asked == [kernel]
+
+
+def test_a_failed_occupancy_query_names_the_kernel(fake_card, monkeypatch):
+    monkeypatch.setattr(fake_card, "spath_bigscene_backward_occupancy",
+                        lambda: -98)
+    monkeypatch.setattr(fake_card, "spath_error_string",
+                        lambda err: b"invalid device function",
+                        raising=False)
+    with pytest.raises(RuntimeError, match="K8 occupancy query failed"):
+        bs.resident_ctas(0, "K8")
+
+
+@pytest.mark.parametrize("call, kernel", [
+    (bs.bigscene_call, "K6"), (bg.bigscene_bwd_call, "K8")])
+def test_wrappers_size_their_grid_by_their_own_kernel(call, kernel):
+    """The launches take the grid of their own kernel's occupancy."""
+    import inspect
+
+    src = inspect.getsource(call)
+    assert 'queue_grid(' in src and f'"{kernel}")' in src
+    for other in set(bs.QUEUE_KERNELS) - {kernel}:
+        assert f'"{other}")' not in src
+
+
 def test_guardrails():
     scene, cam = default_scene(CPU), Camera.default(CPU)
     cfg = RenderConfig(width=8, height=4, spp=1)

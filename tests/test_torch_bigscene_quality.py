@@ -41,6 +41,7 @@ from spath_tpu_torch.models.pathtracer import (  # noqa: E402
     render_pt_fast, render_radiance_fastgrad,
 )
 from spath_tpu_torch.ops import nee  # noqa: E402
+from spath_tpu_torch.ops.kernels import bigscene as bs  # noqa: E402
 from spath_tpu_torch.ops.kernels import bigscene_quality as bq  # noqa: E402
 from spath_tpu_torch.ops.kernels import (  # noqa: E402
     bigscene_quality_grad as bqg,
@@ -609,6 +610,61 @@ def test_big_quality_rows_gives_the_wavefront_gradient(combined256):
         assert scale > 0, name
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * scale,
                                    err_msg=name)
+
+
+# ---- K9's and K11's queue: the sweeps each pixel needs ----
+
+
+@pytest.mark.parametrize("est", [
+    dict(QUALITY), dict(QUALITY, nee=False, mis=False, rr_start=1)],
+    ids=["nee+mis", "bsdf only rr1"])
+def test_quality_sweep_totals_count_the_hit_masks(est):
+    """Per-pixel sweeps of K9's queue on a 16x8 default-scene frame from
+    ``quality_replay``, against a count by hand of its masks, pixel by
+    pixel: one camera sweep; with NEE one sweep a bounce that hit, without
+    it one after each bounce that hit and survived the roulette, but the
+    last; nothing for a pixel whose camera ray missed."""
+    cfg = RenderConfig(width=16, height=8, spp=3, max_bounces=4, **est)
+    scene = default_scene(CPU)
+    o, d, k = mq.pack_rays(Camera.default(CPU), cfg, 0)
+    tri, rows = mq.quality_table(scene), bq.light_rows(scene)
+    got = bq.quality_sweep_totals(o, d, k, tri, rows, cfg)
+    assert got.shape == (128, 4) and got.dtype == np.int64
+    with torch.no_grad():
+        replay = [[{key: v.tolist() for key, v in sv.items()
+                    if key in ("hit", "rrs")} for sv in saved]
+                  for _, saved in mq.quality_replay(o, d, k, tri, rows, cfg)]
+    missed = 0
+    for i in range(128):
+        want = [1]
+        for saved in replay:
+            count = 0
+            for b, sv in enumerate(saved):
+                if cfg.nee:
+                    count += sv["hit"][i]
+                elif b < cfg.max_bounces - 1 and sv["hit"][i]:
+                    count += sv["rrs"][i] if "rrs" in sv else 1
+            want.append(count)
+        if not replay[0][0]["hit"][i]:
+            missed += 1
+            assert want[1:] == [0] * cfg.spp
+        assert got[i].tolist() == want, i
+    # the frame has both: camera rays that miss and paths of several
+    # bounces
+    assert 0 < missed < 128 and got[:, 1:].max() >= 2
+    sched = bs.lane_schedules(got, cta=32, ctas=2)
+    assert sched["queue"]["cta_sweeps"] < sched["lockstep"]["cta_sweeps"]
+
+
+def test_quality_wrappers_size_their_grid_by_their_own_kernel():
+    """K9 and K11 launch on the grid of their own kernel's occupancy."""
+    import inspect
+
+    for call, kernel in ((bq.bigq_call, "K9"), (bq.bigq_hits_call, "K11")):
+        src = inspect.getsource(call)
+        assert "queue_grid(" in src and f'"{kernel}")' in src
+        for other in set(bs.QUEUE_KERNELS) - {kernel}:
+            assert f'"{other}")' not in src
 
 
 # ---- routing with a faked CUDA device ----

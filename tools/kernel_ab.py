@@ -23,17 +23,22 @@ main path runs it at, after a warm-up launch:
 - K7 on the first chunk of events of each of those backward calls (9
   and 19 columns), in turns with ``index_add_`` (K7, index_add_,
   index_add_, K7), and each of its launches' device ms from
-  ``torch.profiler``; K6's resident CTAs an SM where the package has a
-  queue plan.
+  ``torch.profiler``; the resident CTAs an SM of each kernel that runs a
+  queue of pixels (K6, K8, K9, K11; K6's alone where the package sizes
+  every grid by K6's).
 
 To compare two commits, unpack the other with ``git archive`` into a
 directory that ``.gitignore`` lists (``build/``) and run both in one
-call, in turns: parent, change, change, parent. ``--check`` also holds K6
-and K7 to their plain versions (K6 bit-equal to K1 and to
-``megakernel_plain``, two whole frames bitwise equal; K7 within 1e-5 of
-each column's max on synthetic hot-triangle events and on both event
-sets, two launches bitwise equal) and exits non-zero on a failure.
-Without a card it exits non-zero.
+call, in turns: parent, change, change, parent. ``--check`` also holds
+the streamed kernels to their plain versions and exits non-zero on a
+failure: K6 bit-equal to K1 and to ``megakernel_plain``, two whole frames
+bitwise equal; K7 within 1e-5 of each column's max on synthetic
+hot-triangle events and on both event sets, two launches bitwise equal;
+K8+K7 within 1e-5 of each column group's max of ``mega_bwd_plain`` (its
+float64 sums), in one launch and in chunks of one sample, two calls
+bitwise equal; K9 bit-equal to K3 and to ``quality_plain``, two whole
+frames bitwise equal; K11's radiance bit-equal to K9's and its hits
+equal to ``quality_hits_plain``'s. Without a card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -50,6 +55,17 @@ QUALITY = dict(rng="hash", sampler="cosine", nee=True, mis=True)
 BIG_T, BIG_TRAIN_SPP = 10_000, 8
 BIGQ_SERVE_SPP, BIGQ_TRAIN_SPP = 16, 4
 SCATTER_RTOL = 1e-5
+#: K8+K7 against its float64 plain version: each column group within
+#: GRAD_RTOL of its own max (``chip_smoke.py``'s phase 20 bound).
+GRAD_RTOL = 1e-5
+GRAD_GROUPS = {"normal": slice(9, 12), "albedo": slice(12, 15),
+               "emission": slice(15, 18)}
+#: (label, estimator) of the K9 checks, ``chip_smoke.py``'s QUALITY_GRID.
+QUALITY_GRID = (
+    ("nee+mis", dict(QUALITY)),
+    ("bsdf only", dict(QUALITY, nee=False, mis=False)),
+    ("nee+mis rr2 strat", dict(QUALITY, rr_start=2, stratify=True)),
+)
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
            "K11")
 
@@ -179,6 +195,21 @@ def window_runs(torch, idx, n_tris: int, window: int) -> dict:
                 longest_share=longest.sum().item() / tri.numel())
 
 
+def ptxas_lines(log: Path) -> list[str]:
+    """Each kernel's ``ptxas -v`` line in the build log, after the name of
+    the function it reports (mangled)."""
+    import re
+
+    out, name = [], "?"
+    for ln in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m[1]
+        elif "registers" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}")
+    return out
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"kernel_ab: check failed: {msg}")
 
@@ -252,6 +283,113 @@ def k6_checks(torch, dev, cam, big_scene) -> dict:
     return out
 
 
+def k8_checks(torch, dev, cam, big_scene) -> dict:
+    """K8+K7 against ``mega_bwd_plain`` on the 10k scene, in one launch
+    and in chunks of one sample (the later chunks read the camera hits and
+    LCG states back), with the camera missing in part of the frame; two
+    calls bitwise equal."""
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.ops.kernels import bigscene_grad as bg
+    from spath_tpu_torch.ops.kernels import megakernel as mk
+    from spath_tpu_torch.ops.kernels import megakernel_grad as mg
+
+    tri = mk.scene_table(big_scene)
+    out = {}
+    budget = bg.EVENT_BUDGET
+    for name, cfg, chunked in (
+            ("64x48 spp3", RenderConfig(width=64, height=48, spp=3,
+                                        max_bounces=5), False),
+            ("64x48 spp3 chunks of 1", RenderConfig(
+                width=64, height=48, spp=3, max_bounces=5), True),
+            ("32x16 spp2 1 bounce", RenderConfig(width=32, height=16, spp=2,
+                                                 max_bounces=1), True)):
+        o, d, s = mk.pack_rays(cam, cfg, 0)
+        gbar = (torch.rand((o.shape[0], 3), generator=torch.Generator()
+                           .manual_seed(3)) * 0.9 + 0.1).to(dev)
+        if chunked:
+            bg.EVENT_BUDGET = o.shape[0] * cfg.max_bounces * bg.EVENT_BYTES
+        try:
+            got = bg.bigscene_bwd_call(o, d, s, tri, gbar, cfg)
+            again = bg.bigscene_bwd_call(o, d, s, tri, gbar, cfg)
+        finally:
+            bg.EVENT_BUDGET = budget
+        want = mg.mega_bwd_plain(o, d, s, tri, gbar,
+                                 cfg.replace(tri_block=2048))
+        if not torch.equal(got, again):
+            fail(f"K8 {name}: two calls differ")
+        if not bool((got[:, :9] == 0).all()):
+            fail(f"K8 {name}: columns 0-8 not zero")
+        if not want.abs().max().item() > 0:
+            fail(f"K8 {name}: the plain adjoint is zero")
+        for group, cols in GRAD_GROUPS.items():
+            # exactly equal where the plain group is zero
+            scale = want[:, cols].abs().max().item()
+            err = (got[:, cols] - want[:, cols]).abs().max().item()
+            if not err <= GRAD_RTOL * scale:
+                fail(f"K8 {name}: the {group} adjoint off its plain version "
+                     f"by {err:.6g}, max|plain| {scale:.6g}")
+        out[f"k8_vs_plain_{name}"] = (got - want).abs().max().item()
+    return out
+
+
+def k9_k11_checks(torch, dev, cam, big_scene) -> dict:
+    """K9 bit-equal to K3 at T <= 1024 and to ``quality_plain`` on the
+    10k scene, two whole frames bitwise equal; K11's radiance bit-equal to
+    K9's and its hits to ``quality_hits_plain``'s."""
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+    from spath_tpu_torch.scene import default_scene, procedural_scene
+
+    out = {}
+    small = RenderConfig(width=320, height=240, spp=8, max_bounces=5)
+    for name, scene in (("default", default_scene(dev)),
+                        ("1024", procedural_scene(1024, seed=1,
+                                                  emissive_fraction=0.05,
+                                                  device=dev))):
+        tri, rows = mq.quality_table(scene), bq.light_rows(scene)
+        for label, est in QUALITY_GRID:
+            cfg = small.replace(**est)
+            o, d, k = mq.pack_rays(cam, cfg, 0)
+            if not torch.equal(bq.bigq_call(o, d, k, tri, rows, cfg),
+                               mq.quality_call(o, d, k, tri, rows, cfg)):
+                fail(f"K9 differs from K3 on {name}, {label}")
+    out["k9_vs_k3"] = True
+    tri, rows = mq.quality_table(big_scene), bq.light_rows(big_scene)
+    for label, est in QUALITY_GRID:
+        for cfg in (RenderConfig(width=64, height=48, spp=2, max_bounces=5,
+                                 **est),
+                    RenderConfig(width=32, height=16, spp=3, max_bounces=1,
+                                 **est),
+                    RenderConfig(width=32, height=16, spp=1, max_bounces=0,
+                                 **est)):
+            o, d, k = mq.pack_rays(cam, cfg, 0)
+            plain = cfg.replace(tri_block=2048)
+            got = bq.bigq_call(o, d, k, tri, rows, cfg)
+            if not torch.equal(got, mq.quality_plain(o, d, k, tri, rows,
+                                                     plain)):
+                fail(f"K9 differs from its plain version at {cfg}")
+            if cfg.max_bounces == 0:
+                continue  # no hits to export
+            h_out, h_dist, h_idx = bq.bigq_hits_call(o, d, k, tri, rows, cfg)
+            w_out, w_dist, w_idx = bq.quality_hits_plain(o, d, k, tri, rows,
+                                                         plain)
+            if not torch.equal(h_out, got):
+                fail(f"K11's radiance differs from K9's at {cfg}")
+            if not (torch.equal(h_out, w_out) and torch.equal(h_dist, w_dist)
+                    and torch.equal(h_idx, w_idx)):
+                fail(f"K11 differs from quality_hits_plain at {cfg}")
+    out["k9_vs_plain_10k"] = out["k11_vs_k9_and_plain_10k"] = True
+    frame = RenderConfig(width=1920, height=1080, spp=2, max_bounces=5,
+                         **QUALITY)
+    o, d, k = mq.pack_rays(cam, frame, 0)
+    if not torch.equal(bq.bigq_call(o, d, k, tri, rows, frame),
+                       bq.bigq_call(o, d, k, tri, rows, frame)):
+        fail("K9: two whole frames differ")
+    out["k9_two_frames_equal"] = True
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -293,10 +431,12 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     result["build_s"] = time.perf_counter() - t0
-    result["ptxas"] = [ln.strip() for ln in
-                       (build.BUILD_DIR / "build.log").read_text()
-                       .splitlines() if "registers" in ln]
-    if hasattr(bs, "resident_ctas"):
+    result["ptxas"] = ptxas_lines(build.BUILD_DIR / "build.log")
+    if hasattr(bs, "QUEUE_KERNELS"):
+        result["resident_per_sm"] = {
+            k: bs.resident_ctas(0, k)[0] for k in bs.QUEUE_KERNELS}
+        result["sms"] = bs.resident_ctas(0, "K6")[1]
+    elif hasattr(bs, "resident_ctas"):
         result["k6_resident_per_sm"], result["sms"] = bs.resident_ctas(0)
     cam = Camera.default(dev)
     head = RenderConfig(**HEADLINE)
@@ -384,6 +524,8 @@ def main() -> int:
                 result[f"k7_check_{n_tris}_{cols}"] = scatter_check(
                     torch, i, v, n_tris, f"synthetic T={n_tris}, {cols}")
         result.update(k6_checks(torch, dev, cam, big))
+        result.update(k8_checks(torch, dev, cam, big))
+        result.update(k9_k11_checks(torch, dev, cam, big))
     print(json.dumps(result), flush=True)
     return 0
 
