@@ -163,19 +163,25 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     turns with ``index_add_``; the walk counted for the
     bounds and the CTAs' idle lanes; two whole K9 frames bitwise equal,
     equal to the served frame, and their rows COUNT_ROWS bit-equal to
-    ``quality_plain``; each pixel's sweeps on COUNT_ROWS
-    (``bigscene_quality.quality_sweep_totals``) under the three schedules
-    for K9 at 16 spp and for K10 and K11 at 4 spp, with K9's and K11's
-    resident CTAs.
+    ``quality_plain``; two whole K10+K7 backward calls at phase 31's
+    shape bitwise equal (table gradient and ray adjoint); each pixel's
+    sweeps on COUNT_ROWS (``bigscene_quality.quality_sweep_totals``)
+    under the three schedules for K9 at 16 spp and for K11 at 4 spp, and
+    K10's launch by launch (``bigscene.chunk_totals``), with K9's, K11's
+    and K10's resident CTAs.
 
 34. K5 against the plain sweep ``_sweep``, both outputs to the bit, on
     one residual slice of rays (512x512 camera rays; bounce-shaped rays
     from their hits in random directions, excluding the hit triangle;
     edge-shaped rays toward points on mesh edges; lanes whose camera ray
     missed keep it, as ended paths do) at 7, 1150 and 10k triangles, and
-    at 2^20 triangles on 64x64 rays; K5 and the plain sweep timed in
+    at 2^20 triangles on 64x64 rays, and on the slice's first 1, 127, 129
+    and 262,143 bounce rays (counts that end inside a CTA's ray tile), two
+    launches bitwise equal each time; K5 and the plain sweep timed in
     turns on the slice's bounce rays at 10k triangles and on 1080p camera
-    rays at 7.
+    rays at 7, with K5's grid (ray tiles, row splits, resident CTAs); the
+    bound counts 22 operations of a pair that the cull rejects, 46 of the
+    rest (``k5_ops``).
 35. K11 against K9 and ``quality_hits_plain``: the radiance and the hits
     to the bit, on the default scene at 320x240x8, the 1150-triangle scene
     at 320x240x4 (and with rr_start=2, stratify) and 10k at 64x48x2; K11
@@ -268,6 +274,11 @@ LINEARITY_RTOL = 1e-4
 #: throughput, next origin); K2 replays the hit without the radiance (38)
 #: and adds the reverse sweep and its 9 accumulating adds (43).
 MT_OPS, K1_HIT_OPS, K2_HIT_OPS = 46, 44, 81
+#: Of MT_OPS, the terms that decide K5's cull (csrc/intersect.cu:
+#: may_pass): s = o - v0 (3), h = d x e2 (9), a = e1 . h and s . h (5
+#: each). Where they reject a pair (``may_pass_plain``), its test needs no
+#: more.
+MT_CULL_OPS = 22
 #: Peak rates of an H100 SXM (NVIDIA's data sheet): float32 outside the
 #: tensor cores 67e12 FLOP/s, memory 3.35e12 bytes/s. The bound uses
 #: them. The kernels are built with -fmad=false, so no multiply and add
@@ -361,6 +372,9 @@ BIGQ_SERVE_SPP, BIGQ_HUGE_SPP, BIGQ_TRAIN_SPP = 16, 1, 4
 #: on an H100, so a step at 16 spp took 24-29 s). The pose measurement
 #: steps at POSE_STEP_LR, the JAX package's default pose rate.
 VIS_TRAIN_SPP, POSE_STEP_LR = 8, 1e-3
+#: Ray counts of phase 34's K5 checks that end inside a CTA's ray tile, and
+#: the launches of each timing of K5 on 1080p rays against 7 triangles.
+K5_RAY_COUNTS, K5_FRAME_REPS = (1, 127, 129, 262_143), 100
 #: The microbenchmark's shape (tools/sweep_microbench.py: 640x360 rays,
 #: procedural_scene(65536, seed=0)) and the CUDA-event calls of each of
 #: its timed lines, twice, after one warm-up call.
@@ -1589,24 +1603,35 @@ def quality_big_cli(cli) -> str:
 
 
 def quality_cta_walk(torch, o, d, keys, tri, rows, cfg, cta: int = 128,
-                     queue_ctas: int = 1) -> dict:
+                     queue_ctas: int = 1, chunk: int | None = None,
+                     chunk_ctas: int = 1) -> dict:
     """The quality walk's work on these rays from the plain replay, as
     ``quality_walk_counts``, and the streamed kernels' CTA sweeps: each
     pixel's sweeps (``bigscene_quality.quality_sweep_totals``) under the
     lockstep, regeneration and queue schedules (``bigscene.
     lane_schedules``, ``queue_ctas`` CTAs sharing the queue) under
-    ``schedules``; ``cta_sweeps`` and ``idle_lane_share`` are lockstep's,
-    K10's schedule (a 128-ray CTA sweeps at a bounce while any of its
-    rays is alive there), the queue's K9's and K11's."""
+    ``schedules``; ``cta_sweeps`` and ``idle_lane_share`` are lockstep's
+    (the first port's schedule: a 128-ray CTA sweeps at a bounce while
+    any of its rays is alive there), the queue's K9's and K11's. With
+    ``chunk``, also K10's: the schedules of each launch of ``chunk``
+    samples (``bigscene.chunk_totals``: the first sweeps the camera rays,
+    the later ones read their hits back), ``chunk_ctas`` CTAs sharing
+    each launch's queue, under ``chunk_schedules``."""
     from spath_tpu_torch.ops.kernels import bigscene as bs
     from spath_tpu_torch.ops.kernels import bigscene_quality as bq
 
     walk = quality_walk_counts(torch, o, d, keys, tri, rows, cfg)
-    sched = bs.lane_schedules(
-        bq.quality_sweep_totals(o, d, keys, tri, rows, cfg), cta, queue_ctas)
-    return dict(walk, cta_sweeps=sched["lockstep"]["cta_sweeps"],
-                idle_lane_share=sched["lockstep"]["idle_lane_share"],
-                schedules=sched)
+    totals = bq.quality_sweep_totals(o, d, keys, tri, rows, cfg)
+    sched = bs.lane_schedules(totals, cta, queue_ctas)
+    out = dict(walk, cta_sweeps=sched["lockstep"]["cta_sweeps"],
+               idle_lane_share=sched["lockstep"]["idle_lane_share"],
+               schedules=sched)
+    if chunk is not None:
+        out["chunk_schedules"] = [
+            bs.lane_schedules(bs.chunk_totals(
+                totals, s0, min(chunk, cfg.spp - s0)), cta, chunk_ctas)
+            for s0 in range(0, cfg.spp, chunk)]
+    return out
 
 
 # ---- visibility gradients, K5 and K11 (phases 34-41) ----
@@ -1676,48 +1701,76 @@ def k5_ray_sets(torch, scene, o, d, seed: int) -> dict:
             "edge": (p, torch.where(hit[:, None], toward, d), src)}
 
 
-def k5_vs_plain(torch, scene, rays, name: str, tri=None) -> dict:
-    """K5 against its plain version ``_sweep`` on the same rays, both
-    outputs to the bit; ``tri`` is K5's table where the caller built it."""
+def k5_table(scene):
+    """K5's ``(T, 9)`` table of ``scene``."""
     from spath_tpu_torch.models.pathtracer import scene_geometry
-    from spath_tpu_torch.ops.intersect import _sweep
     from spath_tpu_torch.ops.kernels import intersect as k5
 
-    v0, e1, e2 = scene_geometry(scene)[:3]
+    return k5.pack_triangles(*scene_geometry(scene)[:3])
+
+
+def k5_vs_plain(torch, tri, rays, name: str) -> dict:
+    """K5 against its plain version ``_sweep`` on the same rays and
+    ``(T, 9)`` table, both outputs to the bit, and two launches bitwise
+    equal."""
+    from spath_tpu_torch.ops.kernels import intersect as k5
+
     o, d, src = (t.contiguous() for t in rays)
-    if tri is None:
-        tri = k5.pack_triangles(v0, e1, e2)
     dist, idx = k5.nearest_hit_call(o, d, tri, src)
+    again = k5.nearest_hit_call(o, d, tri, src)
     torch.cuda.synchronize()
-    want_d, want_i = _sweep(o, d, v0, e1, e2, src, 512)
+    want_d, want_i = k5.nearest_hit_plain(o, d, tri, src)
     same = torch.equal(dist, want_d) and torch.equal(idx, want_i)
     check(same, f"{name}: K5 differs from the plain sweep on "
           f"{int((idx != want_i).sum())} indices, "
           f"{int((dist != want_d).sum())} distances")
-    return dict(rays=o.shape[0], n_tris=scene.n_tris, bit_exact=True,
+    check(torch.equal(dist, again[0]) and torch.equal(idx, again[1]),
+          f"{name}: two K5 launches differ")
+    return dict(rays=o.shape[0], n_tris=tri.shape[0], bit_exact=True,
                 max_abs_err=(dist - want_d).abs().max().item(),
                 hits=int((want_i >= 0).sum()))
 
 
-def k5_timing(torch, scene, rays) -> dict:
-    """K5 and its plain version timed in turns on the same rays; the
-    bound counts one Moller-Trumbore test a (ray, triangle) and each ray
-    and row read once, each result written once."""
-    from spath_tpu_torch.models.pathtracer import scene_geometry
-    from spath_tpu_torch.ops.intersect import _sweep
+def k5_ops(o, d, tri) -> tuple:
+    """``(operations, pairs the cull rejects)``: the work K5's function
+    needs on these rays, MT_OPS a (ray, row) pair, MT_CULL_OPS where
+    ``may_pass_plain`` rejects the pair (its a and s . h computed by the
+    kernel's expressions), a chunk of rays at a time."""
     from spath_tpu_torch.ops.kernels import intersect as k5
 
-    v0, e1, e2 = scene_geometry(scene)[:3]
+    n, t = o.shape[0], tri.shape[0]
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri.T[:, None, :]
+    chunk, rejected = max(1, (1 << 24) // t), 0
+    for i in range(0, n, chunk):
+        ox, oy, oz = o[i:i + chunk].T[:, :, None]
+        dx, dy, dz = d[i:i + chunk].T[:, :, None]
+        hx = dy * e2z - dz * e2y
+        hy = dz * e2x - dx * e2z
+        hz = dx * e2y - dy * e2x
+        a = e1x * hx + e1y * hy + e1z * hz
+        sh = (ox - v0x) * hx + (oy - v0y) * hy + (oz - v0z) * hz
+        rejected += int((~k5.may_pass_plain(a, sh)).sum())
+    return (n * t * MT_OPS - rejected * (MT_OPS - MT_CULL_OPS)), rejected
+
+
+def k5_timing(torch, tri, rays, reps: int = 3) -> dict:
+    """K5 and its plain version timed in turns on the same rays and
+    ``(T, 9)`` table, ``reps`` kernel launches a timing; the bound counts
+    the operations of ``k5_ops`` and each ray and row read once, each
+    result written once."""
+    from spath_tpu_torch.ops.kernels import intersect as k5
+
     o, d, src = (t.contiguous() for t in rays)
-    tri = k5.pack_triangles(v0, e1, e2)
     k5.nearest_hit_call(o, d, tri, src)
     kernel_ms, plain_ms = in_turns(
         torch, lambda: k5.nearest_hit_call(o, d, tri, src),
-        lambda: _sweep(o, d, v0, e1, e2, src, 512), kernel_reps=3)
+        lambda: k5.nearest_hit_plain(o, d, tri, src), kernel_reps=reps)
     n, t = o.shape[0], tri.shape[0]
-    b = bound(n * t * MT_OPS, n * (24 + 8 + 4 + 8) + t * 36)
+    ops, rejected = k5_ops(o, d, tri)
+    b = bound(ops, n * (24 + 8 + 4 + 8) + t * 36)
     return dict(rays=n, n_tris=t, ms=kernel_ms, plain_ms=plain_ms,
-                bound=b, tests_per_s=n * t / (min(kernel_ms) / 1e3))
+                bound=b, ops=ops, culled_pair_share=rejected / (n * t),
+                tests_per_s=n * t / (min(kernel_ms) / 1e3))
 
 
 def k11_vs_k9_and_plain(torch, cam, scene, cfg, name: str,
@@ -2041,9 +2094,9 @@ def t1_phase(torch) -> tuple:
     log(f"[42] the microbenchmark at {w}x{h} x {n_tris} triangles "
         f"launched {launched}")
     ops = bench["ops"]
-    k5_check = k5_vs_plain(torch, ops["scene"],
+    k5_check = k5_vs_plain(torch, ops["tri"],
                            (ops["o"], ops["d"], ops["src"]),
-                           "K5 microbenchmark", tri=ops["tri"])
+                           "K5 microbenchmark")
     k5_check["launches"] = launched["K5"]
     log(f"[42] K5 vs plain, {k5_check['rays']} rays x {n_tris} triangles "
         f"(the whole shape, the tool's tensors): {k5_check}")
@@ -2927,6 +2980,12 @@ def run() -> None:
                            qbrows, tgbar, train_q_cfg) for _ in range(2)]
     k10_ms = [t[0] for t in qsplit]
     k7q_in_call_ms = [t[1] for t in qsplit]
+    # K10's queue hands pixels out in another order every launch: two
+    # whole backward calls give the same bits
+    check(torch.equal(qsplit[0][2][0], qsplit[1][2][0])
+          and torch.equal(qsplit[0][2][1], qsplit[1][2][1]),
+          "K10+K7: two whole backward calls differ")
+    del qsplit
     qtband = rows_of(torch, train_q_cfg.width, BAND_ROWS, to, td, tk, tgbar)
     qtplain_cfg = train_q_cfg.replace(tri_block=2048)
     k10_band_ms, k10_plain_ms = in_turns(
@@ -2941,14 +3000,22 @@ def run() -> None:
     log(f"[33] K10 vs plain, {BIG_T} triangles, {train_q_cfg.width}x"
         f"{train_q_cfg.height} spp{train_q_cfg.spp}, rows {BAND_ROWS.start}-"
         f"{BAND_ROWS.stop - 1}: {k10_check}")
-    # the 4-spp walk: K10's lockstep, and the queue on K11's own grid
+    # the 4-spp walk: lockstep; the queue on K11's own grid, and K10's
+    # launch by launch on its own
     k11_per_sm = bs.resident_ctas(dev.index, "K11")[0]
     k11_grid = bs.queue_plan(to.shape[0], k11_per_sm, q_sms)
+    k10_per_sm = bs.resident_ctas(dev.index, "K10")[0]
+    k10_grid = bs.queue_plan(to.shape[0], k10_per_sm, q_sms)
     tqcount = rows_of(torch, train_q_cfg.width, COUNT_ROWS, to, td, tk)
-    tqwalk = quality_cta_walk(torch, *tqcount, qbtri, qbrows, qtplain_cfg,
-                              queue_ctas=queue_ctas(to.shape[0],
-                                                    tqcount[0].shape[0],
-                                                    k11_per_sm, q_sms))
+    tqwalk = quality_cta_walk(
+        torch, *tqcount, qbtri, qbrows, qtplain_cfg,
+        queue_ctas=queue_ctas(to.shape[0], tqcount[0].shape[0], k11_per_sm,
+                              q_sms),
+        chunk=q_chunk, chunk_ctas=queue_ctas(to.shape[0],
+                                             tqcount[0].shape[0],
+                                             k10_per_sm, q_sms))
+    k10_idle = [{k: v["idle_lane_share"] for k, v in c.items()
+                 if isinstance(v, dict)} for c in tqwalk["chunk_schedules"]]
     tqwalk = scaled(tqwalk, train_q_cfg.height / len(COUNT_ROWS))
     q_slots = to.shape[0] * train_q_cfg.spp * train_q_cfg.max_bounces
     k10_ops = (tqwalk["sweep_tests"] * MT_OPS
@@ -2962,7 +3029,10 @@ def run() -> None:
         f"{train_q_cfg.height} spp{train_q_cfg.spp} on {smi}: {k10_ms} ms of "
         f"K10 launches a call ({q_chunks} launches), K7 {k7q_in_call_ms} ms "
         f"a call (CUDA events around each K7 call; K10 the rest of the "
-        f"call); on rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}: K10+K7 "
+        f"call), two calls' table gradients and ray adjoints bitwise equal; "
+        f"grid {k10_grid} CTAs ({k10_per_sm} resident a SM x {q_sms} SMs), "
+        f"idle lanes by launch {k10_idle}; on rows "
+        f"{BAND_ROWS.start}-{BAND_ROWS.stop - 1}: K10+K7 "
         f"{k10_band_ms} ms, plain {k10_plain_ms} ms; the walk: {tqwalk}; "
         f"operations {k10_ops:.4e}, bound {k10_bound[0]:.4f} ms "
         f"({k10_bound[1]})")
@@ -2994,28 +3064,48 @@ def run() -> None:
     for name, scene_k in (("default", default_scene(dev)),
                           ("1150", combined), (f"{BIG_T}", ten_k)):
         k5_sets[name] = k5_ray_sets(torch, scene_k, co, cd, seed=5)
+        tri_k = k5_table(scene_k)
         for kind, rays in k5_sets[name].items():
-            c = k5_vs_plain(torch, scene_k, rays, f"K5 {name} {kind}")
+            c = k5_vs_plain(torch, tri_k, rays, f"K5 {name} {kind}")
             k5_err = max(k5_err, c["max_abs_err"])
             log(f"[34] K5 vs plain, {name} triangles, {kind} rays "
                 f"({side}x{side}, one residual slice): {c}")
+        # ray counts that end inside a CTA's ray tile
+        for m in K5_RAY_COUNTS:
+            c = k5_vs_plain(torch, tri_k, tuple(
+                t[:m] for t in k5_sets[name]["bounce"]),
+                f"K5 {name} {m} bounce rays")
+            k5_err = max(k5_err, c["max_abs_err"])
+        log(f"[34] K5 vs plain, {name} triangles, the first "
+            f"{list(K5_RAY_COUNTS)} bounce rays: bit-exact, two launches "
+            "bitwise equal")
     huge_scene = procedural_scene(1 << 20, seed=0, device=dev)
+    huge_tri = k5_table(huge_scene)
     for kind, rays in k5_ray_sets(torch, huge_scene, *generate_rays(
             cam, 64, 64), seed=6).items():
-        c = k5_vs_plain(torch, huge_scene, rays, f"K5 2^20 {kind}")
+        c = k5_vs_plain(torch, huge_tri, rays, f"K5 2^20 {kind}")
         k5_err = max(k5_err, c["max_abs_err"])
         log(f"[34] K5 vs plain, 2^20 triangles, {kind} rays (64x64): {c}")
-    del huge_scene
-    k5_slice = k5_timing(torch, ten_k, k5_sets[f"{BIG_T}"]["bounce"])
+    del huge_scene, huge_tri
+    k5_slice = k5_timing(torch, k5_table(ten_k),
+                         k5_sets[f"{BIG_T}"]["bounce"])
+    k5_tile, k5_per_sm, k5_sms = k5.resident_ctas(dev.index)
+    k5_grid = dict(zip(("ray_tiles", "splits"), k5.sweep_plan(
+        k5_slice["rays"], k5_slice["n_tris"], k5_tile, k5_per_sm, k5_sms)),
+        rays_per_cta=k5_tile, resident_per_sm=k5_per_sm, sms=k5_sms)
     fo, fd = generate_rays(cam, HEADLINE["width"], HEADLINE["height"])
-    k5_frame = k5_timing(torch, default_scene(dev), (fo, fd, torch.full(
-        (fo.shape[0],), -1, dtype=torch.int64, device=dev)))
+    # a launch of ~0.05 ms on an H100: timed over K5_FRAME_REPS launches
+    none = torch.full((fo.shape[0],), -1, dtype=torch.int64, device=dev)
+    k5_frame = k5_timing(torch, k5_table(default_scene(dev)),
+                         (fo, fd, none), K5_FRAME_REPS)
     for what, t in (("a residual slice's bounce rays", k5_slice),
                     ("1080p camera rays", k5_frame)):
         log(f"[34] K5 on {what}, {t['rays']} rays x {t['n_tris']} "
             f"triangles, on {smi}: {t['ms']} ms, plain {t['plain_ms']} ms "
-            f"(in turns), bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), "
-            f"{t['tests_per_s']:.4e} tests/s")
+            f"(in turns), bound {t['bound'][0]:.4f} ms ({t['bound'][1]}; "
+            f"{t['ops']:.4e} operations, {t['culled_pair_share']:.4f} of "
+            f"the pairs culled), {t['tests_per_s']:.4e} tests/s")
+    log(f"[34] K5's grid on the slice: {k5_grid}")
     del k5_sets
 
     # 35. K11 against K9 and its plain version, to the bit
@@ -3403,6 +3493,9 @@ def run() -> None:
         "launches_by_path": {"serving": 0, "training": qbtr["k10"]},
         "max_abs_err": k10_check["max_abs_err"],
         "ms": sum(k10_ms) / 2,
+        "idle_lane_share": k10_idle,
+        "grid": {"ctas": k10_grid, "resident_per_sm": k10_per_sm,
+                 "sms": q_sms},
         "band_ms": sum(k10_band_ms) / len(k10_band_ms),
         "plain_ms": sum(k10_plain_ms) / 2,
         "plain_at": f"rows {BAND_ROWS.start}-{BAND_ROWS.stop - 1}, K10+K7",
@@ -3423,8 +3516,11 @@ def run() -> None:
         "ms": sum(k5_slice["ms"]) / len(k5_slice["ms"]),
         "plain_ms": sum(k5_slice["plain_ms"]) / 2,
         "at": f"{k5_slice['rays']} rays x {k5_slice['n_tris']} triangles",
+        "grid": k5_grid,
         "bound_ms": k5_slice["bound"][0],
         "bound_by": k5_slice["bound"][1],
+        "bound_ops": k5_slice["ops"],
+        "culled_pair_share": k5_slice["culled_pair_share"],
         "library_ms": None,
         "at_1080p_7_triangles": {
             "ms": sum(k5_frame["ms"]) / len(k5_frame["ms"]),

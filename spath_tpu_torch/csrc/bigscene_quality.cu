@@ -31,7 +31,8 @@
 // lockstep (the first port), 79% of the lanes idled through the sweeps
 // of a 10k-triangle 1080p 16-spp frame (camera misses, paths that ended
 // early, samples done). The design keeps the lanes on live rays instead,
-// as K6's (bigscene.cu):
+// as K6's (bigscene.cu), in the loop K9, K11 and K10 share
+// (quality_queue.cuh):
 //
 //   - a queue of pixels: a persistent grid (the card's resident CTAs of
 //     this kernel, ops/kernels/bigscene.py::queue_plan) takes pixels from
@@ -77,7 +78,7 @@
 // The launch goes on the caller's stream, allocates nothing and does not
 // synchronise; the entry point returns a cudaError_t.
 
-#include "quality_walk.cuh"
+#include "quality_queue.cuh"
 
 namespace {
 
@@ -85,10 +86,62 @@ using spath::Hit;
 using spath::kStreamThreads;
 using spath::QualityArgs;
 
-constexpr unsigned kFull = 0xffffffffu;
+// K9's and K11's hooks of the queue (quality_queue.cuh): the samples'
+// radiance summed in sample order, K11's export of each bounce's hit.
+template <bool kExport>
+struct ForwardLane {
+  float* __restrict__ out;
+  float* __restrict__ hit_dist;
+  int* __restrict__ hit_idx;
+  int n;
+  float acc_r, acc_g, acc_b;
 
-// What a lane's next sweep carries.
-enum Mode : int { kIdle = 0, kCamera = 1, kBounce = 2 };
+  __device__ __forceinline__ void take(const QualityArgs&, int) {
+    acc_r = 0.0f;
+    acc_g = 0.0f;
+    acc_b = 0.0f;
+  }
+  // Never called: K9 sweeps every camera ray.
+  __device__ __forceinline__ Hit first(int) const {
+    return Hit{spath::kBig, -1};
+  }
+  __device__ __forceinline__ void camera(int, const Hit&) const {}
+  __device__ __forceinline__ void end(const QualityArgs& a, int b, int occ,
+                                      int s, int pix, spath::QualityPath& p,
+                                      spath::QualityStep& x) const {
+    if constexpr (kExport) {
+      const size_t at = static_cast<size_t>(s) * a.max_bounces * n + pix;
+      spath::bounce_end(a, b, occ, p, x,
+                        spath::HitSaver{hit_dist + at, hit_idx + at,
+                                        static_cast<size_t>(n)});
+    } else {
+      spath::bounce_end(a, b, occ, p, x, spath::NoSave{});
+    }
+  }
+  // The sample's radiance; K11 exports its bounces from `len` on as
+  // misses.
+  __device__ __forceinline__ void sample(const QualityArgs& a, int pix,
+                                         int s, int len, uint32_t,
+                                         const spath::QualityPath& p) {
+    if constexpr (kExport) {
+      const int nb = a.max_bounces;
+      const size_t at = static_cast<size_t>(s) * nb * n + pix;
+      for (int b = len; b < nb; ++b) {
+        hit_dist[at + static_cast<size_t>(b) * n] = spath::kBig;
+        hit_idx[at + static_cast<size_t>(b) * n] = -1;
+      }
+    }
+    acc_r = acc_r + p.rad_r;
+    acc_g = acc_g + p.rad_g;
+    acc_b = acc_b + p.rad_b;
+  }
+  __device__ __forceinline__ void pixel(const QualityArgs& a, int pix) {
+    const float inv = 1.0f / static_cast<float>(a.spp);
+    out[3 * pix + 0] = acc_r * inv;
+    out[3 * pix + 1] = acc_g * inv;
+    out[3 * pix + 2] = acc_b * inv;
+  }
+};
 
 template <bool kExport>
 __global__ void __launch_bounds__(kStreamThreads)
@@ -104,145 +157,9 @@ __global__ void __launch_bounds__(kStreamThreads)
   __shared__ __align__(16) float tiles[2 * spath::kTileFloats];
   const spath::StreamQuality be{a.tri, a.n_tris, tiles, a.rows, lcdf,
                                 a.n_rows};
-  const int lane = threadIdx.x & 31;
-  const int nb = a.max_bounces;
-
-  // The export of sample s's bounces from `from` on as misses.
-  auto export_misses = [&](int pix, int s, int from) {
-    if constexpr (kExport) {
-      const size_t at = static_cast<size_t>(s) * nb * n + pix;
-      for (int b = from; b < nb; ++b) {
-        hit_dist[at + static_cast<size_t>(b) * n] = spath::kBig;
-        hit_idx[at + static_cast<size_t>(b) * n] = -1;
-      }
-    }
-  };
-
-  int mode = kIdle;
-  bool drained = false;  // the queue is empty for this lane
-  int pix = 0;
-  float ox0 = 0.0f, oy0 = 0.0f, oz0 = 0.0f;  // the pixel's camera ray
-  float dx0 = 0.0f, dy0 = 0.0f, dz0 = 0.0f;
-  uint32_t h1 = 0u;
-  Hit first{spath::kBig, -1};
-  spath::QualityPath p;
-  p.start(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
-  spath::QualityStep x;
-  x.omx = x.omy = x.omz = 0.0f;
-  x.more = false;
-  int s = 0, b = 0;  // the sample, and its bounces done
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-
-  for (;;) {
-    // Lanes without work take the next pixels, one atomic a warp.
-    const bool wants = mode == kIdle && !drained;
-    const unsigned takers = __ballot_sync(kFull, wants);
-    if (takers != 0u) {
-      const int leader = __ffs(takers) - 1;
-      int base = 0;
-      if (lane == leader) base = atomicAdd(next_pixel, __popc(takers));
-      base = __shfl_sync(kFull, base, leader);
-      if (wants) {
-        const int k = base + __popc(takers & ((1u << lane) - 1u));
-        if (k < n) {
-          pix = k;
-          ox0 = origins[3 * k + 0];
-          oy0 = origins[3 * k + 1];
-          oz0 = origins[3 * k + 2];
-          dx0 = directions[3 * k + 0];
-          dy0 = directions[3 * k + 1];
-          dz0 = directions[3 * k + 2];
-          h1 = spath::fmix(static_cast<uint32_t>(keys[k]));
-          mode = kCamera;
-        } else {
-          drained = true;
-        }
-      }
-    }
-    // Every lane idle means the queue is empty and every pixel done.
-    if (!__syncthreads_or(mode != kIdle)) break;
-
-    // One CTA-wide sweep: a camera ray; or with NEE the bounce's shadow
-    // ray and, if the path goes on, its next ray; or without NEE the next
-    // ray alone.
-    const bool camera = mode == kCamera;
-    Hit r1, r2;
-    be.mixed(mode != kIdle, mode == kBounce && a.nee && x.more,
-             camera ? ox0 : p.ox, camera ? oy0 : p.oy, camera ? oz0 : p.oz,
-             camera ? dx0 : (a.nee ? x.omx : p.dx),
-             camera ? dy0 : (a.nee ? x.omy : p.dy),
-             camera ? dz0 : (a.nee ? x.omz : p.dz), p.dx, p.dy, p.dz,
-             camera ? -1 : p.src, r1, r2);
-    if (mode == kIdle) continue;
-
-    Hit h;               // the hit of the sample's bounce b
-    bool ended = false;  // the sample's path is over after b bounces
-    if (camera) {
-      // Camera rays are the same for every sample: swept once a pixel.
-      first = r1;
-      acc_r = 0.0f;
-      acc_g = 0.0f;
-      acc_b = 0.0f;
-      s = 0;
-      b = 0;
-      h = first;
-      p.start(ox0, oy0, oz0, dx0, dy0, dz0);
-    } else if (a.nee) {
-      if constexpr (kExport) {
-        const size_t at = static_cast<size_t>(s) * nb * n + pix;
-        spath::bounce_end(a, b, r1.idx, p, x,
-                          spath::HitSaver{hit_dist + at, hit_idx + at,
-                                          static_cast<size_t>(n)});
-      } else {
-        spath::bounce_end(a, b, r1.idx, p, x, spath::NoSave{});
-      }
-      ++b;
-      h = r2;
-      ended = !x.more;
-    } else {
-      h = r1;  // the next ray's hit; bounce b - 1 ended before the sweep
-    }
-
-    // Walk on until this lane's next sweep: the bounces that need none
-    // before them, and the samples that start when one ends.
-    for (;;) {
-      if (!ended && b < nb && h.idx >= 0) {
-        spath::bounce_begin(a, be, h, b, h1, s, true, p, x);
-        if (a.nee) break;  // the shadow ray (and the next ray) to sweep
-        if constexpr (kExport) {
-          const size_t at = static_cast<size_t>(s) * nb * n + pix;
-          spath::bounce_end(a, b, -1, p, x,
-                            spath::HitSaver{hit_dist + at, hit_idx + at,
-                                            static_cast<size_t>(n)});
-        } else {
-          spath::bounce_end(a, b, -1, p, x, spath::NoSave{});
-        }
-        ++b;
-        if (x.more) break;  // the next ray to sweep
-      }
-      // The sample's path is over after b bounces: its radiance is added
-      // in sample order, and the pixel's next sample starts at once from
-      // the camera hit.
-      export_misses(pix, s, b);
-      acc_r = acc_r + p.rad_r;
-      acc_g = acc_g + p.rad_g;
-      acc_b = acc_b + p.rad_b;
-      if (++s == a.spp) break;
-      p.start(ox0, oy0, oz0, dx0, dy0, dz0);
-      h = first;
-      b = 0;
-      ended = false;
-    }
-    if (s == a.spp) {
-      const float inv = 1.0f / static_cast<float>(a.spp);
-      out[3 * pix + 0] = acc_r * inv;
-      out[3 * pix + 1] = acc_g * inv;
-      out[3 * pix + 2] = acc_b * inv;
-      mode = kIdle;
-    } else {
-      mode = kBounce;
-    }
-  }
+  ForwardLane<kExport> ln{out, hit_dist, hit_idx, n, 0.0f, 0.0f, 0.0f};
+  spath::quality_queue(a, be, origins, directions, keys, next_pixel, n, 0,
+                       a.spp, false, ln);
 }
 
 template <bool kExport>

@@ -67,8 +67,8 @@ __global__ void __launch_bounds__(kBlock)
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   for (int s = 0; s < a.spp; ++s) {
     float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
-    spath::quality_sample(a, spath::table_quality(a), true, ox, oy, oz, dx,
-                          dy, dz, first, h1, s, rad_r, rad_g, rad_b,
+    spath::quality_sample(a, spath::table_quality(a), ox, oy, oz, dx, dy,
+                          dz, first, h1, s, rad_r, rad_g, rad_b,
                           spath::NoSave{});
     acc_r = acc_r + rad_r;
     acc_g = acc_g + rad_g;

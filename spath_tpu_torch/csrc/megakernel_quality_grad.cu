@@ -144,9 +144,9 @@ __global__ void __launch_bounds__(128)
       int len = 0;
       if (live) {
         float rr = 0.0f, rg = 0.0f, rb = 0.0f;
-        len = spath::quality_sample(a, spath::table_quality(a), true, ox0,
-                                    oy0, oz0, dx0, dy0, dz0, first, h1, s,
-                                    rr, rg, rb, spath::Saver{st});
+        len = spath::quality_sample(a, spath::table_quality(a), ox0, oy0,
+                                    oz0, dx0, dy0, dz0, first, h1, s, rr,
+                                    rg, rb, spath::Saver{st});
       }
       const uint32_t sc = static_cast<uint32_t>(s) * spath::kC1;
 

@@ -5,13 +5,14 @@
 // walk from this one source, so it takes the same hits, draws, lights and
 // directions bit for bit. A bounce is two halves around its sweep,
 // bounce_begin and bounce_end; quality_sample runs a sample's bounces in
-// order (K3, K4, K10), K9 and K11 their own queue of paths. The halves
-// are templates over the backend, which sweeps for nearest hits and reads
-// the cdf for the light choice (search_light, a binary search):
-// TableQuality for K3 and K4 (each thread reads the whole table through
-// the cache), StreamQuality for K9, K10 and K11 (the CTA stages the table
-// through shared memory, stream_sweep.cuh). With the same arithmetic, K9
-// equals K3 to the bit at T <= 1024.
+// order (K3, K4), K9, K11 and K10 their queue of paths
+// (quality_queue.cuh). The halves are templates over the backend, which
+// sweeps for nearest hits and reads the cdf for the light choice
+// (search_light, a binary search): TableQuality for K3 and K4 (each
+// thread reads the whole table through the cache), StreamQuality for K9,
+// K10 and K11 (the CTA stages the table through shared memory,
+// stream_sweep.cuh). With the same arithmetic, K9 equals K3 to the bit at
+// T <= 1024.
 //
 // It is the port of spath_tpu/ops/pallas/megakernel_quality.py::
 // _sample_walk for one ray: the counter-based hash draws (_hash_draws),
@@ -26,10 +27,8 @@
 //
 // A masked TPU lane becomes a thread that leaves its loop: once a path
 // misses or loses the roulette, every later term of the masked walk is
-// zero, so stopping is exact. Under a CTA-wide sweep in lockstep (K10's
-// quality_sample on StreamQuality) an ended path keeps joining its CTA's
-// sweeps, without a ray, until no path of the CTA is alive; K9 and K11
-// start the next sample or pixel in that lane instead.
+// zero, so stopping is exact. Under the streamed kernels' CTA-wide sweeps
+// the lane starts the next sample or pixel instead.
 
 #pragma once
 
@@ -146,13 +145,12 @@ struct TableQuality {
   const int* __restrict__ rows;
   int n_rows;
 
-  static constexpr bool kCtaWide = false;
-  __device__ __forceinline__ Hit one(bool, float ox, float oy, float oz,
+  __device__ __forceinline__ Hit one(float ox, float oy, float oz,
                                      float dx, float dy, float dz,
                                      int src) const {
     return nearest<kQCols>(tri, n_tris, ox, oy, oz, dx, dy, dz, src);
   }
-  __device__ __forceinline__ void two(bool, float ox, float oy, float oz,
+  __device__ __forceinline__ void two(float ox, float oy, float oz,
                                       float d1x, float d1y, float d1z,
                                       float d2x, float d2y, float d2z,
                                       int src, Hit& h1, Hit& h2) const {
@@ -172,10 +170,10 @@ inline __device__ __host__ TableQuality table_quality(const QualityArgs& a) {
   return TableQuality{a.tri, a.n_tris, a.rows, a.n_rows};
 }
 
-// K9's and K10's backend: the streamed sweeps of stream_sweep.cuh through
-// the CTA's `tiles` (every thread of the CTA calls them; a thread without
-// a live path only helps stage), and the light choice over `lcdf`, the
-// cdf at the light rows gathered into one array.
+// K9's, K10's and K11's backend: the streamed sweeps of stream_sweep.cuh
+// through the CTA's `tiles` (every thread of the CTA calls them; a thread
+// without a live ray only helps stage), and the light choice over `lcdf`,
+// the cdf at the light rows gathered into one array.
 struct StreamQuality {
   const float* __restrict__ tri;
   int n_tris;
@@ -184,22 +182,7 @@ struct StreamQuality {
   const float* __restrict__ lcdf;
   int n_rows;
 
-  static constexpr bool kCtaWide = true;
-  __device__ __forceinline__ Hit one(bool live, float ox, float oy, float oz,
-                                     float dx, float dy, float dz,
-                                     int src) const {
-    return stream_nearest<kQCols>(tri, n_tris, tiles, live, ox, oy, oz, dx,
-                                  dy, dz, src);
-  }
-  __device__ __forceinline__ void two(bool live, float ox, float oy,
-                                      float oz, float d1x, float d1y,
-                                      float d1z, float d2x, float d2y,
-                                      float d2z, int src, Hit& h1,
-                                      Hit& h2) const {
-    stream_nearest2<kQCols>(tri, n_tris, tiles, live, ox, oy, oz, d1x, d1y,
-                            d1z, d2x, d2y, d2z, src, h1, h2);
-  }
-  // K9's and K11's sweep, whose lanes carry one ray (d1) or, where `two`
+  // The queue's sweep, whose lanes carry one ray (d1) or, where `two`
   // is set, two from one origin (d1 and d2): two() for every lane if any
   // lane of the CTA carries two, else one(); h2 is a miss for a lane
   // without a second ray. Measured against skipping the second ray's
@@ -324,20 +307,17 @@ struct QualityStep {
 // cosine-weighted direction, the light choice with the shadow ray and its
 // NEE term, the throughput and the roulette. Moves the path to the hit
 // point along the sampled direction (its ray for the next bounce) and
-// fills x. `active` is false only for a thread of a CTA-wide walk whose
-// path has ended: it reads row 0 in place of a hit for values that are
-// dropped, and its radiance is not touched.
+// fills x.
 template <class Backend>
 __device__ __forceinline__ void bounce_begin(const QualityArgs& a,
                                              const Backend& be, const Hit& h,
                                              int b, uint32_t h1, int s,
-                                             bool active, QualityPath& p,
+                                             QualityPath& p,
                                              QualityStep& x) {
   const float* __restrict__ tri = a.tri;
   const uint32_t sc = static_cast<uint32_t>(s) * kC1;
   const bool last = b == a.max_bounces - 1;
-  const int hit = active ? h.idx : 0;
-  const float* r = tri + hit * kQCols;
+  const float* r = tri + h.idx * kQCols;
   const float nx = __ldg(r + 9), ny = __ldg(r + 10), nz = __ldg(r + 11);
   const float ar = __ldg(r + 12), ag = __ldg(r + 13), ab = __ldg(r + 14);
   const float er = __ldg(r + 15), eg = __ldg(r + 16), eb = __ldg(r + 17);
@@ -365,11 +345,9 @@ __device__ __forceinline__ void bounce_begin(const QualityArgs& a,
         w_b = 0.0f;  // pure NEE drops BSDF-sampled emitter hits
       }
     }
-    if (active) {
-      p.rad_r = p.rad_r + p.tr * er * w_b;
-      p.rad_g = p.rad_g + p.tg * eg * w_b;
-      p.rad_b = p.rad_b + p.tb * eb * w_b;
-    }
+    p.rad_r = p.rad_r + p.tr * er * w_b;
+    p.rad_g = p.rad_g + p.tg * eg * w_b;
+    p.rad_b = p.rad_b + p.tb * eb * w_b;
   } else {
     p.rad_r = p.rad_r + p.tr * er;
     p.rad_g = p.rad_g + p.tg * eg;
@@ -499,26 +477,20 @@ __device__ __forceinline__ void bounce_end(const QualityArgs& a, int b,
   save(b, x.st);
 }
 
-// One sample's walk for one ray through the backend `be`: adds its
-// radiance to (rad_r, rad_g, rad_b) and hands each bounce that hit to
-// `save`. `live` is false for a thread without a ray (h is then a miss).
-// Returns the number of bounces that hit. Each bounce is bounce_begin,
-// the bounce's sweep, bounce_end (K9 and K11 run the same halves in
-// their own loop, a lane per path: bigscene_quality.cu).
+// One sample's walk for one ray through the backend `be` (TableQuality: a
+// thread sweeps on its own) from the camera ray's hit h: adds its radiance
+// to (rad_r, rad_g, rad_b) and hands each bounce that hit to `save`.
+// Returns the number of bounces that hit. Each bounce is bounce_begin, the bounce's sweep, bounce_end (K9,
+// K11 and K10 run the same halves in their queue, a lane per path:
+// quality_queue.cuh).
 //
 // The sweeps: with NEE, at each bounce the shadow ray and the next
 // bounce's ray together (two), the shadow ray alone (one) at the last;
-// without NEE the next bounce's ray (one) from bounce 1 on. Under a
-// CTA-wide backend every thread of the CTA calls the same sequence: a
-// thread whose path ended (a miss, or the roulette) goes on with
-// active == false, reading row 0 in place of a hit for the values it
-// drops after the sweep (its radiance is not touched), until no thread of
-// the CTA is active (__syncthreads_or). Without NEE such a thread has no
-// sweep to join before the next bounce's and skips the bounce.
+// without NEE the next bounce's ray (one) from bounce 1 on.
 template <class Backend, class Save>
 __device__ __forceinline__ int quality_sample(
-    const QualityArgs& a, const Backend& be, bool live, float ox, float oy,
-    float oz, float dx, float dy, float dz, Hit h, uint32_t h1, int s,
+    const QualityArgs& a, const Backend& be, float ox, float oy, float oz,
+    float dx, float dy, float dz, Hit h, uint32_t h1, int s,
     float& rad_r, float& rad_g, float& rad_b, Save save) {
   QualityPath p;
   p.start(ox, oy, oz, dx, dy, dz);
@@ -526,45 +498,30 @@ __device__ __forceinline__ int quality_sample(
   p.rad_g = rad_g;
   p.rad_b = rad_b;
   int len = 0;
-  bool active = live;
   for (int b = 0; b < a.max_bounces; ++b) {
     const bool last = b == a.max_bounces - 1;
     if (b > 0 && !a.nee) {
-      if (Backend::kCtaWide && !__syncthreads_or(active)) break;
-      h = be.one(active, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.src);
+      h = be.one(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.src);
     }
-    active = active && h.idx >= 0;
-    if (!Backend::kCtaWide) {
-      if (!active) break;
-    } else if (a.nee) {
-      if (!__syncthreads_or(active)) break;  // the CTA's sweeps end
-    } else if (!active) {
-      continue;  // no sweep before the next bounce's
-    }
+    if (h.idx < 0) break;
     QualityStep x;
-    bounce_begin(a, be, h, b, h1, s, active, p, x);
+    bounce_begin(a, be, h, b, h1, s, p, x);
     // the shadow ray and, pipelined, the next bounce's nearest hit
     Hit next = h;
     int occ = -1;
     if (a.nee) {
       if (last) {
-        occ = be.one(active, p.ox, p.oy, p.oz, x.omx, x.omy, x.omz, p.src)
-                  .idx;
+        occ = be.one(p.ox, p.oy, p.oz, x.omx, x.omy, x.omz, p.src).idx;
       } else {
         Hit shadow;
-        be.two(active, p.ox, p.oy, p.oz, x.omx, x.omy, x.omz, p.dx, p.dy,
-               p.dz, p.src, shadow, next);
+        be.two(p.ox, p.oy, p.oz, x.omx, x.omy, x.omz, p.dx, p.dy, p.dz,
+               p.src, shadow, next);
         occ = shadow.idx;
       }
-      if (Backend::kCtaWide && !active) continue;
     }
     bounce_end(a, b, occ, p, x, save);
     len = b + 1;
-    if (!x.more && !last) {  // lost to the roulette
-      if (!Backend::kCtaWide) break;
-      active = false;
-      continue;
-    }
+    if (!x.more && !last) break;  // lost to the roulette
     h = next;
   }
   rad_r = p.rad_r;

@@ -25,10 +25,9 @@
 //
 // The sweep synchronises the CTA, so every thread of a CTA calls it the
 // same number of times: a thread whose path has ended (or that has no
-// ray) helps stage rows and skips the tests. The lockstep walk (K10's
-// quality_sample) stops sweeping when no thread of the CTA still has a
-// live path (__syncthreads_or); the queue kernels (K6, K8, K9, K11) keep
-// each lane on a live ray and stop when the queue of pixels is empty.
+// ray) helps stage rows and skips the tests. The queue kernels (K6, K8,
+// K9, K10, K11) keep each lane on a live ray and stop when the queue of
+// pixels is empty.
 //
 // Numerics: as K1 (-fmad=false, no fast math); see megakernel_common.cuh.
 

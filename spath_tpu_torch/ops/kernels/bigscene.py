@@ -62,6 +62,7 @@ QUEUE_KERNELS = {
     "K8": ("spath_bigscene_backward_occupancy", ()),
     "K9": ("spath_bigscene_quality_forward_occupancy", (0,)),
     "K11": ("spath_bigscene_quality_forward_occupancy", (1,)),
+    "K10": ("spath_bigscene_quality_backward_occupancy", ()),
 }
 
 
@@ -107,9 +108,10 @@ def lane_schedules(totals, cta: int = CTA_LANES, ctas: int = 1) -> dict:
     """The idle share of the lanes of a streamed kernel's CTA-wide sweeps
     under three schedules, counted from the sweeps each pixel needs.
     ``totals`` is an ``(n, samples + 1)`` integer array: column 0 the
-    camera sweep (1; 0 in a later chunk of K8, which reads the camera hit
-    back), column ``s + 1`` the sweeps of sample ``s`` after its camera
-    hit (0 for every sample of a pixel whose camera ray missed). A lane
+    camera sweep (1; 0 in a later chunk of K8 or K10, which read the
+    camera hit back), column ``s + 1`` the sweeps of sample ``s`` after
+    its camera hit (0 for every sample of a pixel whose camera ray
+    missed). A lane
     that takes no part in a sweep idles through it, and a pixel with no
     sweep to make takes none.
 
@@ -152,10 +154,10 @@ def lane_schedules(totals, cta: int = CTA_LANES, ctas: int = 1) -> dict:
 
 
 def chunk_totals(totals, s0: int, count: int) -> np.ndarray:
-    """The sweeps each pixel needs in the K8 launch that replays samples
-    ``s0`` to ``s0 + count - 1`` of ``totals`` (``lane_schedules``' layout
-    for the whole frame): that launch's samples' columns, after a camera
-    column that only the first launch (``s0 == 0``) sweeps."""
+    """The sweeps each pixel needs in the K8 or K10 launch that replays
+    samples ``s0`` to ``s0 + count - 1`` of ``totals`` (``lane_schedules``'
+    layout for the whole frame): that launch's samples' columns, after a
+    camera column that only the first launch (``s0 == 0``) sweeps."""
     totals = np.asarray(totals, dtype=np.int64)
     camera = totals[:, :1] if s0 == 0 else np.zeros_like(totals[:, :1])
     return np.concatenate([camera, totals[:, 1 + s0:1 + s0 + count]], axis=1)

@@ -14,7 +14,12 @@ which ``megakernel_quality_grad.grad_table_from_gtab19`` maps onto the
 quality table. The camera-ray adjoint ``(n, 6)`` is summed per ray over
 samples in K4's order, carried from one launch to the next.
 ``BigQualityRows`` puts K9 forward and K10 + K7 backward under
-``torch.autograd``.
+``torch.autograd``. K10 runs K9's queue of pixels on a persistent grid of
+its own resident CTAs (``bigscene.queue_grid(..., "K10")``, one counter a
+launch) and runs a sample's reverse sweep in its lane as its path ends;
+each event has a fixed slot, so the gradient is the same bits whichever
+lane runs which pixel (``bigscene.lane_schedules`` of each launch's
+``bigscene.chunk_totals`` counts its lanes' idle share).
 
 Chunks: a sample's events take ``n × max_bounces × 2 × EVENT_BYTES``
 bytes (1.66 GB at 1920×1080 and 5 bounces); a launch takes as many
@@ -34,6 +39,7 @@ import torch
 
 from spath_tpu_torch.camera import Camera
 from spath_tpu_torch.config import RenderConfig
+from spath_tpu_torch.ops.kernels import bigscene as bs
 from spath_tpu_torch.ops.kernels import bigscene_quality as bq
 from spath_tpu_torch.ops.kernels import megakernel_quality as mq
 from spath_tpu_torch.ops.kernels import megakernel_quality_grad as mqg
@@ -112,8 +118,12 @@ def bigq_bwd_call(origins, directions, keys, tri, light_idx, gbar,
     ev_idx = torch.empty(n_events, dtype=torch.int32, device=dev)
     ev_val = torch.empty((n_events, mqg.ADJ), dtype=torch.float32,
                          device=dev)
+    grid = bs.queue_grid(n, dev, "K10")
+    # one queue counter a launch, all zeroed at once
+    next_pixel = torch.zeros(-(-cfg.spp // chunk), dtype=torch.int32,
+                             device=dev)
     lib = library()
-    for s0 in range(0, cfg.spp, chunk):
+    for launch, s0 in enumerate(range(0, cfg.spp, chunk)):
         count = min(chunk, cfg.spp - s0)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -121,8 +131,9 @@ def bigq_bwd_call(origins, directions, keys, tri, light_idx, gbar,
                 *(ctypes.c_void_p(t.data_ptr()) for t in (
                     origins, directions, keys, tri, rows, lcdf, gbar,
                     first_dist, first_idx, grays, ev_idx, ev_val)),
+                ctypes.c_void_p(next_pixel[launch:].data_ptr()),
                 n, *mq.kernel_args(cfg, n_tris, rows.shape[0]), s0, count,
-                ctypes.c_void_p(stream))
+                grid, ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(
                 f"streamed quality backward launch failed: CUDA error {err} "

@@ -176,10 +176,13 @@ def library() -> ctypes.CDLL:
     lib.spath_bigscene_quality_forward_occupancy.argtypes = [i32]
     lib.spath_bigscene_quality_forward_occupancy.restype = i32
     # K10: rays, keys, table, rows, cdf at the rows, gbar, first hit, ray
-    # adjoint, events, n, K3's scalars, first sample, samples
+    # adjoint, events, the queue's counter, n, K3's scalars, first sample,
+    # samples, grid
     lib.spath_bigscene_quality_backward.argtypes = (
-        [ptr] * 12 + quality + [i32, i32, ptr])
+        [ptr] * 13 + quality + [i32, i32, i32, ptr])
     lib.spath_bigscene_quality_backward.restype = i32
+    lib.spath_bigscene_quality_backward_occupancy.argtypes = []
+    lib.spath_bigscene_quality_backward_occupancy.restype = i32
     # K8: rays, seeds, table, gbar, first hit, state, events, the queue's
     # counter, n, n_tris, spp, max_bounces, first sample, samples, grid
     lib.spath_bigscene_backward.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
@@ -192,9 +195,13 @@ def library() -> ctypes.CDLL:
         ptr, ptr, ctypes.c_int64, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr,
         i32, i32, ptr]
     lib.spath_stream_scatter.restype = i32
-    # K5: origins, directions, src, tri, dist, idx, n, T
-    lib.spath_nearest_hit.argtypes = [ptr] * 6 + [i32, i32, ptr]
+    # K5: origins, directions, src, tri, dist, idx, the partial hits, n,
+    # T, splits; its ray tile and resident CTAs an SM
+    lib.spath_nearest_hit.argtypes = [ptr] * 8 + [i32, i32, i32, ptr]
     lib.spath_nearest_hit.restype = i32
+    for fn in (lib.spath_nearest_hit_tile, lib.spath_nearest_hit_occupancy):
+        fn.argtypes = []
+        fn.restype = i32
     # T1: gfeat, rfeat, out, n_rays, n_blocks
     for k in (64, 128):
         fn = getattr(lib, f"spath_sweep_mm_k{k}")

@@ -482,7 +482,7 @@ def test_lane_schedules_by_hand_on_a_later_chunk():
 
 class _FakeOccupancy:
     """The library's occupancy queries, each kernel its own answer (K6 8,
-    K8 5, K9 4, K11 3 CTAs an SM), recording what was asked."""
+    K8 5, K9 4, K11 3, K10 2 CTAs an SM), recording what was asked."""
 
     def __init__(self):
         self.asked = []
@@ -498,6 +498,10 @@ class _FakeOccupancy:
     def spath_bigscene_quality_forward_occupancy(self, export_hits):
         self.asked.append("K11" if export_hits else "K9")
         return 3 if export_hits else 4
+
+    def spath_bigscene_quality_backward_occupancy(self):
+        self.asked.append("K10")
+        return 2
 
 
 @pytest.fixture
@@ -521,7 +525,7 @@ def fake_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kernel, per_sm", [("K6", 8), ("K8", 5), ("K9", 4),
-                                            ("K11", 3)])
+                                            ("K11", 3), ("K10", 2)])
 def test_queue_grid_asks_each_kernel_its_own_occupancy(fake_card, kernel,
                                                        per_sm):
     """Each queue kernel's persistent grid is its own resident CTAs times

@@ -656,11 +656,52 @@ def test_quality_sweep_totals_count_the_hit_masks(est):
     assert sched["queue"]["cta_sweeps"] < sched["lockstep"]["cta_sweeps"]
 
 
+def test_k10_schedules_by_launch_on_a_small_frame():
+    """K10's queue launch by launch, a launch a sample, on a 16x8
+    default-scene frame at 3 spp: each launch sweeps its sample's column
+    of ``quality_sweep_totals``, and the camera column only in the first
+    (``s0 == 0``), so a pixel whose camera ray missed needs no sweep in
+    the later ones; lockstep and the queue counted by hand on 2 CTAs of 32
+    lanes, the queue never needing more CTA sweeps than lockstep."""
+    cfg = RenderConfig(width=16, height=8, spp=3, max_bounces=4, **QUALITY)
+    scene = default_scene(CPU)
+    o, d, k = mq.pack_rays(Camera.default(CPU), cfg, 0)
+    totals = bq.quality_sweep_totals(o, d, k, mq.quality_table(scene),
+                                     bq.light_rows(scene), cfg)
+    missed = totals[:, 1:].sum(axis=1) == 0
+    assert 0 < missed.sum() < 128
+    lanes, cta = 64, 32
+    for s0 in range(cfg.spp):
+        per = bs.chunk_totals(totals, s0, 1)
+        assert per.shape == (128, 2)
+        assert (per[:, 0] == (1 if s0 == 0 else 0)).all()
+        assert (per[:, 1] == totals[:, 1 + s0]).all()
+        if s0 > 0:
+            assert not per[missed].any()
+        # lockstep: each CTA of 32 consecutive pixels sweeps as often as
+        # its busiest pixel needs, column by column
+        lockstep = sum(int(per[c:c + cta, j].max()) for c in range(0, 128, cta)
+                       for j in range(2))
+        # the queue: pixels in order, each to the lane free first (ties to
+        # the lowest lane); a CTA sweeps until its last lane is done
+        free = [0] * lanes
+        for work in per.sum(axis=1).tolist():
+            lane = min(range(lanes), key=lambda x: (free[x], x))
+            free[lane] += work
+        queue = sum(max(free[c:c + cta]) for c in range(0, lanes, cta))
+        sched = bs.lane_schedules(per, cta=cta, ctas=lanes // cta)
+        assert sched["useful_lane_sweeps"] == int(per.sum())
+        assert sched["lockstep"]["cta_sweeps"] == lockstep
+        assert sched["queue"]["cta_sweeps"] == queue <= lockstep
+
+
 def test_quality_wrappers_size_their_grid_by_their_own_kernel():
-    """K9 and K11 launch on the grid of their own kernel's occupancy."""
+    """K9, K11 and K10 launch on the grid of their own kernel's
+    occupancy."""
     import inspect
 
-    for call, kernel in ((bq.bigq_call, "K9"), (bq.bigq_hits_call, "K11")):
+    for call, kernel in ((bq.bigq_call, "K9"), (bq.bigq_hits_call, "K11"),
+                         (bqg.bigq_bwd_call, "K10")):
         src = inspect.getsource(call)
         assert "queue_grid(" in src and f'"{kernel}")' in src
         for other in set(bs.QUEUE_KERNELS) - {kernel}:

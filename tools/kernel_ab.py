@@ -3,7 +3,8 @@
 two checkouts on one CUDA card.
 
     python3 tools/kernel_ab.py [--root DIR] [--label NAME] [--check]
-                               [--kernels K1,K2,...]
+                               [--outputs DIR] [--kernels K1,K2,...]
+                               [--k5-splits 1,2,...]
 
 Imports ``spath_tpu_torch`` from ``--root`` (default: this checkout),
 builds its kernels there, and prints one JSON line: the card as
@@ -13,7 +14,17 @@ main path runs it at, after a warm-up launch:
 
 - K1, K2 (conformance) and K3, K4 (quality, the CLI's ``--mode
   quality``) on the default scene at 1920x1080, 64 spp, 5 bounces;
-- K5 on 512x512 camera rays against procedural_scene(10_000, seed=0);
+- K5 on a residual slice, 512x512 rays against procedural_scene(10_000,
+  seed=0): the camera rays (``K5``) and bounce rays from their hits in
+  random directions, the hit triangle excluded (``K5_bounce``; its first
+  238,592, the last slice of a 1080p frame, ``K5_last_slice``), all by
+  ``chip_smoke.py``'s ``k5_ray_sets``; on 1080p camera rays against the
+  default scene (``K5_1080p_7``), on 640x360 camera rays against
+  procedural_scene(65536) (the sweep microbenchmark's shape,
+  ``K5_microbench``) and on 64x64 camera rays against
+  procedural_scene(2^20) (``K5_2e20``); and (``K5_splits``) each of
+  these with its rows cut into each count of ``--k5-splits`` (default 1)
+  in place of ``sweep_plan``'s, in turns with the plan;
 - on procedural_scene(10_000, seed=0) at 1920x1080, 5 bounces: K6 on the
   serving frame (64 spp) and on the train step's (8 spp); K8 in a train
   step's backward call (8 spp, the call less its K7 calls, as
@@ -24,21 +35,34 @@ main path runs it at, after a warm-up launch:
   and 19 columns), in turns with ``index_add_`` (K7, index_add_,
   index_add_, K7), and each of its launches' device ms from
   ``torch.profiler``; the resident CTAs an SM of each kernel that runs a
-  queue of pixels (K6, K8, K9, K11; K6's alone where the package sizes
-  every grid by K6's).
+  queue of pixels (K6, K8, K9, K11, K10; K6's alone where the package
+  sizes every grid by K6's).
 
 To compare two commits, unpack the other with ``git archive`` into a
 directory that ``.gitignore`` lists (``build/``) and run both in one
 call, in turns: parent, change, change, parent. ``--check`` also holds
 the streamed kernels to their plain versions and exits non-zero on a
-failure: K6 bit-equal to K1 and to ``megakernel_plain``, two whole frames
+failure, by ``chip_smoke.py``'s bounds and, for K5, K8 and K10, its
+check functions (this checkout's ``chip_smoke.py``, run on ``--root``'s
+package): K6 bit-equal to K1 and to ``megakernel_plain``, two whole frames
 bitwise equal; K7 within 1e-5 of each column's max on synthetic
 hot-triangle events and on both event sets, two launches bitwise equal;
 K8+K7 within 1e-5 of each column group's max of ``mega_bwd_plain`` (its
 float64 sums), in one launch and in chunks of one sample, two calls
 bitwise equal; K9 bit-equal to K3 and to ``quality_plain``, two whole
 frames bitwise equal; K11's radiance bit-equal to K9's and its hits
-equal to ``quality_hits_plain``'s. Without a card it exits non-zero.
+equal to ``quality_hits_plain``'s; K10+K7 within ``chip_smoke.py``'s
+phase 13 bounds of ``quality_bwd_plain`` on the 10k scene for three
+estimator settings, in one launch and in chunks of one sample, two calls
+bitwise equal, and on the default scene also within 1e-5 of each
+group's max of K4; K5 bit-equal to ``_sweep`` at each timed shape and at 1, 127, 129
+and 262,143 rays, two launches bitwise equal. With ``--outputs DIR`` as
+well, it saves K10's table gradient and ray adjoint (the timed training
+call) and K5's ``dist``/``idx`` (the slice's bounce rays) to
+``DIR/<label>.pt`` and requires them bitwise equal to those of every
+other run saved there: run parent, change, change, parent with one
+``DIR`` to hold two checkouts to the same bits. Without a card it exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -50,22 +74,19 @@ import sys
 import time
 from pathlib import Path
 
-HEADLINE = dict(width=1920, height=1080, spp=64, max_bounces=5)
-QUALITY = dict(rng="hash", sampler="cosine", nee=True, mis=True)
-BIG_T, BIG_TRAIN_SPP = 10_000, 8
-BIGQ_SERVE_SPP, BIGQ_TRAIN_SPP = 16, 4
-SCATTER_RTOL = 1e-5
-#: K8+K7 against its float64 plain version: each column group within
-#: GRAD_RTOL of its own max (``chip_smoke.py``'s phase 20 bound).
-GRAD_RTOL = 1e-5
-GRAD_GROUPS = {"normal": slice(9, 12), "albedo": slice(12, 15),
-               "emission": slice(15, 18)}
-#: (label, estimator) of the K9 checks, ``chip_smoke.py``'s QUALITY_GRID.
-QUALITY_GRID = (
-    ("nee+mis", dict(QUALITY)),
-    ("bsdf only", dict(QUALITY, nee=False, mis=False)),
-    ("nee+mis rr2 strat", dict(QUALITY, rr_start=2, stratify=True)),
-)
+# The shapes, bounds and checks are chip_smoke.py's, of this checkout
+# (its run is behind __main__); the package is --root's.
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
+
+HEADLINE, QUALITY, BIG_T = cs.HEADLINE, cs.QUALITY, cs.BIG_T
+BIG_TRAIN_SPP, BIGQ_SERVE_SPP = cs.BIG_TRAIN_SPP, cs.BIGQ_SERVE_SPP
+BIGQ_TRAIN_SPP, QUALITY_GRID = cs.BIGQ_TRAIN_SPP, cs.QUALITY_GRID
+#: CUDA-event launches of a K5 timing, more for the short launch.
+K5_REPS = {"K5_1080p_7": 200}
+#: The last, partial slice of the visibility residual of a 1080p frame:
+#: its rays are the first of K5_bounce's.
+K5_LAST_SLICE = 1920 * 1080 % (512 * 512)
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
            "K11")
 
@@ -225,7 +246,7 @@ def scatter_check(torch, idx, val, n_tris: int, name: str) -> dict:
     want = ss.stream_scatter_plain(zeros(), idx, val)
     scale = want.abs().amax(0)
     err = (got - want).abs().amax(0)
-    if not bool((err <= SCATTER_RTOL * scale).all()):
+    if not bool((err <= cs.SCATTER_RTOL * scale).all()):
         fail(f"K7 {name}: errors {err.tolist()} of max {scale.tolist()}")
     if not torch.equal(got, again):
         fail(f"K7 {name}: two launches differ")
@@ -284,14 +305,13 @@ def k6_checks(torch, dev, cam, big_scene) -> dict:
 
 
 def k8_checks(torch, dev, cam, big_scene) -> dict:
-    """K8+K7 against ``mega_bwd_plain`` on the 10k scene, in one launch
-    and in chunks of one sample (the later chunks read the camera hits and
-    LCG states back), with the camera missing in part of the frame; two
-    calls bitwise equal."""
+    """K8+K7 against ``mega_bwd_plain`` on the 10k scene by
+    ``chip_smoke.py``'s ``backward_vs_plain``, in one launch and in
+    chunks of one sample (the later chunks read the camera hits and LCG
+    states back), with the camera missing in part of the frame."""
     from spath_tpu_torch.config import RenderConfig
     from spath_tpu_torch.ops.kernels import bigscene_grad as bg
     from spath_tpu_torch.ops.kernels import megakernel as mk
-    from spath_tpu_torch.ops.kernels import megakernel_grad as mg
 
     tri = mk.scene_table(big_scene)
     out = {}
@@ -304,31 +324,15 @@ def k8_checks(torch, dev, cam, big_scene) -> dict:
             ("32x16 spp2 1 bounce", RenderConfig(width=32, height=16, spp=2,
                                                  max_bounces=1), True)):
         o, d, s = mk.pack_rays(cam, cfg, 0)
-        gbar = (torch.rand((o.shape[0], 3), generator=torch.Generator()
-                           .manual_seed(3)) * 0.9 + 0.1).to(dev)
         if chunked:
             bg.EVENT_BUDGET = o.shape[0] * cfg.max_bounces * bg.EVENT_BYTES
         try:
-            got = bg.bigscene_bwd_call(o, d, s, tri, gbar, cfg)
-            again = bg.bigscene_bwd_call(o, d, s, tri, gbar, cfg)
+            c, _ = cs.backward_vs_plain(torch, o, d, s, tri, cfg,
+                                        f"K8 {name}", streamed=True,
+                                        tri_block=2048)
         finally:
             bg.EVENT_BUDGET = budget
-        want = mg.mega_bwd_plain(o, d, s, tri, gbar,
-                                 cfg.replace(tri_block=2048))
-        if not torch.equal(got, again):
-            fail(f"K8 {name}: two calls differ")
-        if not bool((got[:, :9] == 0).all()):
-            fail(f"K8 {name}: columns 0-8 not zero")
-        if not want.abs().max().item() > 0:
-            fail(f"K8 {name}: the plain adjoint is zero")
-        for group, cols in GRAD_GROUPS.items():
-            # exactly equal where the plain group is zero
-            scale = want[:, cols].abs().max().item()
-            err = (got[:, cols] - want[:, cols]).abs().max().item()
-            if not err <= GRAD_RTOL * scale:
-                fail(f"K8 {name}: the {group} adjoint off its plain version "
-                     f"by {err:.6g}, max|plain| {scale:.6g}")
-        out[f"k8_vs_plain_{name}"] = (got - want).abs().max().item()
+        out[f"k8_vs_plain_{name}"] = c["max_abs_err"]
     return out
 
 
@@ -390,12 +394,152 @@ def k9_k11_checks(torch, dev, cam, big_scene) -> dict:
     return out
 
 
+def k10_checks(torch, dev, cam, big_scene) -> dict:
+    """K10+K7 against ``quality_bwd_plain`` by ``chip_smoke.py``'s
+    ``quality_backward_vs_plain``: on the 10k scene at 64x48, 3 spp, for
+    each estimator of QUALITY_GRID, in one launch and in chunks of one
+    sample (the later launches read the camera hits and the ray adjoint
+    back); on the default scene at 320x240x8, where it also holds K10 to
+    K4."""
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+    from spath_tpu_torch.ops.kernels import bigscene_quality_grad as bqg
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+    from spath_tpu_torch.scene import default_scene
+
+    out = {}
+    budget = bqg.EVENT_BUDGET
+    tri, rows = mq.quality_table(big_scene), bq.light_rows(big_scene)
+    for label, est in QUALITY_GRID:
+        cfg = RenderConfig(width=64, height=48, spp=3, max_bounces=5, **est)
+        o, d, k = mq.pack_rays(cam, cfg, 0)
+        for chunked in (False, True):
+            name = f"{label}{' chunks of 1' if chunked else ''}"
+            if chunked:
+                bqg.EVENT_BUDGET = (o.shape[0] * cfg.max_bounces * 2
+                                    * bqg.EVENT_BYTES)
+            try:
+                c, _ = cs.quality_backward_vs_plain(
+                    torch, o, d, k, tri, rows, cfg, f"K10 {name}",
+                    streamed=True, tri_block=2048)
+            finally:
+                bqg.EVENT_BUDGET = budget
+            out[f"k10_vs_plain_{name}"] = c["max_abs_err"]
+    scene = default_scene(dev)
+    tri, rows = mq.quality_table(scene), bq.light_rows(scene)
+    small = RenderConfig(width=320, height=240, spp=8, max_bounces=5)
+    for label, est in QUALITY_GRID:
+        cfg = small.replace(**est)
+        o, d, k = mq.pack_rays(cam, cfg, 0)
+        c, _ = cs.quality_backward_vs_plain(
+            torch, o, d, k, tri, rows, cfg, f"K10 default {label}",
+            streamed=True)
+        out[f"k10_vs_plain_and_k4_{label}"] = c["rel_err_by_group"]
+    return out
+
+
+def k5_inputs(torch, dev, cam, big_scene) -> dict:
+    """K5's timed shapes: ``{name: (origins, directions, table, src)}``,
+    the slice's camera and bounce rays by ``chip_smoke.py``'s
+    ``k5_ray_sets``."""
+    from spath_tpu_torch.camera import generate_rays
+    from spath_tpu_torch.scene import default_scene, procedural_scene
+
+    def camera(scene, width, height):
+        o, d = generate_rays(cam, width, height)
+        return (o.contiguous(), d.contiguous(), cs.k5_table(scene),
+                torch.full((o.shape[0],), -1, dtype=torch.int64,
+                           device=dev))
+
+    tri = cs.k5_table(big_scene)
+    sets = cs.k5_ray_sets(torch, big_scene, *generate_rays(cam, 512, 512),
+                          seed=5)
+    bounce = tuple(t.contiguous() for t in sets["bounce"])
+    out = {"K5": (*(t.contiguous() for t in sets["camera"][:2]), tri,
+                  sets["camera"][2]),
+           "K5_bounce": (*bounce[:2], tri, bounce[2]),
+           "K5_last_slice": (*(t[:K5_LAST_SLICE].contiguous()
+                               for t in bounce[:2]), tri,
+                             bounce[2][:K5_LAST_SLICE].contiguous())}
+    out["K5_1080p_7"] = camera(default_scene(dev), 1920, 1080)
+    out["K5_microbench"] = camera(procedural_scene(65536, seed=0,
+                                                   device=dev), 640, 360)
+    out["K5_2e20"] = camera(procedural_scene(1 << 20, seed=0, device=dev),
+                            64, 64)
+    return out
+
+
+def k5_split_ms(torch, k5, inputs: dict, splits: list[int]) -> dict:
+    """K5 timed at each row split of ``splits`` (``sweep_plan``'s choice
+    replaced; counts above a shape's row blocks skipped) beside the
+    plan's own, in turns (plan, each split, each split again, plan):
+    lever (a), the split, alone."""
+    out = {}
+    plan = k5.sweep_plan
+    for name, (o, d, tri, src) in inputs.items():
+        blocks = -(-tri.shape[0] // k5.TILE_ROWS)
+        chosen = plan(o.shape[0], tri.shape[0],
+                      *k5.resident_ctas(o.device.index))[1]
+
+        def at(s):
+            if s is not None:
+                k5.sweep_plan = lambda n, t, tile, *_: (-(-n // tile), s)
+            try:
+                return timed(torch, lambda: k5.nearest_hit_call(
+                    o, d, tri, src), K5_REPS.get(name, 3))
+            finally:
+                k5.sweep_plan = plan
+
+        order = [None] + [s for s in splits if s <= blocks]
+        times = {}
+        for s in order + order[::-1]:
+            times.setdefault("plan" if s is None else s, []).append(at(s))
+        out[name] = {"plan_splits": chosen, "ms": times}
+    return out
+
+
+def k5_checks(torch, inputs: dict) -> dict:
+    """K5 bit-equal to its plain version by ``chip_smoke.py``'s
+    ``k5_vs_plain`` (two launches bitwise equal) on every timed shape,
+    and on the slice's first 1, 127, 129 and 262,143 bounce rays at 10k
+    and 7 triangles."""
+    cases = dict(inputs)
+    bo, bd, btri, bsrc = inputs["K5_bounce"]
+    small_tri = inputs["K5_1080p_7"][2]
+    for m in cs.K5_RAY_COUNTS:
+        cases[f"bounce_{m}"] = (bo[:m], bd[:m], btri, bsrc[:m])
+        cases[f"bounce_{m}_7"] = (bo[:m], bd[:m], small_tri,
+                                  bsrc[:m].clamp(max=small_tri.shape[0] - 1))
+    for name, (o, d, tri, src) in cases.items():
+        cs.k5_vs_plain(torch, tri, (o, d, src), f"K5 {name}")
+    return {"k5_vs_plain": sorted(cases)}
+
+
+def same_outputs(torch, outputs: Path, label: str, mine: dict) -> dict:
+    """Save ``mine`` as ``outputs/<label>.pt`` and require it bitwise
+    equal to every other run's there."""
+    outputs.mkdir(parents=True, exist_ok=True)
+    torch.save({k: v.cpu() for k, v in mine.items()}, outputs / f"{label}.pt")
+    seen = []
+    for other in sorted(outputs.glob("*.pt")):
+        if other.stem == label:
+            continue
+        theirs = torch.load(other)
+        for key, value in mine.items():
+            if not torch.equal(value.cpu(), theirs[key]):
+                fail(f"{key} differs from run {other.stem}'s")
+        seen.append(other.stem)
+    return {"bitwise_equal_to": seen, "compared": sorted(mine)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="")
     ap.add_argument("--kernels", default=",".join(KERNELS))
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--outputs", default="")
+    ap.add_argument("--k5-splits", default="1")
     args = ap.parse_args()
     want = set(args.kernels.split(","))
     if not want <= set(KERNELS):
@@ -423,7 +567,6 @@ def main() -> int:
     from spath_tpu_torch.ops.kernels import megakernel_grad as mg
     from spath_tpu_torch.ops.kernels import megakernel_quality as mq
     from spath_tpu_torch.ops.kernels import megakernel_quality_grad as mqg
-    from spath_tpu_torch.models.pathtracer import scene_geometry
     from spath_tpu_torch.scene import default_scene, procedural_scene
 
     dev = torch.device("cuda", 0)
@@ -464,14 +607,20 @@ def main() -> int:
     del o, d, s, g, qo, qd, qk
 
     big = procedural_scene(BIG_T, seed=0, device=dev)
+    saved = {}
     if "K5" in want:
-        cfg5 = RenderConfig(width=512, height=512, spp=1)
-        o5, d5, _ = mk.pack_rays(cam, cfg5, 0)
-        v0, e1, e2 = scene_geometry(big)[:3]
-        t5 = k5.pack_triangles(v0, e1, e2)
-        none = torch.full((o5.shape[0],), -1, dtype=torch.int64, device=dev)
-        ms["K5"] = timed(torch, lambda: k5.nearest_hit_call(o5, d5, t5,
-                                                            none), 3)
+        k5_in = k5_inputs(torch, dev, cam, big)
+        for name, (o5, d5, t5, s5) in k5_in.items():
+            ms[name] = timed(torch, lambda: k5.nearest_hit_call(
+                o5, d5, t5, s5), K5_REPS.get(name, 3))
+        if args.k5_splits and hasattr(k5, "sweep_plan"):
+            ms["K5_splits"] = k5_split_ms(torch, k5, k5_in, [
+                int(x) for x in args.k5_splits.split(",")])
+        if args.check:
+            result.update(k5_checks(torch, k5_in))
+        saved["k5_dist"], saved["k5_idx"] = k5.nearest_hit_call(
+            *k5_in["K5_bounce"])
+        del k5_in
     btri = mk.scene_table(big)
     train = head.replace(spp=BIG_TRAIN_SPP)
     o, d, s = mk.pack_rays(cam, head, 0)
@@ -509,6 +658,9 @@ def main() -> int:
         k10, k7q_call, (qidx, qval) = split_call(
             torch, bqg.bigq_bwd_call, qo, qd, qk, qbtri, qbrows, g, qtrain)
         ms["K10"], ms["K7_in_quality_train_step"] = k10, k7q_call
+        if "K10" in want:
+            saved["k10_gtab"], saved["k10_grays"] = bqg.bigq_bwd_call(
+                qo, qd, qk, qbtri, qbrows, g, qtrain)
         if "K7" in want:
             ms["K7_19"] = scatter_ms(torch, qidx, qval, BIG_T)
             ms["K7_19"]["windows"] = window_runs(torch, qidx, BIG_T, 512)
@@ -526,6 +678,11 @@ def main() -> int:
         result.update(k6_checks(torch, dev, cam, big))
         result.update(k8_checks(torch, dev, cam, big))
         result.update(k9_k11_checks(torch, dev, cam, big))
+        if "K10" in want:
+            result.update(k10_checks(torch, dev, cam, big))
+        if args.outputs and saved:
+            result["outputs"] = same_outputs(
+                torch, Path(args.outputs), args.label or "run", saved)
     print(json.dumps(result), flush=True)
     return 0
 
