@@ -60,7 +60,8 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     shapes of phase 11 and at 1080p64: normal, albedo, emission and area
     within 1e-5 of their own max, v0/e1/e2 within 1e-4, the camera-ray
     adjoint within 1e-5 of its max, prob and cdf exactly zero, two
-    launches bitwise equal.
+    launches bitwise equal; K3's 1080p64 frame bit-equal to
+    ``quality_plain``'s.
 14. The gradient entry point ``render_radiance_fastgrad`` at 320x240, 8
     spp, quality config: vertex, albedo, emission and camera-position
     gradients against autograd of the plain wavefront.
@@ -80,7 +81,10 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
 17. At 1080p64: K3 and K4 and their plain versions timed in turns, and
     the quality walk's sweeps, hits and light-choice steps counted by the
     plain replay for the kernels' bounds; the light distribution kernel
-    and its plain version timed on the default scene.
+    and its plain version timed on the default scene; on COUNT_ROWS,
+    K3's warp steps and K4's cost under the lockstep loops they replaced
+    and under their schedules (``lane_counts``), with the idle lane
+    shares, grids and resident CTAs.
 18. The stream scatter K7 against its float64 plain version on synthetic
     events (T = 2^20 and 1000; half the events on 4 hot triangles, a
     tenth -1): each column within 1e-5 of its max, two launches bitwise
@@ -206,16 +210,19 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     ENTRY_RTOL of each max: the blocker scene (conformance: K1, K2, K5;
     quality: the light distribution, K3, K4, K5) at 320x240x4, and the
     1150-triangle scene at 320x240x2 through K11, K10, K7 and K5, no
-    other kernel; the residual's radiance exactly 0; the vis_grad frame
-    equal to the frame without it; the gradient's run-to-run spread,
-    recorded.
+    other kernel (the residual's row gathers add their gradients through
+    K7 on every scene); the residual's radiance exactly 0; the vis_grad
+    frame equal to the frame without it; two gradients on the same seed
+    bitwise equal in every group.
 39. Visibility-gradient training at full width: 3 quality train steps
     with vis_grad on the default scene at 1920x1080, VIS_TRAIN_SPP (cut
     from 64 for time) samples, 5 bounces, through the light distribution,
-    K3, K4 and K5; the loss falls; the gradient's run-to-run spread at
-    that shape, recorded.
+    K3, K4, K5 and K7; the loss falls; two gradients on the same seed at
+    that shape bitwise equal in every group.
 40. 2 such steps on procedural_scene(10_000) at 1920x1080, 4 spp, through
-    the light distribution, K11, K10, K7 and K5 (K9 does not launch).
+    the light distribution, K11, K10, K7 and K5 (K9 does not launch); two
+    gradients on the same seed at that shape bitwise equal in every
+    group.
 41. The pose step from the true camera, recorded: 3 steps at pose rate
     1e-3 with and without vis_grad, and how many of the pixels that
     change when the camera moves 1e-6 change their primary triangle.
@@ -266,6 +273,10 @@ GRAD_GROUPS = {"normal": slice(9, 12), "albedo": slice(12, 15),
 ENTRY_RTOL = 1e-3
 #: the emission-linearity check, relative (tests/test_megakernel_grad.py)
 LINEARITY_RTOL = 1e-4
+#: K7 as the row gathers' backward against a float64 index_add_ of the
+#: same rows: K7 sums in float64 and rounds once, so each table's
+#: gradient within GATHER_RTOL of its max
+GATHER_RTOL = 1e-6
 #: Operations counted from the kernels' source (compares, selects, loads
 #: and integer work not counted): one Moller-Trumbore test is 18
 #: multiplies, 15 adds or subtracts, 12 more in u, v and u + v, and one
@@ -1077,6 +1088,52 @@ def quality_walk_counts(torch, o, d, keys, tri, rows, cfg) -> dict:
                 nee_lanes=oks)
 
 
+def lane_counts(torch, o, d, keys, tri, rows, cfg) -> dict:
+    """Phase 17: K3's warp steps and K4's cost (forward steps plus
+    ``REVERSE_COST`` a reverse step) on COUNT_ROWS of the frame, counted
+    from each pixel's sweeps (``bigscene_quality.quality_sweep_totals``):
+    the lockstep loops the kernels replaced and each shipped schedule on
+    the launch's grid (its warps scaled to the rows), with the idle lane
+    shares; each kernel's grid, pixels a run and resident CTAs."""
+    from spath_tpu_torch.ops.kernels import bigscene as bs
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+    from spath_tpu_torch.ops.kernels import megakernel_quality_grad as mqg
+
+    n = o.shape[0]
+    totals = bq.quality_sweep_totals(*rows_of(torch, cfg.width, COUNT_ROWS,
+                                              o, d, keys), tri, rows, cfg)
+    m = totals.shape[0]
+
+    def warps(grid, per_cta):
+        return max(1, round(grid * per_cta * m / n))
+
+    k3_grid = mq.k3_grid(n, o.device)
+    k3_per_sm, sms = bs.resident_ctas(o.device.index or 0, "K3")
+    k3_warps = warps(k3_grid, mq.K3_WARPS)
+    sched = mq.warp_schedules(totals, queue_warps=k3_warps)
+    k4_grid, k4_run, k4_threads = mqg.k4_grid(n, tri.shape[0], o.device)
+    k4_per_sm = mqg.k4_resident(o.device.index or 0, tri.shape[0])[0]
+    epochs = mqg.epoch_schedule(totals, mqg.EPOCH, cfg.max_bounces, k4_run,
+                                warps(k4_grid, k4_threads // mq.WARP))
+    lock = mqg.lockstep_cost(totals)
+    # the lockstep loop on the camera hits alone, as compaction would run
+    compacted = mqg.lockstep_cost(totals[totals[:, 1:].sum(axis=1) > 0])
+    useful = epochs["useful_cost"]
+    return dict(
+        pixels=m, k3=dict(
+            sched, shipped=dict(sched["queue"], warps=k3_warps),
+            grid=dict(ctas=k3_grid, resident_per_sm=k3_per_sm, sms=sms)),
+        k4=dict(
+            lockstep=dict(lock, idle_lane_share=1.0 - useful / lock["cost"]),
+            lockstep_compacted=compacted,
+            epochs=dict(epochs, epoch=mqg.EPOCH,
+                        ring=mqg.ring_size(cfg.max_bounces),
+                        idle_lane_share=1.0 - useful / epochs["cost"]),
+            grid=dict(ctas=k4_grid, run=k4_run, threads=k4_threads,
+                      resident_per_sm=k4_per_sm, sms=sms)))
+
+
 def combined_scene(device):
     """The default scene and procedural_scene(COMBINED_EXTRA, seed=0,
     emissive_fraction=0.05): real multi-bounce light on 1150 triangles."""
@@ -1820,10 +1877,9 @@ def vis_spread(torch, dev, cam, scene, cfg, got=None) -> dict:
     """Run-to-run spread of ``render_radiance_fastgrad``'s ``vis_grad``
     gradient: two calls on the same inputs and seed (``got``, the first,
     if given), for each group the largest difference over the group's
-    largest magnitude and the count of elements that differ. Recorded,
-    not asserted: the residual's row gathers (``index_select``) add their
-    backward with ``index_add_``, whose float atomics add in no fixed
-    order on the card."""
+    largest magnitude and the count of elements that differ, which must
+    be 0 in every group: the residual's row gathers add their backward
+    with the stream scatter K7 in a fixed order (``ops/gather.py``)."""
     from spath_tpu_torch.models.pathtracer import render_radiance_fastgrad
 
     if got is None:
@@ -1838,6 +1894,54 @@ def vis_spread(torch, dev, cam, scene, cfg, got=None) -> dict:
         out[name] = dict(rel=diff.max().item()
                          / max(a.abs().max().item(), 1e-30),
                          differ=int((diff > 0).sum()))
+        check(out[name]["differ"] == 0, f"two vis_grad {name} gradients "
+              f"differ in {out[name]['differ']} elements")
+    return out
+
+
+def gather_k7_check(torch, run) -> dict:
+    """Phases 39-40: K7 as the row gathers' backward (``ops/gather.py``)
+    at the shapes the ``vis_grad`` residual gives it. ``run()`` computes
+    gradients while every call of ``gather.scatter_backward`` is recorded,
+    the first of each (rows, columns) kept with its events and its
+    result; each is then held to a float64 ``index_add_`` of the same
+    events, table by table, within GATHER_RTOL of the table's max. Both of
+    K7's widths (9, 19) must be among them."""
+    from spath_tpu_torch.ops import gather as ga
+
+    seen = {}
+    inner = ga.scatter_backward
+
+    def record(index, grads, n_rows):
+        out = inner(index, grads, n_rows)
+        key = (n_rows, sum(g.shape[1] for g in grads))
+        if key not in seen:
+            seen[key] = (index.clone(), [g.clone() for g in grads],
+                         [o.clone() for o in out])
+        return out
+
+    ga.scatter_backward = record
+    try:
+        run()
+    finally:
+        ga.scatter_backward = inner
+    out = {}
+    for (n_rows, cols), (index, grads, got) in seen.items():
+        errs = []
+        for g, o in zip(grads, got):
+            want = torch.zeros((n_rows, g.shape[1]), dtype=torch.float64,
+                               device=g.device).index_add_(0, index,
+                                                           g.double())
+            errs.append((o.double() - want).abs().max().item()
+                        / max(want.abs().max().item(), 1e-30))
+        check(max(errs) <= GATHER_RTOL, f"K7 as the gathers' backward, "
+              f"{index.shape[0]} events of {cols} columns into {n_rows} "
+              f"rows: off the float64 index_add_ by {errs} of each max")
+        out[f"{n_rows} rows, {cols} columns"] = dict(
+            events=index.shape[0], width=ga.k7_width(cols), rel_err=errs)
+    widths = {v["width"] for v in out.values()}
+    check(widths == {9, 19}, f"the gathers' backward ran K7 at widths "
+          f"{sorted(widths)}, want 9 and 19")
     return out
 
 
@@ -2407,7 +2511,10 @@ def run() -> None:
     torch.cuda.synchronize()
     want = mq.quality_plain(qo, qd, qkeys, qtri, qrows, qcfg)
     qheadline = check_against_plain(torch, got, want, f"K3 {frame}")
-    log(f"[13] K3 vs plain, default scene, quality {frame}: {qheadline}")
+    check(torch.equal(got, want), f"K3's {frame} frame is not bit-equal to "
+          "quality_plain's")
+    log(f"[13] K3 vs plain, default scene, quality {frame}: {qheadline}; "
+        "bit-equal")
     del got, want
 
     # 14. the quality gradient entry point
@@ -2472,6 +2579,7 @@ def run() -> None:
     k4_bound = bound(k4_ops, q_bytes + n * 12 + n * 24 + n_tris * 19 * 4)
     k3_ms = sum(timed["k3"][0]) / 2
     k4_ms = sum(timed["k4"][0]) / 2
+    lanes = lane_counts(torch, qo, qd, qkeys, qtri, qrows, qcfg)
 
     # the light distribution on the main path's scene: the kernel, and the
     # plain version, which takes the card's tensors through the host
@@ -2505,6 +2613,8 @@ def run() -> None:
         f"{k3_bound[0]:.4f} ms, K4 {k4_bound[0]:.4f} ms ({k3_bound[1]}); "
         f"without FMA: K3 {k3_ops / NOFMA_OPS * 1e3:.4f} ms, K4 "
         f"{k4_ops / NOFMA_OPS * 1e3:.4f} ms")
+    log(f"[17] K3's and K4's lanes on rows {list(COUNT_ROWS)}, quality "
+        f"{frame}: {lanes}")
 
 
     # ---- large scenes: the streamed kernels K6, K8 and K7 ----
@@ -3292,9 +3402,9 @@ def run() -> None:
     for label, scene_v, cfg_v, expect in (
             ("blocker, conformance", bscene,
              RenderConfig(width=320, height=240, spp=4, max_bounces=3,
-                          vis_grad=True), {"K1", "K2", "K5"}),
+                          vis_grad=True), {"K1", "K2", "K5", "K7"}),
             ("blocker, quality", bscene, vis_q,
-             {"light", "K3", "K4", "K5"}),
+             {"light", "K3", "K4", "K5", "K7"}),
             ("1150, quality, K11", combined, vis_q.replace(spp=2),
              {"light", "K11", "K10", "K7", "K5"})):
         vis_entry[label] = vis_gradient_entry(torch, dev, cam, scene_v,
@@ -3311,12 +3421,17 @@ def run() -> None:
     vis_train_cfg = RenderConfig(**HEADLINE, vis_grad=True, **QUALITY
                                  ).replace(spp=VIS_TRAIN_SPP)
     vtr = vis_training(torch, dev, cam, dscene, vis_train_cfg,
-                       {"light", "K3", "K4", "K5"}, 3)
+                       {"light", "K3", "K4", "K5", "K7"}, 3)
     log(f"[39] 3 vis_grad quality train steps, default scene, 1920x1080 "
         f"spp{VIS_TRAIN_SPP}, on {smi}: {vtr}")
+    spread = {}
+    vis_gathers = {"default": gather_k7_check(torch, lambda: spread.update(
+        vis_spread(torch, dev, cam, dscene, vis_train_cfg)))}
     log(f"[39] run-to-run spread of the vis_grad gradient, default scene, "
-        f"1920x1080 spp{VIS_TRAIN_SPP} (recorded): "
-        f"{vis_spread(torch, dev, cam, dscene, vis_train_cfg)}")
+        f"1920x1080 spp{VIS_TRAIN_SPP} (none allowed): {spread}")
+    log(f"[39] K7 as the row gathers' backward against a float64 "
+        f"index_add_, default scene (within {GATHER_RTOL}): "
+        f"{vis_gathers['default']}")
 
     # 40. vis_grad training on the 10k scene through K11
     vbtr = vis_training(torch, dev, cam, ten_k,
@@ -3324,6 +3439,16 @@ def run() -> None:
                         {"light", "K11", "K10", "K7", "K5"}, 2)
     log(f"[40] 2 vis_grad quality train steps, {BIG_T} triangles, "
         f"1920x1080 spp{train_q_cfg.spp}, on {smi}: {vbtr}")
+    big_spread = {}
+    vis_gathers["10k"] = gather_k7_check(torch, lambda: big_spread.update(
+        vis_spread(torch, dev, cam, ten_k,
+                   train_q_cfg.replace(vis_grad=True))))
+    log(f"[40] run-to-run spread of the vis_grad gradient, {BIG_T} "
+        f"triangles, 1920x1080 spp{train_q_cfg.spp} (none allowed): "
+        f"{big_spread}")
+    log(f"[40] K7 as the row gathers' backward against a float64 "
+        f"index_add_, {BIG_T} triangles (within {GATHER_RTOL}): "
+        f"{vis_gathers['10k']}")
 
     # 41. the pose step from the true camera, recorded
     pose = pose_measurement(torch, dev, cam, RenderConfig(
@@ -3386,6 +3511,10 @@ def run() -> None:
         "launches_by_path": {"serving": q_launches, "training": qtr["k3"]},
         "max_abs_err": qheadline["max_abs_err"],
         "ms": k3_ms,
+        "idle_lane_share": {
+            "lockstep": lanes["k3"]["lockstep"]["idle_lane_share"],
+            "shipped": lanes["k3"]["shipped"]["idle_lane_share"]},
+        "grid": lanes["k3"]["grid"],
         "plain_ms": sum(timed["k3"][1]) / 2,
         "bound_ms": k3_bound[0],
         "bound_by": k3_bound[1],
@@ -3399,6 +3528,10 @@ def run() -> None:
         "launches_by_path": {"serving": 0, "training": qtr["k4"]},
         "max_abs_err": qbwd_headline["max_abs_err"],
         "ms": k4_ms,
+        "idle_lane_share": {
+            "lockstep": lanes["k4"]["lockstep"]["idle_lane_share"],
+            "epochs": lanes["k4"]["epochs"]["idle_lane_share"]},
+        "grid": lanes["k4"]["grid"],
         "plain_ms": sum(timed["k4"][1]) / 2,
         "bound_ms": k4_bound[0],
         "bound_by": k4_bound[1],
@@ -3430,7 +3563,8 @@ def run() -> None:
         "replaces": "spath_tpu/ops/pallas/megakernel_bigscene.py:257",
         "launches": btr["k7"],
         "launches_by_path": {"serving": 0, "training": btr["k7"],
-                             "quality training": qbtr["k7"]},
+                             "quality training": qbtr["k7"],
+                             "vis_grad training": vtr["launches"]["K7"]},
         "max_abs_err": k7["max_abs_err"],
         "ms": sum(k7["ms"]) / len(k7["ms"]),
         "plain_ms": sum(k7["plain_ms"]) / 2,
@@ -3444,6 +3578,7 @@ def run() -> None:
             "bound_by": k7q["bound"][1],
             "library_ms": sum(k7q["library_ms"]) / 2,
             "max_abs_err": k7q["max_abs_err"]},
+        "as_gather_backward": vis_gathers,
     }, {
         "name": "bigscene_backward",
         "route": "cuda",

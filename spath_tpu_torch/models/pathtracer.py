@@ -8,7 +8,7 @@ Every pixel's ray is in flight at once, in the forward-throughput form::
 
 Dead rays are masked lanes, not branches. The camera rays' first hit is
 the same for every sample, so it is computed once and shared. Attributes
-of the hit triangle are gathered by plain indexing.
+of the hit triangle are gathered by ``ops/gather.py::gather_rows``.
 
 Two estimators are ported:
 
@@ -53,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 from spath_tpu_torch.camera import Camera, generate_rays
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.ops import nee
+from spath_tpu_torch.ops.gather import gather_rows
 from spath_tpu_torch.ops.intersect import (
     check_method, nearest_hit_edges, sweep_table,
 )
@@ -242,12 +243,18 @@ def trace_geometry(geom, origins, directions, rng, cfg: RenderConfig,
         hit3 = hit[:, None]
         safe = idx.clamp_min(0)
         point = o + dist[:, None] * d
-        # Row gathers are index_select: its backward adds with index_add_,
-        # while indexing's (index_put_ with accumulate) sorts the indices
-        # and adds each row's duplicates one after another, 23 ms a gather
-        # of 262,144 rays over 7 rows on an H100.
-        nrm, alb, emi = (t.index_select(0, safe)
-                         for t in (normals, albedo, emission))
+        # Row gathers are ops/gather.py's gather_rows: index_select
+        # forward; backward the stream scatter K7 on the card, which adds
+        # each row's duplicates in a fixed order (index_select's own
+        # index_add_ adds them with float atomics, and indexing's
+        # index_put_ sorts them, 23 ms a gather of 262,144 rays over 7
+        # rows on an H100). With vis_grad one call gathers the hit's
+        # geometry too, so its backward is one K7 launch of 18 columns.
+        if cfg.vis_grad:
+            nrm, alb, emi, v0h, e1h, e2h = gather_rows(
+                safe, normals, albedo, emission, v0, e1, e2)
+        else:
+            nrm, alb, emi = gather_rows(safe, normals, albedo, emission)
         flip = dot3(nrm, d) > 0.0
         adj_n = torch.where(flip[:, None], -nrm, nrm)
 
@@ -255,7 +262,6 @@ def trace_geometry(geom, origins, directions, rng, cfg: RenderConfig,
         # has no sampled direction (camera rays are a fixed pixel grid).
         vis_c = None
         if cfg.vis_grad:
-            v0h, e1h, e2h = (t.index_select(0, safe) for t in (v0, e1, e2))
             if bounce >= 1:
                 vis_c = reparam_emitter_factor(
                     o_diff if vis_residual else o, d, v0h, e1h, e2h, nrm,

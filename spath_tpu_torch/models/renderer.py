@@ -56,15 +56,14 @@ GRAD_ROUTE_MAX_TRIS = 128
 #: The same crossovers for the quality estimator, between the fused K3
 #: (K3+K4 for a gradient) and the streamed K9 (K9+K10+K7), from the
 #: K3/K9 and K3+K4/K9+K10+K7 timings at the same shapes with NEE+MIS on
-#: the same card (``chip_smoke.py`` phase 33, PERF.md section 6). In four
-#: runs K9 was 5% slower to 8% faster than K3 at 64 and 128 triangles,
-#: 10% slower to 5% faster at 256, and 7-13% faster at 512 and 1024 in
-#: every run; K3+K4 was 6-42% faster at 64 triangles, and K9+K10+K7 took
-#: 3-6% less time at 128 and 58-59% less at 1024 (K4's per-warp (T, 19)
-#: slices) in every run. So the fused kernels serve scenes of up to 256
-#: triangles and differentiate those of up to 64. The JAX package's 128
-#: was measured on a TPU v5e.
-QUALITY_ROUTE_MAX_TRIS = 256
+#: the same card (``chip_smoke.py`` phase 33, PERF.md section 6). With
+#: K3 on its lane loop (csrc/quality_lanes.cuh), in two runs K9 was 1-3%
+#: slower than K3 at 64 triangles, 4-12% faster at 128 and 0-2% faster at
+#: 256; K3+K4 was 7-25% faster at 64 triangles, and K9+K10+K7 took 5-8%
+#: less time at 128 in every run. So the fused kernels serve and
+#: differentiate scenes of up to 64 triangles. The JAX package's 128 was
+#: measured on a TPU v5e.
+QUALITY_ROUTE_MAX_TRIS = 64
 QUALITY_GRAD_ROUTE_MAX_TRIS = 64
 
 

@@ -47,15 +47,21 @@ _plain_depth = 0
 
 @contextlib.contextmanager
 def plain_sweep():
-    """Inside the block every sweep is the plain ``_sweep``, on CUDA
-    tensors too: for the kernels' plain versions and for comparisons with
-    K5, never on a path a user calls."""
+    """Inside the block every sweep is the plain ``_sweep`` and every row
+    gather of ``ops/gather.py`` is ``index_select`` with its own backward,
+    on CUDA tensors too: for the kernels' plain versions and for
+    comparisons with K5 and K7, never on a path a user calls."""
     global _plain_depth
     _plain_depth += 1
     try:
         yield
     finally:
         _plain_depth -= 1
+
+
+def in_plain_sweep() -> bool:
+    """Is a ``plain_sweep`` block open?"""
+    return _plain_depth > 0
 
 
 def sweep_table(v0, e1, e2):

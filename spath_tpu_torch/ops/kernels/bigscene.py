@@ -58,6 +58,7 @@ CTA_LANES = 128
 #: The kernels that run a queue of pixels on a persistent grid, and each
 #: one's occupancy query in the library: its entry point and arguments.
 QUEUE_KERNELS = {
+    "K3": ("spath_quality_forward_occupancy", ()),
     "K6": ("spath_bigscene_forward_occupancy", ()),
     "K8": ("spath_bigscene_backward_occupancy", ()),
     "K9": ("spath_bigscene_quality_forward_occupancy", (0,)),
@@ -151,6 +152,56 @@ def lane_schedules(totals, cta: int = CTA_LANES, ctas: int = 1) -> dict:
 
     return dict(useful_lane_sweeps=useful, lockstep=share(lockstep),
                 regeneration=share(regeneration), queue=share(queue))
+
+
+def run_sequences(n: int, run: int, warps: int) -> list[np.ndarray]:
+    """The pixels each of ``warps`` warps takes under a fixed assignment
+    of runs (``csrc/quality_lanes.cuh``: ``PixelSource``): the ``n``
+    pixels cut into runs of ``run`` consecutive pixels, warp ``w`` owning
+    runs ``w``, ``w + warps``, ... in that order. Every pixel lies in
+    exactly one warp's sequence."""
+    if n < 0 or run < 1 or warps < 1:
+        raise ValueError(f"no runs for n={n}, run={run}, warps={warps}")
+    starts = np.arange(0, n, run)
+    return [np.concatenate([np.arange(a, min(a + run, n))
+                            for a in starts[w::warps]] or
+                           [np.zeros(0, dtype=np.int64)]).astype(np.int64)
+            for w in range(warps)]
+
+
+def list_schedule(work, lanes: int) -> tuple[np.ndarray, np.ndarray]:
+    """``lanes`` lanes taking the items of ``work`` in order, each lane the
+    next item when its own is done, ties to the lowest lane (a warp's
+    lanes taking pixels a step at a time in lane order). Returns each
+    item's ``(lane, start)``."""
+    free = [(0, lane) for lane in range(lanes)]
+    lane_of = np.zeros(len(work), dtype=np.int64)
+    start = np.zeros(len(work), dtype=np.int64)
+    for i, w in enumerate(np.asarray(work, dtype=np.int64).tolist()):
+        t, lane = heapq.heappop(free)
+        lane_of[i], start[i] = lane, t
+        heapq.heappush(free, (t + w, lane))
+    return lane_of, start
+
+
+def run_schedule(totals, run: int, warps: int, lanes: int = 32) -> dict:
+    """A lane-per-pixel kernel's steps (one sweep a lane a step, K3's and
+    K4's forward) when ``warps`` warps of ``lanes`` lanes take their pixels
+    from a fixed assignment of runs of ``run`` pixels (``run_sequences``),
+    a lane the next pixel of its warp's sequence when its own is done
+    (``list_schedule``) and a warp stepping until its last lane is done.
+    ``totals`` is ``lane_schedules``' layout. Returns the warp steps and
+    the idle lane share, ``1 - useful / (steps * lanes)``."""
+    totals = np.asarray(totals, dtype=np.int64)
+    per_pixel = totals.sum(axis=1)
+    steps = 0
+    for seq in run_sequences(totals.shape[0], run, warps):
+        if seq.size:
+            _, start = list_schedule(per_pixel[seq], lanes)
+            steps += int((start + per_pixel[seq]).max())
+    useful = int(per_pixel.sum())
+    return dict(warp_steps=steps, idle_lane_share=(
+        1.0 - useful / (steps * lanes) if steps else 0.0))
 
 
 def chunk_totals(totals, s0: int, count: int) -> np.ndarray:

@@ -144,13 +144,22 @@ def library() -> ctypes.CDLL:
     # K3 and K4: rays, keys, table, rows, ..., n, n_tris, n_rows, spp,
     # max_bounces, rr_start, flags, inv_spp
     quality = [i32] * 7 + [ctypes.c_float]
-    lib.spath_quality_forward.argtypes = [ptr] * 6 + quality + [ptr]
+    # K3: rays, keys, table, rows, out, the queue's counter, then n ...,
+    # then its grid
+    lib.spath_quality_forward.argtypes = [ptr] * 7 + quality + [i32, ptr]
     lib.spath_quality_forward.restype = i32
+    lib.spath_quality_forward_occupancy.argtypes = []
+    lib.spath_quality_forward_occupancy.restype = i32
+    # K4: rays, keys, table, rows, gbar, partial, grays, rings, then n
+    # ..., then its pixels a run and grid
     lib.spath_quality_backward.argtypes = (
-        [ptr] * 8 + quality + [ptr])
+        [ptr] * 9 + quality + [i32, i32, ptr])
     lib.spath_quality_backward.restype = i32
-    lib.spath_quality_backward_grid.argtypes = [i32, i32]
-    lib.spath_quality_backward_grid.restype = i32
+    # K4's block threads and resident CTAs an SM for T triangles
+    for fn in (lib.spath_quality_backward_threads,
+               lib.spath_quality_backward_occupancy):
+        fn.argtypes = [i32]
+        fn.restype = i32
     # the light choice's distribution: emission, area, cdf, prob, scratch,
     # T; and the scratch floats it needs for T
     lib.spath_light_cdf.argtypes = [ptr] * 5 + [i32, ptr]

@@ -21,6 +21,13 @@ Layouts, as the wrapper checks them (all contiguous):
   rows repeat the cdf value before them);
 - output: float32 ``(n, 3)``, the mean radiance.
 
+A lane owns a pixel and walks it one bounce a step, starting the pixel's
+next sample as soon as a path ends and taking the next pixel when its
+samples are done (``csrc/quality_lanes.cuh``); its warps take their
+pixels from a queue on a persistent grid (``k3_grid``; measured against
+runs of pixels a warp, PERF.md). ``warp_schedules`` counts the idle
+lanes of the lockstep loop this replaced and of each schedule.
+
 ``quality_call`` launches the kernel for CUDA tensors and counts each
 launch in ``quality_call.launches``; for CPU tensors it computes the same
 function with ``quality_plain``, the plain PyTorch version.
@@ -41,6 +48,7 @@ from spath_tpu_torch.models.pathtracer import (
 )
 from spath_tpu_torch.ops.fp import sqrt_rn
 from spath_tpu_torch.ops.intersect import nearest_hit_edges, plain_sweep
+from spath_tpu_torch.ops.kernels import bigscene as bs
 from spath_tpu_torch.ops.kernels.build import library
 from spath_tpu_torch.ops.nee import INV_PI
 from spath_tpu_torch.ops.rng import fmix32, hash_keys, key_uniforms
@@ -49,6 +57,8 @@ from spath_tpu_torch.scene import Scene
 
 #: Largest scene the kernel takes (the JAX kernel's SMEM table cap).
 MAX_TRIS = 1024
+#: Lanes of a warp, and warps of a K3 block (``kBlock`` / 32).
+WARP, K3_WARPS = 32, 4
 #: Columns of the quality table.
 COLS = 21
 COL_PROB, COL_AREA, COL_CDF = 18, 19, 20
@@ -278,6 +288,36 @@ def quality_plain(origins, directions, keys, tri, light_idx,
     return acc * float(np.float32(1.0) / np.float32(cfg.spp))
 
 
+def k3_grid(n: int, device: torch.device) -> int:
+    """CTAs of a K3 launch for ``n`` rays on the CUDA ``device``: a
+    persistent grid of K3's own resident CTAs (``bigscene.queue_grid``),
+    whose warps take their pixels from one queue
+    (``csrc/quality_lanes.cuh``: ``PixelSource``)."""
+    return bs.queue_grid(n, device, "K3")
+
+
+def warp_schedules(totals, runs=(2, 4, 8, 16), queue_warps: int = 1
+                   ) -> dict:
+    """K3's warp steps (one sweep a lane a step) and idle lane share on the
+    pixels of ``totals`` (``bigscene.lane_schedules``' layout: the camera
+    sweep, then each sample's sweeps, ``bigscene_quality.
+    quality_sweep_totals``): ``lockstep``, the loop this kernel replaced
+    (a lane a pixel, a warp stepping each sample as often as its longest
+    path needs); ``regeneration``, a lane running its pixel's samples back
+    to back; ``runs_<k>``, a run of k chunks of 32 pixels a warp; and
+    ``queue``, ``queue_warps`` warps sharing one queue."""
+    sched = bs.lane_schedules(totals, WARP, queue_warps)
+    out = {name: dict(warp_steps=sched[name]["cta_sweeps"],
+                      idle_lane_share=sched[name]["idle_lane_share"])
+           for name in ("lockstep", "regeneration", "queue")}
+    n = np.asarray(totals).shape[0]
+    for k in runs:
+        out[f"runs_{k}"] = bs.run_schedule(
+            totals, k * WARP, -(-n // (k * WARP)), WARP)
+    out["useful_lane_steps"] = sched["useful_lane_sweeps"]
+    return out
+
+
 def _flags(cfg: RenderConfig) -> int:
     return (int(cfg.nee) | (int(cfg.nee and cfg.mis) << 1)
             | (int(cfg.stratify) << 2))
@@ -349,6 +389,8 @@ def quality_call(origins, directions, keys, tri, light_idx,
         return out
     rows = _rows(light_idx, n_tris, origins.device)
     lib = library()
+    grid = k3_grid(n, origins.device)
+    counter = torch.zeros(1, dtype=torch.int32, device=origins.device)
     with torch.cuda.device(origins.device):
         stream = torch.cuda.current_stream(origins.device).cuda_stream
         err = lib.spath_quality_forward(
@@ -358,7 +400,8 @@ def quality_call(origins, directions, keys, tri, light_idx,
             ctypes.c_void_p(tri.data_ptr()),
             ctypes.c_void_p(rows.data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
-            n, *kernel_args(cfg, n_tris, rows.shape[0]),
+            ctypes.c_void_p(counter.data_ptr()),
+            n, *kernel_args(cfg, n_tris, rows.shape[0]), grid,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"quality kernel launch failed: CUDA error {err} "

@@ -21,6 +21,19 @@ light whose NEE term counted (columns 0-11 and 15-18);
 cdf get zero (they are detached). The ray adjoint is ``(n, 6)``: origin,
 direction.
 
+K4's lanes alternate two warp-wide epochs
+(``csrc/megakernel_quality_grad.cu``): ``EPOCH`` forward steps of
+K3's walk (``csrc/quality_lanes.cuh``, regenerating across samples and
+pixels), each bounce's record appended to the lane's ring of ``ring_size``
+records, then one reverse epoch over every lane's finished samples, in
+sample order and last bounce first (``reverse_order``). Its warps take
+their pixels from a fixed assignment of runs on a persistent grid of K4's
+resident CTAs (``k4_grid``), so the table adjoint sums in an order fixed
+by the sizes and the data: each warp adds its float32 shared-memory slice
+into its own float64 row after every reverse epoch, and the rows are
+summed in float64 and rounded once. ``epoch_schedule`` and
+``lockstep_cost`` count the schedules.
+
 ``quality_bwd_call`` launches K4 for CUDA tensors and counts each launch
 in ``quality_bwd_call.launches``; for CPU tensors it computes the same
 function with ``quality_bwd_plain``, the plain PyTorch version.
@@ -29,6 +42,7 @@ function with ``quality_bwd_plain``, the plain PyTorch version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -37,6 +51,7 @@ from spath_tpu_torch.camera import Camera
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.ops.fp import sqrt_rn
 from spath_tpu_torch.ops.intersect import plain_sweep
+from spath_tpu_torch.ops.kernels import bigscene as bs
 from spath_tpu_torch.ops.kernels import megakernel_quality as mq
 from spath_tpu_torch.ops.kernels.build import library
 from spath_tpu_torch.ops.nee import INV_PI
@@ -53,6 +68,145 @@ GRAD_MAX_TRIS = 1024
 MAX_BOUNCES = 64
 #: Adjoint columns per triangle.
 ADJ = 19
+#: Forward steps of K4's epoch (the kernel's ``kEpoch``: ``MAX_BOUNCES``,
+#: so any path fits), and its pixels a run (chunks of 32), counted
+#: (``epoch_schedule``) and timed on an H100 (PERF.md).
+EPOCH, RUN_CHUNKS = MAX_BOUNCES, 1
+#: Floats of a ring slot of a K4 lane: a record (16) and a tag (4).
+RING_FLOATS = 20
+#: A reverse bounce's cost in forward steps in the counts: K4's time
+#: beyond K3's over K3's, 37.517 and 17.438 ms before the epochs (PERF.md).
+REVERSE_COST = 1.15
+
+
+def _epoch(epoch: int, max_bounces: int) -> int:
+    if epoch < max_bounces:
+        raise ValueError(f"an epoch of {epoch} steps is shorter than "
+                         f"{max_bounces} bounces")
+    return epoch
+
+
+def ring_size(max_bounces: int, epoch: int = EPOCH) -> int:
+    """Records a K4 lane's ring holds: an epoch's, and those of a sample
+    still in flight (at most ``max_bounces - 1``); the kernel starts a
+    sample only where the ring has room for all its bounces."""
+    return _epoch(epoch, max_bounces) + max_bounces - 1
+
+
+def reverse_order(pixels, epoch: int, max_bounces: int) -> list:
+    """The reverse epochs of one lane (NEE: one record a sweep), as a list
+    of ``(forward_steps, [(pixel, sample, bounce), ...])``: the lane takes
+    the ``(pixel, [bounces of each sample])`` of ``pixels`` in order,
+    sweeps each camera ray in a step of its own and each bounce's rays in
+    one step, recording the bounce, and after every ``epoch`` forward
+    steps (at least ``max_bounces``; the kernel's is ``EPOCH``) or its
+    last reverses the samples finished so far, in sample order, last
+    bounce first."""
+    e = _epoch(epoch, max_bounces)
+    steps = []  # per forward step: the samples finishing there
+    for pix, lengths in pixels:
+        steps.append([])
+        for s, n in enumerate(lengths):
+            if n:
+                steps.extend([[]] * (n - 1))
+                steps.append([(pix, s, n)])
+    out = []
+    for k in range(0, len(steps), e):
+        done = [(pix, s, b) for step in steps[k:k + e]
+                for pix, s, n in step for b in reversed(range(n))]
+        out.append((min(e, len(steps) - k), done))
+    return out
+
+
+def epoch_schedule(totals, epoch: int, max_bounces: int, run: int,
+                   warps: int, lanes: int = 32,
+                   reverse_cost: float = REVERSE_COST) -> dict:
+    """K4's epochs of ``epoch`` forward steps (at least ``max_bounces``;
+    the kernel's is ``EPOCH``) counted on the pixels of ``totals``
+    (``bigscene.lane_schedules``' layout, NEE: a sample's sweeps are its
+    records): ``warps`` warps of ``lanes`` lanes take their pixels from
+    runs of ``run`` (``bigscene.run_sequences``, ``list_schedule``); a
+    warp's forward steps are its lanes' last step, and each epoch's
+    reverse steps the most records any lane finished in it. Returns the
+    forward and reverse warp steps, their cost in forward steps and the
+    useful cost over ``lanes``."""
+    totals = np.asarray(totals, dtype=np.int64)
+    e = _epoch(epoch, max_bounces)
+    per_pixel = totals.sum(axis=1)
+    fwd = rev = 0
+    for seq in bs.run_sequences(totals.shape[0], run, warps):
+        if not seq.size:
+            continue
+        lane, start = bs.list_schedule(per_pixel[seq], lanes)
+        fwd += int((start + per_pixel[seq]).max())
+        lengths = totals[seq, 1:]
+        ends = start[:, None] + np.cumsum(lengths, axis=1)
+        has = lengths > 0
+        when = ends[has] // e
+        per = np.zeros((lanes, int(when.max()) + 1 if when.size else 1),
+                       dtype=np.int64)
+        np.add.at(per, (np.broadcast_to(lane[:, None], lengths.shape)[has],
+                        when), lengths[has])
+        rev += int(per.max(axis=0).sum())
+    useful = (per_pixel.sum() + reverse_cost * totals[:, 1:].sum()) / lanes
+    return dict(forward_steps=fwd, reverse_steps=rev,
+                cost=fwd + reverse_cost * rev, useful_cost=float(useful))
+
+
+def lockstep_cost(totals, lanes: int = 32,
+                  reverse_cost: float = REVERSE_COST) -> dict:
+    """The loop K4's epochs replaced, counted as ``epoch_schedule``: a lane
+    a pixel, ``lanes`` consecutive pixels a warp, which sweeps the camera
+    rays once, then for each sample replays as many forward steps and
+    reverses as many steps as its longest path has."""
+    totals = np.asarray(totals, dtype=np.int64)
+    pad = (-totals.shape[0]) % lanes
+    warp = np.pad(totals, ((0, pad), (0, 0))).reshape(-1, lanes,
+                                                      totals.shape[1])
+    longest = warp.max(axis=1)
+    fwd = int(longest.sum())
+    rev = int(longest[:, 1:].sum())
+    return dict(forward_steps=fwd, reverse_steps=rev,
+                cost=fwd + reverse_cost * rev)
+
+
+@functools.cache
+def k4_resident(device_index: int, n_tris: int) -> tuple[int, int, int]:
+    """``(per_sm, sms, threads)``: K4's resident CTAs on one SM at ``T``
+    triangles (its shared memory grows with T), the card's SMs and the
+    block's threads."""
+    lib = library()
+    with torch.cuda.device(device_index):
+        per_sm = lib.spath_quality_backward_occupancy(n_tris)
+        threads = lib.spath_quality_backward_threads(n_tris)
+    if per_sm <= 0:
+        err = lib.spath_error_string(-per_sm).decode()
+        raise RuntimeError(f"K4 occupancy query failed: CUDA error "
+                           f"{-per_sm} ({err})")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return per_sm, sms, threads
+
+
+def lane_grid(n: int, run: int, warps: int, cap: int | None = None) -> int:
+    """CTAs of ``warps`` warps for ``n`` pixels in runs of ``run`` pixels
+    a warp (``bigscene.run_sequences``): one run a warp, at most ``cap``
+    CTAs (a persistent grid, whose warps then own several runs each)."""
+    if n < 1 or run < 1 or warps < 1:
+        raise ValueError(f"no grid for n={n}, run={run}, warps={warps}")
+    grid = -(-(-(-n // run)) // warps)
+    return grid if cap is None else max(1, min(grid, cap))
+
+
+def k4_grid(n: int, n_tris: int, device: torch.device) -> tuple:
+    """``(grid, run, threads)`` of a K4 launch: runs of ``RUN_CHUNKS``
+    chunks of 32 pixels on a persistent grid of K4's resident CTAs
+    (``lane_grid``)."""
+    index = device.index
+    per_sm, sms, threads = k4_resident(
+        torch.cuda.current_device() if index is None else index, n_tris)
+    run = RUN_CHUNKS * mq.WARP
+    return lane_grid(n, run, threads // mq.WARP, per_sm * sms), run, \
+        threads
 
 
 def supported_grad(scene: Scene, cfg: RenderConfig) -> bool:
@@ -241,9 +395,12 @@ def quality_bwd_call(origins, directions, keys, tri, light_idx, gbar,
         return torch.zeros((n_tris, ADJ), device=origins.device), grays
     rows = mq._rows(light_idx, n_tris, origins.device)
     lib = library()
-    grid = lib.spath_quality_backward_grid(n, n_tris)
-    partial = torch.empty((grid, n_tris * ADJ), dtype=torch.float32,
-                          device=origins.device)
+    grid, run, threads = k4_grid(n, n_tris, origins.device)
+    partial = torch.empty((grid * (threads // mq.WARP), n_tris * ADJ),
+                          dtype=torch.float64, device=origins.device)
+    rings = torch.empty(grid * threads * ring_size(cfg.max_bounces)
+                        * RING_FLOATS, dtype=torch.float32,
+                        device=origins.device)
     with torch.cuda.device(origins.device):
         stream = torch.cuda.current_stream(origins.device).cuda_stream
         err = lib.spath_quality_backward(
@@ -255,13 +412,14 @@ def quality_bwd_call(origins, directions, keys, tri, light_idx, gbar,
             ctypes.c_void_p(gbar.data_ptr()),
             ctypes.c_void_p(partial.data_ptr()),
             ctypes.c_void_p(grays.data_ptr()),
-            n, *mq.kernel_args(cfg, n_tris, rows.shape[0]),
+            ctypes.c_void_p(rings.data_ptr()),
+            n, *mq.kernel_args(cfg, n_tris, rows.shape[0]), run, grid,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"quality backward launch failed: CUDA error "
                            f"{err} ({lib.spath_error_string(err).decode()})")
     quality_bwd_call.launches += 1
-    return partial.sum(0).view(n_tris, ADJ), grays
+    return partial.sum(0).float().view(n_tris, ADJ), grays
 
 
 quality_bwd_call.launches = 0

@@ -35,6 +35,7 @@ import torch
 
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.ops.fp import sqrt_rn
+from spath_tpu_torch.ops.gather import gather_rows
 from spath_tpu_torch.ops.intersect import nearest_hit_edges
 from spath_tpu_torch.ops.nee import INV_PI, Lights, bsdf_pdf
 from spath_tpu_torch.ops.sampling import cross3, dot3
@@ -130,8 +131,8 @@ def nee_boundary_term(verts, lights: Lights, p, n_s, hit_albedo, hit_idx,
 
     # the light choice: the same draw and search as direct_light
     li = torch.searchsorted(lights.cdf, u_sel, right=True).clamp(0, t - 1)
-    lv0, lv1, lv2, lemi, lprob = (x.index_select(0, li) for x in (
-        v0, v1, v2, lights.emission, lights.prob))
+    lv0, lv1, lv2, lemi, lprob = gather_rows(
+        li, v0, v1, v2, lights.emission, lights.prob)
     le1, le2 = lv1 - lv0, lv2 - lv0
     ln = cross3(le1, le2)               # unnormalised, differentiable
 
@@ -140,7 +141,7 @@ def nee_boundary_term(verts, lights: Lights, p, n_s, hit_albedo, hit_idx,
     e_id = (u_edge.detach() * float(n_e)).to(torch.int64).clamp(0, n_e - 1)
     tri_e = e_id // 3
     k3 = (e_id % 3)[:, None]
-    ev0, ev1, ev2 = (x.index_select(0, tri_e) for x in (v0, v1, v2))
+    ev0, ev1, ev2 = gather_rows(tri_e, v0, v1, v2)
     ea = _pick(k3, ev0, ev1, ev2)
     eb = _pick(k3, ev1, ev2, ev0)
     ec = _pick(k3, ev2, ev0, ev1)

@@ -185,7 +185,8 @@ def test_build_flags_and_rebuild_hash(tmp_path, monkeypatch):
         "bigscene_quality_grad.cu", "intersect.cu", "light_cdf.cu",
         "megakernel.cu", "megakernel_common.cuh", "megakernel_grad.cu",
         "megakernel_quality.cu", "megakernel_quality_grad.cu",
-        "quality_queue.cuh", "quality_reverse.cuh", "quality_walk.cuh",
+        "quality_lanes.cuh", "quality_queue.cuh", "quality_reverse.cuh",
+        "quality_walk.cuh",
         "stream_scatter.cu", "stream_sweep.cuh", "sweep_mm.cu"]
     assert build.LIBRARY.parent.parts[-2:] == ("build", "kernels")
     monkeypatch.setattr(build, "SOURCE_DIR", tmp_path)

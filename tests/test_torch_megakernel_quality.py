@@ -476,3 +476,141 @@ def test_quality_routing_keeps_cpu_tensors_on_the_wavefront(monkeypatch):
     monkeypatch.setattr(mqg, "quality_bwd_call", forbidden)
     assert render_pt_fast(scene, cam, cfg).shape == (4, 8, 3)
     assert render_radiance_fastgrad(scene, cam, cfg).shape == (4, 8, 3)
+
+
+# ---- K3's and K4's lane schedules, counted by hand ----
+
+
+def _schedule_totals():
+    """64 pixels (two warps) of 2 samples: every sample 1 sweep after its
+    camera sweep, but pixel 0's first (5), pixel 1's second (5) and pixel
+    33's second (4)."""
+    totals = np.ones((64, 3), dtype=np.int64)
+    totals[0, 1] = totals[1, 2] = 5
+    totals[33, 2] = 4
+    return totals
+
+
+def test_k3_schedules_counted_by_hand():
+    """Lockstep: warp 0 sweeps its camera rays, then 5 steps a sample
+    (1 + 5 + 5), warp 1 1 + 1 + 4: 17 steps. Regeneration, and runs of
+    one chunk: each warp its busiest lane, 7 and 6. Runs of two chunks
+    (one warp, 64 pixels) and a queue of one warp: lanes 0 and 1 busy to
+    step 7, lanes 2-31 take pixels 32-61 at step 3 (lane 3 pixel 33, to
+    step 9), lanes 2 and 4 pixels 62 and 63 at step 6: 9 steps."""
+    totals = _schedule_totals()
+    useful = 61 * 3 + 7 + 7 + 6
+    got = mq.warp_schedules(totals, runs=(1, 2), queue_warps=1)
+    want = {"lockstep": 17, "regeneration": 13, "runs_1": 13, "runs_2": 9,
+            "queue": 9}
+    assert got["useful_lane_steps"] == useful
+    for name, steps in want.items():
+        assert got[name]["warp_steps"] == steps, name
+        assert got[name]["idle_lane_share"] == pytest.approx(
+            1.0 - useful / (steps * 32))
+
+
+def test_list_schedule_gives_ties_to_the_lowest_lane():
+    lane, start = mq.bs.list_schedule([4, 3, 1, 4], 2)
+    assert lane.tolist() == [0, 1, 1, 0]
+    assert start.tolist() == [0, 0, 3, 4]
+
+
+@pytest.mark.parametrize("n, run, warps", [(1000, 64, 3), (100, 256, 8),
+                                           (7, 1, 2), (2_073_600, 256,
+                                                       2_640)])
+def test_run_sequences_cover_every_pixel_once_as_the_kernel_maps_them(
+        n, run, warps):
+    """Every pixel in exactly one warp's sequence, ascending; the sequence
+    is ``PixelSource::at`` (csrc/quality_lanes.cuh) of positions 0, 1, ...
+    until it passes n."""
+    seqs = mq.bs.run_sequences(n, run, warps)
+    assert len(seqs) == warps
+    every = np.concatenate(seqs)
+    assert np.array_equal(np.sort(every), np.arange(n))
+    for w in (0, warps // 2, warps - 1):
+        seq = seqs[w]
+        assert np.all(np.diff(seq) > 0)
+        q = np.arange(seq.size + 1)
+        r = q // run
+        at = (w + r * warps) * run + (q - r * run)
+        assert np.array_equal(at[:-1], seq) and at[-1] >= n
+
+
+def test_lane_grid_one_run_a_warp_or_persistent():
+    assert mqg.lane_grid(1920 * 1080, 256, 4) == 2025
+    assert mqg.lane_grid(1920 * 1080, 256, 4, cap=660) == 660
+    assert mqg.lane_grid(1, 256, 4, cap=660) == 1
+    assert mqg.lane_grid(300, 32, 2) == 5
+    with pytest.raises(ValueError):
+        mqg.lane_grid(0, 256, 4)
+
+
+def test_k4_epochs_counted_by_hand():
+    """Two lanes, 4 pixels ((camera, sample 0, sample 1) sweeps: (1, 2, 1),
+    (1, 1, 1), (1, 0, 0), (1, 3, 0)), E = 3 and 3 bounces, so the ring
+    holds 5 (the kernel's E is MAX_BOUNCES: 68 records at 5 bounces). Lane 0 runs pixel 0 (steps 0-3) and pixel 3 (4-7),
+    lane 1 pixel 1 (0-2) and pixel 2 (3): 8 forward steps. Epochs [0, 2],
+    [3, 5], [6, 7]: lane 0 finishes 2, 1 and 3 records in them, lane 1 2,
+    0 and 0, so 2 + 1 + 3 reverse steps."""
+    totals = np.array([[1, 2, 1], [1, 1, 1], [1, 0, 0], [1, 3, 0]])
+    assert mqg.ring_size(3, epoch=3) == 5 and mqg.ring_size(5) == 68
+    assert mqg.EPOCH == mqg.MAX_BOUNCES
+    with pytest.raises(ValueError, match="shorter than"):
+        mqg.ring_size(3, epoch=2)
+    got = mqg.epoch_schedule(totals, 3, 3, run=4, warps=1, lanes=2,
+                             reverse_cost=1.15)
+    assert got["forward_steps"] == 8 and got["reverse_steps"] == 6
+    assert got["cost"] == pytest.approx(8 + 1.15 * 6)
+    assert got["useful_cost"] == pytest.approx((12 + 1.15 * 8) / 2)
+    # lockstep: (1 + 2 + 1) and (1 + 3 + 0) forward, 3 and 3 reverse
+    lock = mqg.lockstep_cost(totals, lanes=2, reverse_cost=1.15)
+    assert (lock["forward_steps"], lock["reverse_steps"]) == (8, 6)
+
+
+def test_k4_lane_reverses_finished_samples_in_order_last_bounce_first():
+    """Lane 0 of the test above: the reverse epochs and what each runs."""
+    got = mqg.reverse_order([(0, [2, 1]), (3, [3, 0])], 3, 3)
+    assert got == [(3, [(0, 0, 1), (0, 0, 0)]), (3, [(0, 1, 0)]),
+                   (2, [(3, 0, 2), (3, 0, 1), (3, 0, 0)])]
+    # a sample in flight at an epoch's end waits for the epoch it ends in
+    got = mqg.reverse_order([(5, [4])], 4, 4)
+    assert got == [(4, []), (1, [(5, 0, 3), (5, 0, 2), (5, 0, 1),
+                                 (5, 0, 0)])]
+
+
+def test_k4_grid_is_persistent_on_its_own_occupancy(monkeypatch):
+    """K4's grid: its resident CTAs at T triangles times the SMs (its
+    shared memory grows with T), runs of RUN_CHUNKS chunks, 128 threads
+    (64 above T = 704)."""
+    import contextlib
+    import types
+
+    calls = []
+
+    class Lib:
+        def spath_quality_backward_occupancy(self, n_tris):
+            calls.append(n_tris)
+            return 5 if n_tris <= 704 else 1
+
+        def spath_quality_backward_threads(self, n_tris):
+            return 128 if n_tris <= 704 else 64
+
+    monkeypatch.setattr(mqg, "library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda index: types.SimpleNamespace(
+                            multi_processor_count=132))
+    mqg.k4_resident.cache_clear()
+    try:
+        cuda = torch.device("cuda", 0)
+        run = mqg.RUN_CHUNKS * 32
+        assert mqg.k4_grid(1920 * 1080, 7, cuda) == (660, run, 128)
+        assert mqg.k4_grid(1920 * 1080, 1024, cuda) == (132, run, 64)
+        assert mqg.k4_grid(64 * 48, 7, cuda) == (
+            -(-(-(-64 * 48 // run)) // 4), run, 128)
+        mqg.k4_grid(320 * 240, 7, cuda)
+        assert calls == [7, 1024]  # asked once a size
+    finally:
+        mqg.k4_resident.cache_clear()

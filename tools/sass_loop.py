@@ -18,7 +18,11 @@ whose name is ``--function``: each loop of it (a backward branch) with
   runs in full and each reciprocal takes its fast path (the slow path's
   call, its return address and the branch past it do not run);
 - ``culled_per_pair``: with a cull, a pair where the warp skips every
-  culled test (each ``@!P BRA`` right after a ``VOTE.ANY`` taken).
+  culled test (each ``@!P BRA`` right after a ``VOTE.ANY`` taken);
+- ``inner_loops``: the loops inside it. The fused quality kernels' step
+  loop (``--function quality_forward``, K3; ``quality_backward``, K4) is
+  the one around their sweeps' loops: its ``instructions`` are a bounce
+  step's whole body as compiled.
 
 Only the card's toolchain has ``cuobjdump``; the counts are of the
 ``sm_90a`` build that the kernels run.
@@ -92,6 +96,16 @@ def loops(code: list[tuple[int, str]]) -> list[dict]:
     return out
 
 
+def nested(found: list[dict]) -> list[dict]:
+    """``loops``' entries, each with ``inner_loops``: how many of the
+    others lie inside it."""
+    span = [(int(e["start"], 16), int(e["end"], 16)) for e in found]
+    return [dict(e, inner_loops=sum(lo <= a and b <= hi
+                                    for j, (a, b) in enumerate(span)
+                                    if j != k))
+            for k, (e, (lo, hi)) in enumerate(zip(found, span))]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -113,7 +127,7 @@ def main() -> int:
     found = {n: c for n, c in functions(listing).items() if token in n}
     if not found:
         raise SystemExit(f"sass_loop: no function {args.function!r}")
-    print(json.dumps({n: loops(c) for n, c in found.items()}))
+    print(json.dumps({n: nested(loops(c)) for n, c in found.items()}))
     return 0
 
 
