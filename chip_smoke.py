@@ -18,15 +18,15 @@ non-zero before a result is printed. Every plain wavefront the kernels
 are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
 
 1. Device: the card's name and power limit, and the kernel build.
-2. Kernel against its plain PyTorch version on the same rays: the
-   default scene and a 25-triangle scene at 320x240, 8 spp.
+2. Kernel against its plain PyTorch version on the same rays, to the
+   bit: the default scene and a 25-triangle scene at 320x240, 8 spp.
 3. The slice at full width: ``render_pt_fast`` on the default scene at
    1920x1080, 64 spp, 5 bounces, through the CUDA kernel, against the
-   plain wavefront ``render_pt`` at the same config, pixel by pixel.
+   plain wavefront ``render_pt`` at the same config, to the bit.
 4. The CLI: a path-traced and a flat 640x480 frame written as PNG.
-5. At 1080p64: kernel against its plain version on the same rays, with
-   the bounds of phase 2; then both timed, CUDA events around launches
-   after warm-up, in turns (plain, kernel, kernel, plain).
+5. At 1080p64: kernel against its plain version on the same rays, to
+   the bit; then both timed, CUDA events around launches after warm-up,
+   in turns (plain, kernel, kernel, plain).
 6. The backward kernel K2 against its plain version ``mega_bwd_plain`` on
    the same rays and cotangent: the default and 25-triangle scenes at
    320x240, 8 spp, a scene of K2's largest size (1024 triangles, its
@@ -44,7 +44,12 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
 9. The CLI: ``invert`` at 640x480, 16 spp, 5 steps lowers the albedo
    error.
 10. At 1080p64: K2 and its plain version timed in turns, and the walk's
-    sweeps and hits counted by the plain replay for the kernels' bounds.
+    sweeps and hits counted by the plain replay for the kernels' bounds;
+    on COUNT_ROWS, K1's warp steps and K2's forward and reverse warp
+    steps under the lockstep loops they replaced and under the candidate
+    schedules (``conformance_lane_counts``), with the idle lane shares,
+    grids and resident CTAs, and how often a whole warp of K1's lane loop
+    would reject a triangle before the division (``warp_cull_counts``).
 11. The light distribution kernel (the quality table's prob and cdf)
     against its plain version, bit for bit, on the default, 25-triangle,
     1024-triangle, all-dark and wall-and-light scenes. K3 against its
@@ -1134,6 +1139,101 @@ def lane_counts(torch, o, d, keys, tri, rows, cfg) -> dict:
                       resident_per_sm=k4_per_sm, sms=sms)))
 
 
+def conformance_lane_counts(torch, o, d, seeds, tri, cfg) -> dict:
+    """Phase 10: K1's warp steps and K2's forward and reverse warp steps on
+    COUNT_ROWS of the frame, counted from each pixel's sweeps and hits
+    (``megakernel_grad.walk_totals``): the lockstep loops the kernels
+    replaced and the candidate schedules, with the idle lane shares; K1's
+    shipped queue on its grid's warps scaled to the rows, K2's epochs of
+    ``EPOCH`` steps on its strided runs (one a warp) scaled to the rows,
+    beside the reverse in the lane as each
+    sample ends (K8's way) and K4's cost units (a reverse step
+    ``REVERSE_COST`` forward ones; ``lockstep_cost``, sweeps as records);
+    each kernel's grid and resident CTAs."""
+    from spath_tpu_torch.ops.kernels import bigscene as bs
+    from spath_tpu_torch.ops.kernels import megakernel_grad as mg
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+    from spath_tpu_torch.ops.kernels import megakernel_quality_grad as mqg
+
+    n = o.shape[0]
+    sweeps, hits = mg.walk_totals(*rows_of(torch, cfg.width, COUNT_ROWS,
+                                           o, d, seeds), tri, cfg)
+    m = sweeps.shape[0]
+    k1_grid = bs.queue_grid(n, o.device, "K1")
+    k1_per_sm, sms = bs.resident_ctas(o.device.index or 0, "K1")
+    k1_warps = max(1, round(k1_grid * 4 * m / n))
+    sched = mq.warp_schedules(sweeps, runs=(8, 16), queue_warps=k1_warps)
+    k2_grid, k2_runs = mg.k2_grid(n, tri.shape[0], o.device)
+    runs = max(1, round(k2_runs * m / n))
+    rev = mg.reverse_counts(sweeps, hits, 1, runs,
+                            epochs=sorted({mg.EPOCH, 8, 16, 64}))
+    lock = rev["lockstep"]
+    ideal = rev["records"] / mg.WARP
+
+    def idle(steps):
+        return 1.0 - ideal / steps
+
+    k2_per_sm = mg.k2_resident(o.device.index or 0, tri.shape[0])[0]
+    return dict(
+        pixels=m, k1=dict(
+            sched, shipped=dict(sched["queue"], warps=k1_warps),
+            grid=dict(ctas=k1_grid, resident_per_sm=k1_per_sm, sms=sms)),
+        k2=dict(
+            lockstep=dict(lock, reverse_idle_lane_share=idle(
+                lock["reverse_steps"])),
+            in_lane=dict(reverse_steps=rev["in_lane"],
+                         reverse_idle_lane_share=idle(rev["in_lane"])),
+            epochs={e: dict(reverse_steps=r, reverse_idle_lane_share=idle(r))
+                    for e, r in rev["epochs"].items()},
+            shipped=dict(forward_steps=rev["forward_steps"],
+                         reverse_steps=rev["epochs"][mg.EPOCH],
+                         epoch=mg.EPOCH, runs=runs),
+            records=rev["records"],
+            k4_units=dict(
+                lockstep=mqg.lockstep_cost(sweeps)["cost"],
+                epochs=rev["forward_steps"] + mqg.REVERSE_COST
+                * rev["epochs"][mg.EPOCH]),
+            grid=dict(ctas=k2_grid, runs=k2_runs, resident_per_sm=k2_per_sm,
+                      sms=sms)))
+
+
+def warp_cull_counts(torch, o, d, seeds, tri, cfg) -> dict:
+    """Phase 10: how often a whole warp of K1's lane loop would reject a
+    triangle before the division (K5's cull, ``intersect.may_pass_plain``),
+    on these rays: every sweep's ray of the walk (each camera ray once,
+    then each bounce's ray that the path enters alive) against every
+    triangle, the rays dealt into warps of 32 at random (a lane loop's
+    warp sweeps 32 pixels at their own samples and bounces; generator
+    seed 0), beside warps of 32 consecutive camera rays (the lockstep
+    loop's first sweep)."""
+    from spath_tpu_torch.ops.kernels import megakernel_grad as mg
+    from spath_tpu_torch.ops.kernels.intersect import may_pass_plain
+
+    v0, e1, e2 = (tri[:, k:k + 3] for k in (0, 3, 6))
+    n = o.shape[0]
+    rays = [(o, d)]
+    with torch.no_grad(), plain_sweep():
+        for saved in mg.replay(o, d, seeds, tri, cfg):
+            # bounce b + 1 sweeps from the lanes that hit at bounce b
+            for (alive, *_), later in zip(saved, saved[1:]):
+                rays.append((later[6][alive], later[7][alive]))
+        ro = torch.cat([r[0] for r in rays])
+        rd = torch.cat([r[1] for r in rays])
+        passes = torch.stack([may_pass_plain(
+            (e1[t] * torch.cross(rd, e2[t].expand_as(rd), dim=1)).sum(1),
+            ((ro - v0[t]) * torch.cross(rd, e2[t].expand_as(rd), dim=1))
+            .sum(1)) for t in range(tri.shape[0])], 1)
+    gen = torch.Generator().manual_seed(0)
+    deal = torch.randperm(passes.shape[0], generator=gen).to(o.device)
+    m = passes.shape[0] // 32 * 32
+    lanes = passes[deal[:m]].view(-1, 32, tri.shape[0])
+    cams = passes[:n // 32 * 32].view(-1, 32, tri.shape[0])
+    return dict(rays=passes.shape[0],
+                pair_pass_share=passes.float().mean().item(),
+                warp_reject_share=(~lanes.any(1)).float().mean().item(),
+                camera_warp_reject_share=(~cams.any(1)).float().mean().item())
+
+
 def combined_scene(device):
     """The default scene and procedural_scene(COMBINED_EXTRA, seed=0,
     emissive_fraction=0.05): real multi-bounce light on 1150 triangles."""
@@ -1175,25 +1275,13 @@ def walk_counts(torch, o, d, seeds, tri, cfg, cta: int = 128,
     from spath_tpu_torch.ops.kernels import bigscene as bs
     from spath_tpu_torch.ops.kernels import megakernel_grad as mg
 
-    n = o.shape[0]
-    pad = (-n) % cta
-    sweeps, hits, cta_sweeps = n, 0, (n + pad) // cta
-    per_sample = [torch.ones(n, dtype=torch.int64, device=o.device)]
-    with torch.no_grad():
-        for saved in mg.replay(o, d, seeds, tri, cfg):
-            masks = [hit for hit, *_ in saved]
-            per_bounce = torch.stack([m.sum() for m in masks])
-            hits += int(per_bounce.sum())
-            sweeps += int(per_bounce[:-1].sum())
-            per_sample.append(sum((m.long() for m in masks[:-1]),
-                                  torch.zeros_like(per_sample[0])))
-            for m in masks[:-1]:
-                live = torch.nn.functional.pad(m, (0, pad))
-                cta_sweeps += int(live.view(-1, cta).any(1).sum())
-    out = dict(rays=n, sweeps=sweeps, hits=hits, cta_sweeps=cta_sweeps,
+    totals, hits = mg.walk_totals(o, d, seeds, tri, cfg)
+    sweeps = int(totals.sum())
+    cta_sweeps = bs.lockstep_sweeps(totals, cta)
+    out = dict(rays=o.shape[0], sweeps=sweeps, hits=int(hits.sum()),
+               cta_sweeps=cta_sweeps,
                idle_lane_share=1.0 - sweeps / (cta_sweeps * cta))
     if queue_ctas is not None:
-        totals = torch.stack(per_sample, 1).cpu().numpy()
         out["schedules"] = bs.lane_schedules(totals, cta, queue_ctas)
         if chunk is not None:
             out["chunk_schedules"] = [
@@ -2281,6 +2369,8 @@ def run() -> None:
         torch.cuda.synchronize()
         want = mk.megakernel_plain(o, d, seeds, tri, small)
         c = check_against_plain(torch, got, want, name)
+        check(c["bit_exact"], f"K1 on {name}: not bit-equal to "
+              "megakernel_plain")
         log(f"[2] kernel vs plain, {name}, 320x240 spp8: {c}")
 
     # 3. the serving path at full width, through the kernel
@@ -2309,7 +2399,9 @@ def run() -> None:
     log(f"[3] render_pt_fast {frame}: {launches} launch(es), "
         f"first call {slice_first_s:.3f} s, mean {m:.6f}; plain render_pt "
         f"{plain_first_s:.3f} s, mean {pm:.6f}; pixels off >1e-4: "
-        f"{flipped:.6f}")
+        f"{flipped:.6f}; bit-exact {torch.equal(img, plain)}")
+    check(torch.equal(img, plain), f"the {frame} frame through K1 is not "
+          "bit-equal to the plain wavefront's")
     check(flipped < FLIP_MAX, f"{flipped:.6f} of the frame's pixels differ "
           "from the plain wavefront")
     check(abs(m - pm) <= SLICE_MEAN_RTOL * abs(pm), "slice mean differs "
@@ -2343,6 +2435,8 @@ def run() -> None:
     torch.cuda.synchronize()
     want = mk.megakernel_plain(o, d, seeds, tri, cfg)
     headline = check_against_plain(torch, got, want, frame)
+    check(headline["bit_exact"], f"K1's {frame} frame is not bit-equal to "
+          "megakernel_plain's")
     log(f"[5] kernel vs plain, default scene, {frame}: {headline}")
     del got, want
 
@@ -2421,6 +2515,13 @@ def run() -> None:
     k2_ops = sweeps * n_tris * MT_OPS + hits * K2_HIT_OPS
     k1_bound = bound(k1_ops, ray_bytes + n * 12)
     k2_bound = bound(k2_ops, ray_bytes + n * 12 + n_tris * 18 * 4)
+    conf_lanes = conformance_lane_counts(torch, o, d, seeds, tri, cfg)
+    log(f"[10] K1's and K2's lanes on rows {list(COUNT_ROWS)}, {frame}: "
+        f"{conf_lanes}")
+    log(f"[10] a warp-wide cull in K1's lane loop on rows "
+        f"{list(COUNT_ROWS)}: " + str(warp_cull_counts(
+            torch, *rows_of(torch, cfg.width, COUNT_ROWS, o, d, seeds), tri,
+            cfg)))
     log(f"[10] {frame} on {smi}: K2 {bkernel_ms} ms, plain {bplain_ms} ms; "
         f"K2 {segs / (k2_ms / 1e3):.4e} rays/s; the walk: {sweeps} sweeps, "
         f"{hits} hits; bound K1 {k1_bound[0]:.4f} ms, K2 "
@@ -3468,6 +3569,10 @@ def run() -> None:
         "launches_by_path": {"serving": launches, "training": tr["k1"]},
         "max_abs_err": headline["max_abs_err"],
         "ms": k_ms,
+        "idle_lane_share": {
+            "lockstep": conf_lanes["k1"]["lockstep"]["idle_lane_share"],
+            "shipped": conf_lanes["k1"]["shipped"]["idle_lane_share"]},
+        "grid": conf_lanes["k1"]["grid"],
         "plain_ms": p_ms,
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
@@ -3481,6 +3586,12 @@ def run() -> None:
         "launches_by_path": {"serving": 0, "training": tr["k2"]},
         "max_abs_err": bwd_headline["max_abs_err"],
         "ms": k2_ms,
+        "reverse_idle_lane_share": {
+            "lockstep": conf_lanes["k2"]["lockstep"][
+                "reverse_idle_lane_share"],
+            "epochs": conf_lanes["k2"]["epochs"][mg.EPOCH][
+                "reverse_idle_lane_share"]},
+        "grid": conf_lanes["k2"]["grid"],
         "plain_ms": p2_ms,
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],

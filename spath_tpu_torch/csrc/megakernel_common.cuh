@@ -2,19 +2,19 @@
 // (megakernel.cu) and K6 (bigscene.cu) and their backward kernels K2
 // (megakernel_grad.cu) and K8 (bigscene_grad.cu), so that every replay
 // compiles from one source and takes the same hits, draws and directions
-// bit for bit. Each bounce is one walk_step; sample_walk (K1, K2) runs a
-// sample's bounces in order through TableSweep, each thread reading the
-// table through the cache on its own; K6 and K8 run theirs in their own
-// queue of paths through StreamSweep (stream_sweep.cuh), which stages rows
-// in shared memory for the CTA. The nearest-hit
-// sweeps take the table's row stride as a template argument: 18 columns
-// for the conformance table, 21 for the quality table of K3 and K4
-// (quality_walk.cuh).
+// bit for bit. Each bounce is one walk_step; K1 and K2 run theirs in
+// their lane loop (megakernel_lanes.cuh), each thread sweeping the table
+// through the cache on its own (nearest); K6 and K8 in their own queue of
+// paths through StreamSweep (stream_sweep.cuh), which stages rows in
+// shared memory for the CTA. The nearest-hit sweeps take the table's row
+// stride as a template argument: 18 columns for the conformance table, 21
+// for the quality table of K3 and K4 (quality_walk.cuh).
 //
 // Numerics: every file that includes this header is built with
 // -fmad=false and without --use_fast_math (ops/kernels/build.py), so each
 // multiply and add rounds on its own as in the plain PyTorch versions,
-// division is IEEE, and cosf/sinf are the accurate library forms.
+// division is IEEE, and sincosf, cosf and sinf are the accurate library
+// forms.
 
 #pragma once
 
@@ -159,9 +159,16 @@ struct Surface {
   float w;
 };
 
+// Whether surface() draws its two angles with one sincosf an angle (the
+// bits of cosf's and sinf's, one range reduction an angle: K1 5.0 -> 4.8
+// ms and K6 -2.5% at their headlines) or with cosf and sinf, which K8's
+// replay runs 3% faster with (timed on an H100, PERF.md).
+constexpr bool kSinCos = true;
+
 // Shade a hit on triangle `idx` for a ray of direction d: flip the
 // normal, draw two LCG uniforms (the seed advances only here, on a hit)
 // and sample the next direction.
+template <bool kJoint = kSinCos>
 __device__ __forceinline__ Surface surface(const float* __restrict__ tri,
                                            int idx, float dx, float dy,
                                            float dz, uint32_t& seed) {
@@ -184,10 +191,19 @@ __device__ __forceinline__ Surface surface(const float* __restrict__ tri,
   // angle-uniform hemisphere sample about the flipped normal
   const float az = u1 * kTwoPi;
   const float el = u2 * kHalfPi;
-  const float fx = cosf(el);
-  s.sx = cosf(az) * fx;
-  s.sy = sinf(el);
-  s.sz = sinf(az) * fx;
+  float saz, caz, sel, cel;
+  if constexpr (kJoint) {
+    sincosf(az, &saz, &caz);
+    sincosf(el, &sel, &cel);
+  } else {
+    caz = cosf(az);
+    cel = cosf(el);
+    saz = sinf(az);
+    sel = sinf(el);
+  }
+  s.sx = caz * cel;
+  s.sy = sel;
+  s.sz = saz * cel;
   if (!(s.nx * s.sx + s.ny * s.sy + s.nz * s.sz >= 0.0f)) {
     s.sx = -s.sx;
     s.sy = -s.sy;
@@ -197,32 +213,19 @@ __device__ __forceinline__ Surface surface(const float* __restrict__ tri,
   return s;
 }
 
-// K1's and K2's sweep: each thread tests its ray against the whole table,
-// read through the cache, on its own.
-struct TableSweep {
-  const float* __restrict__ tri;
-  int n_tris;
-
-  __device__ __forceinline__ Hit operator()(bool, float ox, float oy,
-                                            float oz, float dx, float dy,
-                                            float dz, int src) const {
-    return nearest(tri, n_tris, ox, oy, oz, dx, dy, dz, src);
-  }
-};
-
 // Longest path the backward kernels' saved per-bounce state holds (K2,
-// K4, K8, K10). It sizes local memory only: a shorter path reads and
-// writes only its own bounces' slots.
+// K4, K8, K10): K8's local arrays, K2's and K4's epochs (and so their
+// rings). A shorter path reads and writes only its own bounces' slots.
 constexpr int kMaxBounces = 64;
 
-// A recorder that keeps nothing (the forward kernels).
+// A recorder that keeps nothing (K6).
 struct NoRecord {
   __device__ __forceinline__ void operator()(int, int, const Surface&, float,
                                              float, float) {}
 };
 
 // A recorder of what the reverse sweep needs of each bounce of one sample
-// (K2, K8): the hit index, the flip sign fs, the sampled direction om, the
+// (K8): the hit index, the flip sign fs, the sampled direction om, the
 // weight w and the throughput tr before the bounce; len is the number of
 // hits.
 struct Saved {
@@ -281,13 +284,14 @@ struct Path {
 // emission times the throughput, scale the throughput, and turn the ray
 // into the sampled direction from the hit point. rec(bounce, idx,
 // surface, tr, tg, tb) sees the throughput before the bounce. Every walk
-// of K1, K2, K6 and K8 runs its bounces through this step.
-template <class Rec>
+// of K1, K2, K6 and K8 runs its bounces through this step (kJoint: as
+// surface() takes it).
+template <bool kJoint = kSinCos, class Rec>
 __device__ __forceinline__ void walk_step(const float* __restrict__ tri,
                                           const Hit& h, int bounce,
                                           uint32_t& seed, Path& p,
                                           Rec& rec) {
-  const Surface sf = surface(tri, h.idx, p.dx, p.dy, p.dz, seed);
+  const Surface sf = surface<kJoint>(tri, h.idx, p.dx, p.dy, p.dz, seed);
   const float* r = tri + h.idx * kCols;
   const float ar = __ldg(r + 12), ag = __ldg(r + 13), ab = __ldg(r + 14);
   const float er = __ldg(r + 15), eg = __ldg(r + 16), eb = __ldg(r + 17);
@@ -307,34 +311,6 @@ __device__ __forceinline__ void walk_step(const float* __restrict__ tri,
   p.dy = sf.sy;
   p.dz = sf.sz;
   p.src = h.idx;
-}
-
-// One sample of the conformance walk through `sweep` (K1, K2): the
-// camera ray's hit `first` (swept once for all samples), up to
-// max_bounces segments, each hit through walk_step. `live` is false for a
-// thread without a ray. A path that misses stops: every later term of the
-// masked TPU walk is zero and its seed does not move, so this is exact.
-// (K6 and K8 run the same steps in their own loop, a lane per path:
-// bigscene.cu, bigscene_grad.cu.)
-template <class Sweep, class Rec>
-__device__ __forceinline__ void sample_walk(
-    const float* __restrict__ tri, const Sweep& sweep, bool live, float ox0,
-    float oy0, float oz0, float dx0, float dy0, float dz0, const Hit& first,
-    int max_bounces, uint32_t& seed, float& rad_r, float& rad_g,
-    float& rad_b, Rec& rec) {
-  Path p;
-  p.start(ox0, oy0, oz0, dx0, dy0, dz0);
-  for (int bounce = 0; bounce < max_bounces; ++bounce) {
-    Hit h = first;
-    if (bounce > 0) {
-      h = sweep(live, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.src);
-    }
-    if (!live || h.idx < 0) break;
-    walk_step(tri, h, bounce, seed, p, rec);
-  }
-  rad_r = p.rad_r;
-  rad_g = p.rad_g;
-  rad_b = p.rad_b;
 }
 
 }  // namespace spath

@@ -44,14 +44,16 @@ from spath_tpu_torch.scene import Scene
 #: triangles, the streamed ones the larger. Set from the K1/K6 and
 #: K1+K2/K6+K8+K7 timings at T in {64, 128, 256, 512, 1024}, 320x240, 8
 #: spp, on an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase
-#: 25, PERF.md section 6): with K6's queue of pixels, in two runs K1 was
-#: 8-14% faster than K6 at 64 to 256 triangles, K6 1-4% faster at 512 and
-#: 16-19% at 1024, so K1 takes scenes of up to 256 triangles (below its
-#: cap, ``megakernel.MAX_TRIS``); K1+K2 was faster than K6+K8+K7 up to 128
-#: triangles, level at 256 (within 2%), and took 23-25% and 63-64% longer
-#: at 512 and 1024. The JAX package's 128 and 64 were measured on a TPU
-#: v5e.
-SMEM_ROUTE_MAX_TRIS = 256
+#: 25, PERF.md section 6). With K1 and K2 on their lane loop
+#: (csrc/megakernel_lanes.cuh), in two runs K1 was 8-17% faster than K6 at
+#: 256 triangles, 1-10% at 512 and 9-12% at 1024, 2-3% slower at 64, and
+#: at 128 1% slower in one run and 7% faster in the other, so K1 takes
+#: every scene up to its cap (``megakernel.MAX_TRIS``); K1+K2 was 7-25%
+#: faster than K6+K8+K7 at 64 triangles, at 128 8% slower in one run and
+#: 0.3% faster in the other, and took 4-8%, 14-19% and 20-24% longer at
+#: 256, 512 and 1024, so the gradient's route stays at 128. The JAX
+#: package's 128 and 64 were measured on a TPU v5e.
+SMEM_ROUTE_MAX_TRIS = megakernel.MAX_TRIS
 GRAD_ROUTE_MAX_TRIS = 128
 #: The same crossovers for the quality estimator, between the fused K3
 #: (K3+K4 for a gradient) and the streamed K9 (K9+K10+K7), from the

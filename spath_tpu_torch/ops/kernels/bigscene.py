@@ -58,6 +58,7 @@ CTA_LANES = 128
 #: The kernels that run a queue of pixels on a persistent grid, and each
 #: one's occupancy query in the library: its entry point and arguments.
 QUEUE_KERNELS = {
+    "K1": ("spath_megakernel_forward_occupancy", ()),
     "K3": ("spath_quality_forward_occupancy", ()),
     "K6": ("spath_bigscene_forward_occupancy", ()),
     "K8": ("spath_bigscene_backward_occupancy", ()),
@@ -105,6 +106,17 @@ def queue_grid(n: int, device: torch.device, kernel: str) -> int:
         torch.cuda.current_device() if index is None else index, kernel))
 
 
+def lockstep_sweeps(totals, cta: int = CTA_LANES) -> int:
+    """The sweeps of ``cta``-lane CTAs (or warps) of consecutive pixels in
+    lockstep, on the pixels of ``totals`` (``lane_schedules``' layout): a
+    CTA sweeps the camera rays once, then, sample by sample, as often as
+    its longest path needs."""
+    totals = np.asarray(totals, dtype=np.int64)
+    pad = (-totals.shape[0]) % cta
+    return int(np.pad(totals, ((0, pad), (0, 0))).reshape(
+        -1, cta, totals.shape[1]).max(axis=1).sum())
+
+
 def lane_schedules(totals, cta: int = CTA_LANES, ctas: int = 1) -> dict:
     """The idle share of the lanes of a streamed kernel's CTA-wide sweeps
     under three schedules, counted from the sweeps each pixel needs.
@@ -117,8 +129,7 @@ def lane_schedules(totals, cta: int = CTA_LANES, ctas: int = 1) -> dict:
     sweep to make takes none.
 
     - ``lockstep`` (the first port): a lane a pixel, ``cta`` consecutive
-      pixels a CTA, which sweeps the camera rays once, then, sample by
-      sample, as often as its longest path needs;
+      pixels a CTA (``lockstep_sweeps``);
     - ``regeneration``: the same lanes, but a lane starts its pixel's next
       sample as soon as a path ends, so the CTA sweeps as often as its
       busiest lane needs in all;
@@ -135,7 +146,7 @@ def lane_schedules(totals, cta: int = CTA_LANES, ctas: int = 1) -> dict:
     pad = (-n) % cta
     grid = np.pad(totals, ((0, pad), (0, 0))).reshape(-1, cta,
                                                       totals.shape[1])
-    lockstep = int(grid.max(axis=1).sum())
+    lockstep = lockstep_sweeps(totals, cta)
     regeneration = int(grid.sum(axis=2).max(axis=1).sum())
     lanes = cta * ctas
     free = [(0, lane) for lane in range(lanes)]
@@ -156,7 +167,7 @@ def lane_schedules(totals, cta: int = CTA_LANES, ctas: int = 1) -> dict:
 
 def run_sequences(n: int, run: int, warps: int) -> list[np.ndarray]:
     """The pixels each of ``warps`` warps takes under a fixed assignment
-    of runs (``csrc/quality_lanes.cuh``: ``PixelSource``): the ``n``
+    of runs (``csrc/pixel_source.cuh``: ``PixelSource``): the ``n``
     pixels cut into runs of ``run`` consecutive pixels, warp ``w`` owning
     runs ``w``, ``w + warps``, ... in that order. Every pixel lies in
     exactly one warp's sequence."""

@@ -133,14 +133,22 @@ def library() -> ctypes.CDLL:
     """The built library with every entry point's argument types set."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.spath_megakernel_forward.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    # K1: rays, seeds, table, out, the queue's counter, n, n_tris, spp,
+    # max_bounces, grid
+    lib.spath_megakernel_forward.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.spath_megakernel_forward.restype = i32
-    lib.spath_megakernel_backward.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.spath_megakernel_forward_occupancy.argtypes = []
+    lib.spath_megakernel_forward_occupancy.restype = i32
+    # K2: rays, seeds, table, gbar, the runs' rows, rings, the queue's
+    # counter, n, n_tris, spp, max_bounces, pixels a run, grid
+    lib.spath_megakernel_backward.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
     lib.spath_megakernel_backward.restype = i32
-    lib.spath_megakernel_backward_grid.argtypes = [i32]
-    lib.spath_megakernel_backward_grid.restype = i32
+    # K2's resident CTAs an SM for T triangles; a lane's ring floats for
+    # max_bounces
+    for fn in (lib.spath_megakernel_backward_occupancy,
+               lib.spath_megakernel_backward_ring):
+        fn.argtypes = [i32]
+        fn.restype = i32
     # K3 and K4: rays, keys, table, rows, ..., n, n_tris, n_rows, spp,
     # max_bounces, rr_start, flags, inv_spp
     quality = [i32] * 7 + [ctypes.c_float]

@@ -2,11 +2,14 @@
 
 The port of ``spath_tpu/ops/pallas/megakernel.py::_megakernel``: the
 sample loop, the 5-bounce walk, Möller–Trumbore against every triangle,
-the LCG, the angle sampler and the shading all run in one kernel, one
-thread per ray, so a ray's state stays in registers from camera ray to
-mean radiance. Device memory sees 24 bytes of ray and 8 of seed in and
-12 bytes of radiance out per pixel; the triangle table is read through
-the cache. The kernel is in ``csrc/megakernel.cu``.
+the LCG, the angle sampler and the shading all run in one kernel, a lane
+a pixel, so a ray's state stays in registers from camera ray to mean
+radiance. Each lane walks its pixel's samples one bounce a step and takes
+the next pixel from a queue when they are done (``csrc/megakernel_lanes.cuh``),
+on a persistent grid of the kernel's own resident CTAs
+(``bigscene.queue_grid``). Device memory sees 24 bytes of ray and 8 of
+seed in and 12 bytes of radiance out per pixel; the triangle table is
+read through the cache. The kernel is in ``csrc/megakernel.cu``.
 
 Layouts, as the wrapper checks them (all contiguous):
 
@@ -120,11 +123,15 @@ def mega_call(origins, directions, seeds, tri, cfg: RenderConfig):
         return megakernel_plain(origins, directions, seeds, tri, cfg)
     if origins.device.type != "cuda":
         raise ValueError(f"no megakernel for device {origins.device}")
+    from spath_tpu_torch.ops.kernels.bigscene import queue_grid
+
     n = origins.shape[0]
     out = torch.empty((n, 3), dtype=torch.float32, device=origins.device)
     if n == 0:
         return out
     lib = library()
+    grid = queue_grid(n, origins.device, "K1")
+    counter = torch.zeros(1, dtype=torch.int32, device=origins.device)
     with torch.cuda.device(origins.device):
         stream = torch.cuda.current_stream(origins.device).cuda_stream
         err = lib.spath_megakernel_forward(
@@ -133,7 +140,8 @@ def mega_call(origins, directions, seeds, tri, cfg: RenderConfig):
             ctypes.c_void_p(seeds.data_ptr()),
             ctypes.c_void_p(tri.data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
-            n, tri.shape[0], cfg.spp, cfg.max_bounces,
+            ctypes.c_void_p(counter.data_ptr()),
+            n, tri.shape[0], cfg.spp, cfg.max_bounces, grid,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err} "

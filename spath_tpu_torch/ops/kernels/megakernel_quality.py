@@ -292,7 +292,7 @@ def k3_grid(n: int, device: torch.device) -> int:
     """CTAs of a K3 launch for ``n`` rays on the CUDA ``device``: a
     persistent grid of K3's own resident CTAs (``bigscene.queue_grid``),
     whose warps take their pixels from one queue
-    (``csrc/quality_lanes.cuh``: ``PixelSource``)."""
+    (``csrc/pixel_source.cuh``: ``PixelSource``)."""
     return bs.queue_grid(n, device, "K3")
 
 

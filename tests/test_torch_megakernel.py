@@ -184,7 +184,8 @@ def test_build_flags_and_rebuild_hash(tmp_path, monkeypatch):
         "bigscene.cu", "bigscene_grad.cu", "bigscene_quality.cu",
         "bigscene_quality_grad.cu", "intersect.cu", "light_cdf.cu",
         "megakernel.cu", "megakernel_common.cuh", "megakernel_grad.cu",
-        "megakernel_quality.cu", "megakernel_quality_grad.cu",
+        "megakernel_lanes.cuh", "megakernel_quality.cu",
+        "megakernel_quality_grad.cu", "pixel_source.cuh",
         "quality_lanes.cuh", "quality_queue.cuh", "quality_reverse.cuh",
         "quality_walk.cuh",
         "stream_scatter.cu", "stream_sweep.cuh", "sweep_mm.cu"]
@@ -239,3 +240,97 @@ def test_light_cdf_source_names_what_it_computes():
     assert "spath_tpu/ops/nee.py::light_cdf" in src
     assert 'extern "C" int spath_light_cdf(' in src
     assert "blocks of 16" in src and "-fmad=false" in src
+
+
+# ---- K1's lane loop: its grid, and the schedules counted by hand ----
+
+
+def test_k1_grid_is_persistent_on_its_own_occupancy(monkeypatch):
+    """K1's grid: its own resident CTAs (``QUEUE_KERNELS["K1"]``) times the
+    SMs, asked once a device, unless the rays fill fewer CTAs; and
+    ``mega_call`` sizes its launch by K1's entry, no other kernel's."""
+    import contextlib
+    import inspect
+    import types
+
+    from spath_tpu_torch.ops.kernels import bigscene as bs
+
+    asked = []
+
+    class Lib:
+        def spath_megakernel_forward_occupancy(self):
+            asked.append("K1")
+            return 9
+
+    monkeypatch.setattr(bs, "library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda index: types.SimpleNamespace(
+                            multi_processor_count=132))
+    bs.resident_ctas.cache_clear()
+    try:
+        cuda = torch.device("cuda", 0)
+        assert bs.queue_grid(1920 * 1080, cuda, "K1") == 9 * 132
+        assert bs.queue_grid(300, cuda, "K1") == 3
+        assert asked == ["K1"]
+    finally:
+        bs.resident_ctas.cache_clear()
+    src = inspect.getsource(mk.mega_call)
+    assert 'queue_grid(' in src and '"K1")' in src
+    for other in set(bs.QUEUE_KERNELS) - {"K1"}:
+        assert f'"{other}")' not in src
+
+
+def _conformance_totals():
+    """Four pixels of 2 samples at 3 bounces, as ``mg.walk_totals`` gives
+    them: (hits of sample 0, sample 1) (2, 1), (1, 3), (0, 0) (its camera
+    ray missed) and (3, 2); a sample sweeps once after each hit but the
+    last bounce's, so (2, 1), (1, 2), (0, 0) and (2, 2) times."""
+    hits = np.array([[0, 2, 1], [0, 1, 3], [0, 0, 0], [0, 3, 2]])
+    sweeps = np.array([[1, 2, 1], [1, 1, 2], [1, 0, 0], [1, 2, 2]])
+    return sweeps, hits
+
+
+def test_conformance_schedules_counted_by_hand():
+    """One warp of two lanes on one run of the 4 pixels. Lane 0 runs pixel
+    0 (steps 0-3) and pixel 2 (step 4), lane 1 pixel 1 (0-3) and pixel 3
+    (4-8): 9 forward steps, against lockstep's (1 + 2 + 2) + (1 + 2 + 2).
+    Samples end (lane, step, records): (1, 1, 1), (0, 2, 2), (0, 3, 1),
+    (1, 3, 3), (1, 6, 3), (1, 8, 2). In the lane as each ends: 1 + 2 + 3 +
+    3 + 2 reverse steps; epochs of 3 steps: 2 + 3 + 5; of 9: 9. Lockstep
+    reverses each sample as long as its warp's longest: (2 + 3) + (3 +
+    2)."""
+    sweeps, hits = _conformance_totals()
+    got = mg.reverse_counts(sweeps, hits, run=4, warps=1, epochs=(3, 9),
+                            lanes=2)
+    assert got == dict(forward_steps=9, in_lane=11, epochs={3: 10, 9: 9},
+                       records=12, lockstep=dict(forward_steps=10,
+                                                 reverse_steps=10))
+    # the forward steps are K1's: the runs schedule of K3's count
+    from spath_tpu_torch.ops.kernels import bigscene as bs
+
+    assert bs.run_schedule(sweeps, 4, 1, lanes=2)["warp_steps"] == 9
+    assert bs.lane_schedules(sweeps, 2)["lockstep"]["cta_sweeps"] == 10
+
+
+def test_walk_totals_count_the_replays_sweeps_and_hits():
+    """``walk_totals`` on a 16x8 frame of 3 samples: a camera sweep a
+    pixel, a hit at each bounce a path enters alive, a sweep after every
+    hit but the last bounce's; the pixels whose camera ray missed have
+    neither."""
+    cfg = RenderConfig(width=16, height=8, spp=3, max_bounces=4)
+    o, d, seeds = mk.pack_rays(Camera.default(CPU), cfg)
+    tri = mk.scene_table(_port_scene(j_default_scene()))
+    sweeps, hits = mg.walk_totals(o, d, seeds, tri, cfg)
+    assert sweeps.shape == hits.shape == (128, 4)
+    assert (sweeps[:, 0] == 1).all() and (hits[:, 0] == 0).all()
+    assert np.array_equal(sweeps[:, 1:], np.minimum(hits[:, 1:], 3))
+    want = np.zeros((128, 3), dtype=np.int64)
+    for s, saved in enumerate(mg.replay(o, d, seeds, tri, cfg)):
+        for hit, *_ in saved:
+            want[:, s] += hit.numpy()
+    assert np.array_equal(hits[:, 1:], want)
+    missed = (hits[:, 1:] == 0).all(axis=1)
+    assert 0 < missed.sum() < 128
+    assert (sweeps[missed, 1:] == 0).all()

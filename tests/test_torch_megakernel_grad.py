@@ -297,3 +297,107 @@ def test_grad_routing_keeps_cpu_tensors_on_the_wavefront(monkeypatch):
 
     monkeypatch.setattr(mg, "render_radiance_mega", forbidden)
     assert render_radiance_fastgrad(scene, cam, cfg).shape == (4, 8, 3)
+
+
+# ---- K2's lane loop: the order it reverses in, its runs' rows, its grid ----
+
+
+def test_k2_lane_reverses_finished_samples_in_order_last_bounce_first():
+    """One lane, E = 3 and 3 bounces (a ring of 5 records): pixel 0's
+    samples of 2 and 1 hits (2 and 1 sweeps), pixel 3's of 3 and 3 (2
+    sweeps each: the last bounce needs none after it), pixel 5's camera
+    ray missed. Steps 0-2: pixel 0's camera, sample 0's two sweeps (it
+    ends at step 2, sample 1 starts there). Steps 3-5: sample 1 ends at 3;
+    pixel 3's camera at 4. Steps 6-8: its sample 0 ends at 6 with 3
+    records, and sample 1 (3 + 3 > 5) waits. Steps 9-11: it resumes and
+    ends at 10; at 11 pixel 5's camera, whose sample 0 waits for room too
+    (the ring holds 3 finished records). Step 12 resumes it: its samples
+    have no hit and end at once."""
+    got = mg.reverse_order([(0, [2, 1]), (3, [3, 3]), (5, [0, 0])], 3, 3)
+    assert got == [(3, [(0, 0, 1), (0, 0, 0)]), (3, [(0, 1, 0)]),
+                   (3, [(3, 0, 2), (3, 0, 1), (3, 0, 0)]),
+                   (3, [(3, 1, 2), (3, 1, 1), (3, 1, 0)]), (1, [])]
+    # at one bounce every sample of a pixel ends in its camera step, and
+    # the ring (E records) stops the lane after E of them, until the
+    # epoch's end; the rest end in the next epoch's first step
+    got = mg.reverse_order([(7, [1, 1, 1, 1, 1])], 3, 1)
+    assert got == [(3, [(7, 0, 0), (7, 1, 0), (7, 2, 0)]),
+                   (1, [(7, 3, 0), (7, 4, 0)])]
+    # an epoch shorter than a path: the ring (E + max_bounces - 1) still
+    # holds a whole sample, which the lane waits for room to start
+    got = mg.reverse_order([(1, [3]), (2, [1])], 2, 3)
+    assert got == [(2, []), (2, [(1, 0, 2), (1, 0, 1), (1, 0, 0)]),
+                   (1, [(2, 0, 0)])]
+    with pytest.raises(ValueError, match="an epoch of 0 steps"):
+        mg.reverse_order([(0, [1])], 0, 3)
+
+
+def test_k2_run_rows_give_one_sum_whatever_order_the_queue_hands_runs_out():
+    """K2's table adjoint on the CPU (``run_rows_model``): 12 runs of 1-3
+    reverse epochs of float32 adds to 5 triangles, taken in ascending
+    order and in two shuffled ones, give the same float64 sum to the bit,
+    within float32 rounding of the exact sum; a sum over all events in
+    one float32 slice moves with the order."""
+    rng = np.random.default_rng(0)
+    runs = [[[(int(rng.integers(5)),
+                (rng.standard_normal(9) * 10.0 ** rng.integers(-3, 3))
+                .astype(np.float32))
+               for _ in range(int(rng.integers(1, 40)))]
+              for _ in range(int(rng.integers(1, 4)))]
+             for _ in range(12)]
+    want = mg.run_rows_model(runs, 5, range(12))
+    for order in (rng.permutation(12), rng.permutation(12)[::-1]):
+        assert np.array_equal(mg.run_rows_model(runs, 5, order), want)
+    exact = np.zeros((5, 9))
+    for epochs in runs:
+        for epoch in epochs:
+            for tri, vals in epoch:
+                exact[tri] += vals.astype(np.float64)
+    np.testing.assert_allclose(want, exact, rtol=1e-5,
+                               atol=1e-6 * np.abs(exact).max())
+    sums = set()
+    for order in (range(12), rng.permutation(12), rng.permutation(12)):
+        acc = np.zeros((5, 9), dtype=np.float32)
+        for r in order:
+            for epoch in runs[r]:
+                for tri, vals in epoch:
+                    acc[tri] = acc[tri] + vals
+        sums.add(acc.tobytes())
+    assert len(sums) > 1
+
+
+def test_k2_grid_is_persistent_on_its_own_occupancy(monkeypatch):
+    """K2's grid: its resident CTAs at T triangles (its shared memory grows
+    with T) times the SMs, asked once a size, with RUNS_PER_WARP runs a
+    warp, but no run of fewer than 32 pixels, nor more CTAs than the runs
+    fill at one a warp."""
+    import contextlib
+    import types
+
+    calls = []
+
+    class Lib:
+        def spath_megakernel_backward_occupancy(self, n_tris):
+            calls.append(n_tris)
+            return 8 if n_tris <= 8 else 1
+
+    monkeypatch.setattr(mg, "library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda index: types.SimpleNamespace(
+                            multi_processor_count=132))
+    mg.k2_resident.cache_clear()
+    try:
+        cuda = torch.device("cuda", 0)
+        k = mg.RUNS_PER_WARP
+        assert mg.k2_grid(1920 * 1080, 7, cuda) == (8 * 132, k * 32 * 132)
+        assert mg.k2_grid(1920 * 1080, 1024, cuda) == (132, k * 4 * 132)
+        assert mg.k2_grid(64 * 48, 7, cuda) == (24, 96)
+        assert mg.k2_grid(40, 7, cuda) == (1, 1)
+        mg.k2_grid(320 * 240, 7, cuda)
+        assert calls == [7, 1024]  # asked once a size
+    finally:
+        mg.k2_resident.cache_clear()
+    with pytest.raises(ValueError):
+        mg.k2_plan(0, 8, 132)

@@ -522,7 +522,7 @@ def test_list_schedule_gives_ties_to_the_lowest_lane():
 def test_run_sequences_cover_every_pixel_once_as_the_kernel_maps_them(
         n, run, warps):
     """Every pixel in exactly one warp's sequence, ascending; the sequence
-    is ``PixelSource::at`` (csrc/quality_lanes.cuh) of positions 0, 1, ...
+    is ``PixelSource::at`` (csrc/pixel_source.cuh) of positions 0, 1, ...
     until it passes n."""
     seqs = mq.bs.run_sequences(n, run, warps)
     assert len(seqs) == warps

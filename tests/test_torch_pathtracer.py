@@ -178,11 +178,13 @@ def _as_if_on_cuda(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("n_tris", [7, 129, renderer.SMEM_ROUTE_MAX_TRIS])
+@pytest.mark.parametrize("n_tris", [7, 129, 512,
+                                    renderer.SMEM_ROUTE_MAX_TRIS])
 def test_routing_sends_cuda_scenes_to_the_kernel(monkeypatch, n_tris):
     """Every scene up to the K1/K6 crossover measured on the H100
-    (``renderer.SMEM_ROUTE_MAX_TRIS``) goes to the kernel on a CUDA
-    device, above the JAX package's 128-triangle crossover as well."""
+    (``renderer.SMEM_ROUTE_MAX_TRIS``, K1's own cap since K1's lane loop)
+    goes to the kernel on a CUDA device, above the JAX package's
+    128-triangle crossover as well."""
     scene = (default_scene(CPU) if n_tris == 7
              else procedural_scene(n_tris, seed=1, device=CPU))
     cam = Camera.default(CPU)

@@ -47,9 +47,13 @@ To compare two commits, unpack the other with ``git archive`` into a
 directory that ``.gitignore`` lists (``build/``) and run both in one
 call, in turns: parent, change, change, parent. ``--check`` also holds
 the streamed kernels to their plain versions and exits non-zero on a
-failure, by ``chip_smoke.py``'s bounds and, for K4, K5, K8 and K10, its
-check functions (this checkout's ``chip_smoke.py``, run on ``--root``'s
-package), each for the kernels of ``--kernels``: K3 bit-equal to
+failure, by ``chip_smoke.py``'s bounds and, for K2, K4, K5, K8 and K10,
+its check functions (this checkout's ``chip_smoke.py``, run on
+``--root``'s package), each for the kernels of ``--kernels``: K1
+bit-equal to ``megakernel_plain`` at 320x240, 8 spp, on the default and
+25-triangle scenes and at 1024 triangles, 64x48, 2 spp; K2 within phase
+6's bounds of ``mega_bwd_plain`` there, two launches bitwise equal; K3
+bit-equal to
 ``quality_plain`` at 320x240, 8 spp, for each estimator of
 ``QUALITY_GRID``, on the default scene and at 1024 triangles; K4 within
 phase 13's bounds of ``quality_bwd_plain`` there, two launches bitwise
@@ -66,14 +70,15 @@ estimator settings, in one launch and in chunks of one sample, two calls
 bitwise equal, and on the default scene also within 1e-5 of each group's
 max of K4; K5 bit-equal to ``_sweep`` at each timed shape and at 1, 127,
 129 and 262,143 rays, two launches bitwise equal. ``--outputs DIR``
-saves K3's headline frame, K4's ray adjoint and table gradient at the
-headline, K9's frame and K11's radiance and hits (the timed calls),
-K10's table gradient and ray adjoint (the timed training call) and K5's
-``dist``/``idx`` (the slice's bounce rays) to ``DIR/<label>.pt`` and
-requires them bitwise equal to those of every other run saved there, but
-K4's table gradient, whose order of sums may change, within phase 13's
-bounds of each column group's max: run parent, change, change, parent
-with one ``DIR`` to hold two checkouts to the same bits. Without a card
+saves K1's headline frame and K2's table gradient there, K3's headline
+frame, K4's ray adjoint and table gradient at the headline, K9's frame
+and K11's radiance and hits (the timed calls), K10's table gradient and
+ray adjoint (the timed training call) and K5's ``dist``/``idx`` (the
+slice's bounce rays) to ``DIR/<label>.pt`` and requires them bitwise
+equal to those of every other run saved there, but K2's and K4's table
+gradients, whose order of sums may change, within phase 6's and phase
+13's bounds of each column group's max: run parent, change, change,
+parent with one ``DIR`` to hold two checkouts to the same bits. Without a card
 it exits non-zero.
 """
 
@@ -527,6 +532,36 @@ def k5_checks(torch, inputs: dict) -> dict:
     return {"k5_vs_plain": sorted(cases)}
 
 
+def k1_k2_checks(torch, dev, cam, want: set) -> dict:
+    """K1 bit-equal to ``megakernel_plain`` and K2 within ``chip_smoke.py``'s
+    phase 6 bounds of ``mega_bwd_plain`` (``backward_vs_plain``, two
+    launches bitwise equal) at 320x240, 8 spp, on the default and
+    25-triangle scenes, and at 1024 triangles, 64x48, 2 spp."""
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.ops.kernels import megakernel as mk
+    from spath_tpu_torch.scene import default_scene, procedural_scene
+
+    out = {}
+    small = RenderConfig(width=320, height=240, spp=8, max_bounces=5)
+    cases = [("default", default_scene(dev), small),
+             ("25", cs.scene_25(dev), small),
+             ("1024", procedural_scene(1024, seed=1, device=dev),
+              RenderConfig(width=64, height=48, spp=2, max_bounces=5))]
+    for name, scene, cfg in cases:
+        o, d, s = mk.pack_rays(cam, cfg, 0)
+        tri = mk.scene_table(scene)
+        if "K1" in want:
+            if not torch.equal(mk.mega_call(o, d, s, tri, cfg),
+                               mk.megakernel_plain(o, d, s, tri, cfg)):
+                fail(f"K1 differs from megakernel_plain on {name}")
+            out[f"k1_vs_plain_{name}"] = True
+        if "K2" in want:
+            c, _ = cs.backward_vs_plain(torch, o, d, s, tri, cfg,
+                                        f"K2 {name}")
+            out[f"k2_vs_plain_{name}"] = c["rel_err_by_group"]
+    return out
+
+
 def k3_k4_checks(torch, dev, cam, want: set) -> dict:
     """K3 bit-equal to ``quality_plain`` and K4 within ``chip_smoke.py``'s
     phase 13 bounds of ``quality_bwd_plain`` (``quality_backward_vs_plain``,
@@ -689,9 +724,11 @@ def main() -> int:
     g = torch.rand((o.shape[0], 3), generator=gen).to(dev)
     if "K1" in want:
         ms["K1"] = timed(torch, lambda: mk.mega_call(o, d, s, tri, head), 5)
+        saved["k1_frame"] = mk.mega_call(o, d, s, tri, head)
     if "K2" in want:
         ms["K2"] = timed(torch, lambda: mg.mega_bwd_call(o, d, s, tri, g,
                                                          head), 3)
+        saved["k2_gtab"] = mg.mega_bwd_call(o, d, s, tri, g, head)
     qo, qd, qk = mq.pack_rays(cam, qhead, 0)
     qtri, qrows = mq.quality_table(small), mq.light_rows(small)
     if "K3" in want:
@@ -789,6 +826,7 @@ def main() -> int:
                 i, v = synthetic_events(torch, dev, n_tris, n_events, cols)
                 result[f"k7_check_{n_tris}_{cols}"] = scatter_check(
                     torch, i, v, n_tris, f"synthetic T={n_tris}, {cols}")
+        result.update(k1_k2_checks(torch, dev, cam, want))
         result.update(k3_k4_checks(torch, dev, cam, want))
         if "K6" in want:
             result.update(k6_checks(torch, dev, cam, big))
@@ -801,7 +839,9 @@ def main() -> int:
     if args.outputs and saved:
         result["outputs"] = same_outputs(
             torch, Path(args.outputs), args.label or "run", saved,
-            {"k4_gtab": cs.QGRAD_GROUPS})
+            {"k4_gtab": cs.QGRAD_GROUPS,
+             "k2_gtab": {group: (cols, cs.GRAD_RTOL)
+                         for group, cols in cs.GRAD_GROUPS.items()}})
     print(json.dumps(result), flush=True)
     return 0
 
