@@ -135,9 +135,11 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     (``bigscene.chunk_totals``) and its resident CTAs.
 
 26. The light distribution kernel against its plain version, bit for
-    bit, at 8193, 10k, 100k and 2^20 triangles (1% emissive), and K7 at
-    K10's 19 columns against its float64 plain version on phase 18's
-    synthetic events.
+    bit, at 8193, 10k, 100k and 2^20 triangles (1% emissive), timed
+    beside its bound (24 bytes a triangle) and ``torch.cumsum`` of its
+    prob column (which does not give the cdf's bits); and K7 at K10's 19
+    columns against its float64 plain version on phase 18's synthetic
+    events.
 27. K9 against K3, to the bit, at phase 11's shapes and estimator
     settings; against ``quality_plain`` (phase 2's bounds) on the
     1150-triangle combined scene at 320x240x8, procedural_scene(10_000,
@@ -232,7 +234,13 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     1e-3 with and without vis_grad, and how many of the pixels that
     change when the camera moves 1e-6 change their primary triangle.
 
-42. T1, the matmul-only sweep: its ``ptxas -v`` line; the microbenchmark
+42. T1, the matmul-only sweep: its ``ptxas -v`` line; its SASS
+    (``cuobjdump``), which must hold ``HGMMA`` (wgmma) and ``UTMALDG``
+    (TMA) and no ``HMMA`` (mma.sync); its launch plan at the tool's shape
+    logged (rays a CTA, CTAs, cluster, waves on the card's SMs, stages,
+    shared bytes, and the GB of G through L2 counted from the launch),
+    ``launch_plan`` held to the compiled one, which the kernels' record
+    carries with the card's SM count; the microbenchmark
     ``spath_tpu_torch/tools/sweep_microbench.py`` at its own shape
     (640x360 camera rays against procedural_scene(65536, seed=0), 230,400
     x 65,536), which times K5, T1 at K = 128 and K = 64 and the cuBLAS
@@ -242,7 +250,10 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     within TIGHT_SHARE of 2^-16 (sweep_mm_scale + |plain|) while the
     control without the split's lo terms lands beyond it, two launches
     bitwise equal, the plain version timed, and single launches timed
-    after an L2 flush.
+    after an L2 flush; and T1 at both depths on 1, 255, 257, 447, 449 and
+    1349 rays (the 448-ray CTA tile each side) against 256, 1024 and 4352
+    triangles (1, 4, 17 blocks), each within TIGHT_SHARE, two launches
+    bitwise equal.
 
 The last three lines of standard output are the kernels' JSON record,
 the card as ``nvidia-smi`` names it, and ``{"ok": true, "device": ...}``.
@@ -395,6 +406,11 @@ K5_RAY_COUNTS, K5_FRAME_REPS = (1, 127, 129, 262_143), 100
 #: procedural_scene(65536, seed=0)) and the CUDA-event calls of each of
 #: its timed lines, twice, after one warm-up call.
 T1_SHAPE, T1_REPS = (640, 360, 65536), 5
+#: T1's ragged and small shapes: rays (one, 256 each side, the 448-ray
+#: CTA tile each side, three tiles and 5) and triangles (1, 4 and 17
+#: blocks of 256), all pairs, on the tool's operands.
+T1_RAY_COUNTS = (1, 255, 257, 447, 449, 3 * 448 + 5)
+T1_TRI_COUNTS = (256, 1024, 4352)
 
 
 class SmokeFailure(Exception):
@@ -2198,7 +2214,8 @@ def t1_kernels() -> dict:
 
 
 def t1_ptxas() -> str:
-    """``sweep_mm.cu``'s register and spill lines from the build log."""
+    """``sweep_mm.cu``'s register, shared-memory and spill lines from the
+    build log."""
     from spath_tpu_torch.ops.kernels import build
 
     text = (build.BUILD_DIR / "build.log").read_text()
@@ -2207,7 +2224,45 @@ def t1_ptxas() -> str:
     end = part.find("\n== ", 1)
     part = part if end < 0 else part[:end]
     return " | ".join(ln.strip() for ln in part.splitlines()
-                      if "registers" in ln or "spill" in ln)
+                      if "registers" in ln or "spill" in ln
+                      or "smem" in ln)
+
+
+def t1_sass() -> dict:
+    """The instructions of the built ``sweep_mm`` kernels (``cuobjdump
+    -sass`` of the library, as ``tools/sass_loop.py`` reads it): for each,
+    the count of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA loads) and ``HMMA``
+    (mma.sync) instructions. Each must hold the first two and not the
+    third: a return to ``mma.sync`` fails here."""
+    import re
+
+    from spath_tpu_torch.ops.kernels import build
+
+    lib = build.build()
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    listing = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                             capture_output=True, text=True, check=True,
+                             timeout=300).stdout
+    found, name = {}, None
+    for line in listing.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if "8sweep_mm" not in name:
+                name = None
+            else:
+                found[name] = dict(HGMMA=0, UTMALDG=0, HMMA=0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                      line)
+        if name is not None and m and m[1] in found[name]:
+            found[name][m[1]] += 1
+    check(len(found) == 2, f"T1: {len(found)} sweep_mm kernels in the SASS, "
+          "want 2 (K = 64 and 128)")
+    for fn, c in found.items():
+        check(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
+              f"T1: {fn} has {c} in its SASS: want HGMMA and UTMALDG, no "
+              "HMMA")
+    return found
 
 
 def t1_vs_plain(torch, ops: dict, k: int) -> dict:
@@ -2245,6 +2300,38 @@ def t1_vs_plain(torch, ops: dict, k: int) -> dict:
                 yardstick_bound_share=sm.error_ratio(yard, ref, scale))
 
 
+def t1_ragged(torch, ops: dict, k: int) -> dict:
+    """T1 at depth ``k`` on ``T1_RAY_COUNTS`` rays, evenly spaced over the
+    tool's, against ``T1_TRI_COUNTS`` triangles (the first blocks of the
+    tool's table): every pair finite, two launches bitwise equal, every
+    ray within ``TIGHT_SHARE`` of the bound of ``sweep_mm_plain``.
+    Returns the largest share of the bound by shape."""
+    from spath_tpu_torch.ops.kernels import sweep_mm as sm
+
+    g_all, r_all = ops["t1"][k]
+    out = {}
+    for n in T1_RAY_COUNTS:
+        pick = torch.linspace(0, r_all.shape[1] - 1, n,
+                              device=r_all.device).round().long()
+        r = r_all[:, pick].contiguous()
+        for n_tris in T1_TRI_COUNTS:
+            g = g_all[:4 * n_tris]
+            name = f"T1 K={k}, {n} rays x {n_tris} triangles"
+            first, second = sm.sweep_mm_call(g, r), sm.sweep_mm_call(g, r)
+            torch.cuda.synchronize()
+            check(tuple(first.shape) == (n,)
+                  and torch.isfinite(first).all().item(),
+                  f"{name}: output not finite or of shape "
+                  f"{tuple(first.shape)}")
+            check(torch.equal(first, second), f"{name}: two launches differ")
+            share = sm.error_ratio(first, sm.sweep_mm_plain(g, r),
+                                   sm.sweep_mm_scale(g, r))
+            check(share <= sm.TIGHT_SHARE, f"{name}: {share:.4e} of the "
+                  f"bound, above {sm.TIGHT_SHARE}")
+            out[f"{n}x{n_tris}"] = share
+    return out
+
+
 def cold_l2_ms(torch, fn, reps: int = 3) -> float:
     """Mean ms of single calls of ``fn``, each after a 256 MB write has
     evicted the 50 MB L2, CUDA events around the call alone."""
@@ -2271,7 +2358,24 @@ def t1_phase(torch) -> tuple:
     from spath_tpu_torch.tools import sweep_microbench as tool
 
     log(f"[42] T1 ptxas: {t1_ptxas()}")
+    log(f"[42] T1 SASS (cuobjdump): {t1_sass()}")
     w, h, n_tris = T1_SHAPE
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    built = {}
+    for k in (128, 64):
+        plan = sm.launch_plan(k, w * h, n_tris, sms)
+        built[k] = sm.compiled_plan(k)
+        check(all(plan[key] == v for key, v in built[k].items()),
+              f"T1 K={k}: compiled launch {built[k]} is not launch_plan's "
+              f"{plan}")
+        log(f"[42] T1 K={k} plan at {w * h} rays x {n_tris} triangles: "
+            f"{plan['cta_rays']} rays a CTA ({plan['wg_rays']} a consumer "
+            f"warpgroup), {plan['ctas']} CTAs, cluster {plan['cluster']}, "
+            f"{plan['waves']:.4f} waves of one CTA an SM on the card's "
+            f"{sms} SMs, {plan['stages']} stages, {plan['smem_bytes']} "
+            f"bytes of shared memory; G through L2 counted from the launch "
+            f"(CTAs x size of G, not read): "
+            f"{plan['l2_bytes_of_g'] / 1e9:.4f} GB")
     zero_counts(every_kernel())
     bench = tool.run(["--width", str(w), "--height", str(h), "--tris",
                       str(n_tris), "--reps", str(T1_REPS)])
@@ -2295,6 +2399,9 @@ def t1_phase(torch) -> tuple:
     records = []
     for k in (128, 64):
         c = t1_vs_plain(torch, ops, k)
+        ragged = t1_ragged(torch, ops, k)
+        log(f"[42] T1 K={k} at ragged and small shapes, share of the bound "
+            f"by rays x triangles: {ragged}")
         g, r = ops["t1"][k]
         plain_ms = [event_ms(torch, lambda: sm.sweep_mm_plain(g, r), 1)
                     for _ in range(2)]
@@ -2324,6 +2431,11 @@ def t1_phase(torch) -> tuple:
             "bound_ms": b["ms"],
             "bound_by": b["by"],
             "ceiling_ms": b["ceiling_ms"],
+            "bound_share": b["ms"] / t1["mean_ms"],
+            "ceiling_share": b["ceiling_ms"] / t1["mean_ms"],
+            "compiled_plan": built[k],
+            "sms": sms,
+            "ragged_bound_share": max(ragged.values()),
             "library_ms": yard["mean_ms"],
             "library_call": "torch.mm of the bf16 operands into float32 "
                             "(cuBLAS), then amin and the ordered block "
@@ -2971,7 +3083,7 @@ def run() -> None:
 
     # 26. the light distribution up to 2^20 triangles, and K7 at 19
     # columns, against their plain versions
-    light_big_ms = {}
+    light_big_ms, light_big = {}, {}
     for n_light in (8193, BIG_T, HUGE_T, 1 << 20):
         lscene = procedural_scene(n_light, seed=0, device=dev)
         name = f"{n_light} triangles"
@@ -2979,9 +3091,23 @@ def run() -> None:
         emission, area = lscene.emission, nee.triangle_areas(lscene)
         light_big_ms[lscene.n_tris] = event_ms(
             torch, lambda: lc.light_cdf_call(emission, area), 5)
+        # the bound (24 bytes a triangle at the memory's rate), and one
+        # library call beside it: torch.cumsum of the prob column, which
+        # does not sum in the plain version's order (nor give its bits)
+        cdf, prob = lc.light_cdf_call(emission, area)
+        cumsum = torch.cumsum(prob, 0)
+        cumsum_ms = event_ms(torch, lambda: torch.cumsum(prob, 0), 20)
+        light_big[lscene.n_tris] = dict(
+            ms=light_big_ms[lscene.n_tris],
+            bound_ms=bound(LIGHT_OPS * lscene.n_tris,
+                           LIGHT_BYTES * lscene.n_tris)[0],
+            cumsum_ms=cumsum_ms, cumsum_bit_equal=torch.equal(cumsum, cdf))
         log(f"[26] light distribution vs plain, {name}: {c}; "
-            f"{light_big_ms[lscene.n_tris]:.4f} ms a call")
-    del lscene, emission, area
+            f"{light_big_ms[lscene.n_tris]:.4f} ms a call; bound "
+            f"{light_big[lscene.n_tris]['bound_ms']:.6f} ms (bytes); "
+            f"torch.cumsum of prob {cumsum_ms:.6f} ms, bit-equal to the "
+            f"cdf: {light_big[lscene.n_tris]['cumsum_bit_equal']}")
+    del lscene, emission, area, cdf, prob, cumsum
     for n_tris_s, n_events in SCATTER_CASES:
         log(f"[26] K7 at 19 columns vs plain, T={n_tris_s}, {n_events} "
             f"events: {scatter_vs_plain(torch, dev, n_tris_s, n_events,
@@ -3613,6 +3739,9 @@ def run() -> None:
         "bound_ms": light_bound[0],
         "bound_by": light_bound[1],
         "library_ms": None,
+        "by_triangles": light_big,
+        "library_call_by_triangles": "torch.cumsum of the prob column "
+                                     "(not the plain version's order)",
     }, {
         "name": "quality_forward",
         "route": "cuda",

@@ -224,6 +224,9 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, f"spath_sweep_mm_k{k}")
         fn.argtypes = [ptr] * 3 + [i32, i32, ptr]
         fn.restype = i32
+    # T1's launch as compiled: K, five ints out
+    lib.spath_sweep_mm_plan.argtypes = [i32, ptr]
+    lib.spath_sweep_mm_plan.restype = i32
     lib.spath_error_string.argtypes = [i32]
     lib.spath_error_string.restype = ctypes.c_char_p
     return lib

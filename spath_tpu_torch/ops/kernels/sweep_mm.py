@@ -18,10 +18,12 @@ is float32. It is a measurement, not a render path: it separates the
 matrix unit's time from the epilogue's (``spath_tpu_torch/tools/
 sweep_microbench.py`` times it beside the nearest hit K5).
 
-The kernel is ``csrc/sweep_mm.cu`` (bf16 tensor cores, ``mma.sync``),
-one template over K in {64, 128}. The K = 64 operands keep the 60 live
-columns (6 split-term groups of the 10 Plücker features) padded to 64
-(``pack_k64``), in the K = 128 variant's orientation: the JAX K = 64
+The kernel is ``csrc/sweep_mm.cu`` (bf16 tensor cores: warpgroup
+``wgmma`` fed by TMA through a ring of ``mbarrier`` stages), one template
+over K in {64, 128}; ``launch_plan`` gives its launch in Python. The
+K = 64 operands keep the 60 live columns (6 split-term groups of the 10
+Plücker features) padded to 64 (``pack_k64``), in the K = 128 variant's
+orientation: the JAX K = 64
 variant contracts over the sublanes of K-major operands, a Mosaic layout
 with no Hopper counterpart, and the function is the same.
 
@@ -74,6 +76,18 @@ BOUND_REL = 2.0 ** -16
 TIGHT_SHARE = 2.0 ** -4
 #: Bytes of a float64 product block the plain version holds at once.
 PLAIN_CHUNK_BYTES = 8 << 30
+#: The kernel's launch (``csrc/sweep_mm.cu``, whose constants these
+#: mirror): four consumer warpgroups of ``WG_RAYS`` rays (wgmma's N) and a
+#: producer warpgroup; stages of ``TILE_ROWS`` rows of G (wgmma's M) in
+#: 128-byte swizzle atoms of ``ATOM_K`` columns; ``STAGES`` a depth.
+CONSUMERS, WG_RAYS, TILE_ROWS, ATOM_K = 4, 112, 64, 64
+CTA_RAYS = CONSUMERS * WG_RAYS
+THREADS = 128 * (1 + CONSUMERS)
+STAGES = {64: 8, 128: 6}
+#: The 1024-byte alignment of the swizzle atoms, taken out of the dynamic
+#: shared memory; the most shared memory a block may have on an H100
+#: (227 KB); the SMs of an H100 SXM, where the caller gives no count.
+SMEM_ALIGN, SMEM_LIMIT, H100_SMS = 1024, 232_448, 132
 
 
 def cross3_fma(a, b):
@@ -249,6 +263,48 @@ def bound(n_rays: int, n_tris: int, k: int = 64) -> dict:
                 min_ms=4 * pairs / PEAK_FP32 * 1e3)
 
 
+def launch_plan(k: int, n_rays: int, n_tris: int | None = None,
+                sms: int = H100_SMS) -> dict:
+    """The kernel's launch for ``n_rays`` rays at depth ``k``: rays a CTA
+    and a consumer warpgroup, threads, CTAs, cluster size (1: no
+    multicast), stages and their bytes, the dynamic shared bytes (the
+    rays' K-major copy, the ring, the block-end exchange, the barriers,
+    the alignment) and the waves of one CTA an SM on ``sms`` SMs; with
+    ``n_tris``, the bytes of G that the CTAs read through L2, counted
+    from the launch (each CTA reads all of G), not read on a card."""
+    if k not in DEPTHS or n_rays < 1:
+        raise ValueError(f"no launch for K={k}, {n_rays} rays")
+    stages = STAGES[k]
+    stage_bytes = TILE_ROWS * k * 2
+    ray_bytes = CTA_RAYS * k * 2
+    xch_bytes = CONSUMERS * 4 * WG_RAYS * 4
+    bar_bytes = 2 * stages * 8
+    smem = SMEM_ALIGN + ray_bytes + stages * stage_bytes + xch_bytes \
+        + bar_bytes
+    ctas = -(-n_rays // CTA_RAYS)
+    out = dict(k=k, cta_rays=CTA_RAYS, wg_rays=WG_RAYS, threads=THREADS,
+               ctas=ctas, cluster=1, stages=stages, stage_bytes=stage_bytes,
+               ray_bytes=ray_bytes, xch_bytes=xch_bytes, bar_bytes=bar_bytes,
+               smem_bytes=smem, waves=ctas / sms)
+    if n_tris is not None:
+        out["l2_bytes_of_g"] = ctas * 4 * n_tris * k * 2
+    return out
+
+
+def compiled_plan(k: int) -> dict:
+    """The launch as ``csrc/sweep_mm.cu`` was compiled
+    (``spath_sweep_mm_plan``): rays a CTA, threads, stages, dynamic
+    shared bytes and rays a consumer warpgroup, for ``launch_plan`` to be
+    held to. Builds the library; only where ``nvcc`` is."""
+    buf = (ctypes.c_int * 5)()
+    lib = library()
+    err = lib.spath_sweep_mm_plan(k, ctypes.cast(buf, ctypes.c_void_p))
+    if err != 0:
+        raise ValueError(f"no compiled plan for K={k}")
+    return dict(zip(("cta_rays", "threads", "stages", "smem_bytes",
+                     "wg_rays"), buf))
+
+
 def _check(gfeat, rfeat) -> None:
     if gfeat.dtype != torch.bfloat16 or rfeat.dtype != torch.bfloat16:
         raise ValueError(f"gfeat and rfeat must be bfloat16, got "
@@ -279,7 +335,8 @@ def sweep_mm_call(gfeat, rfeat):
     """float32 ``(N,)``: the sweep of the ``(K, N)`` rays against the
     ``(4·T, K)`` triangle table (layouts in the module docstring). Launches
     the K = 64 or K = 128 kernel on CUDA tensors, on PyTorch's current
-    stream and without synchronising; a failed build or launch raises.
+    stream and without synchronising; a failed build, tensor-map encoding
+    or launch raises.
     CPU tensors take ``sweep_mm_plain``."""
     _check(gfeat, rfeat)
     if gfeat.device.type == "cpu":

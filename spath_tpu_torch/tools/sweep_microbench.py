@@ -11,7 +11,8 @@ The counterpart of ``tools/sweep_microbench.py``. On
 - the full sweep kernel: K5, the nearest hit (``nearest_hit_call``, no
   source triangle), Moller-Trumbore on the CUDA cores;
 - T1 at K = 128 and at K = 64 (``sweep_mm_call``): the Plücker product
-  on the bf16 tensor cores with a bare min in place of the epilogue;
+  on the bf16 tensor cores (warpgroup ``wgmma`` fed by TMA) with a bare
+  min in place of the epilogue;
 - the library yardstick at K = 128 and at K = 64 (``yardstick``): cuBLAS
   through ``torch.mm`` of the same bf16 operands with a float32 result, a
   chunk of blocks at a time, then ``amin`` and the ordered block sum. It
@@ -119,7 +120,7 @@ def lines(ops: dict) -> list[dict]:
     for k in (128, 64):
         g, r = ops["t1"][k]
         b = sweep_mm.bound(n, t, k)
-        out.append(dict(name=f"T1 matmul-only K={k} (mma.sync bf16)",
+        out.append(dict(name=f"T1 matmul-only K={k} (wgmma bf16, TMA)",
                         key=f"T1 K={k}", call=lambda g=g, r=r:
                         sweep_mm.sweep_mm_call(g, r),
                         flop=2 * 4 * k * pairs, bound_ms=b["ms"]))

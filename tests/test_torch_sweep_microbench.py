@@ -10,6 +10,7 @@ and input checks, and ``python -m spath_tpu_torch.tools.sweep_microbench
 
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -250,15 +251,88 @@ def test_call_checks_inputs(bad):
 
 def test_kernel_source_names_what_it_replaces():
     """``csrc/sweep_mm.cu`` names both TPU kernels, runs on the bf16 tensor
-    cores, and has one entry point a depth, which the loader declares."""
+    cores (warpgroup ``wgmma`` fed by TMA, no ``mma.sync``), and has one
+    entry point a depth, which the loader declares."""
     from spath_tpu_torch.ops.kernels import build
 
     src = (build.SOURCE_DIR / "sweep_mm.cu").read_text()
     assert "_mm_only_kernel" in src and "_mm_sub64_kernel" in src
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert (f"wgmma.mma_async.sync.aligned.m64n{sm.WG_RAYS}k16.f32.bf16.bf16"
+            in src)
+    assert "cp.async.bulk.tensor.2d" in src
+    assert "mma.sync.aligned" not in src
     for k in sm.DEPTHS:
         assert f'extern "C" int spath_sweep_mm_k{k}(' in src
         assert f"spath_sweep_mm_k{{k}}" in Path(build.__file__).read_text()
+    assert 'extern "C" int spath_sweep_mm_plan(' in src
+    assert "spath_sweep_mm_plan" in Path(build.__file__).read_text()
+
+
+def _source_constant(src, name):
+    m = re.search(rf"constexpr int {name} = ([^;]+);", src)
+    assert m, name
+    return m[1]
+
+
+def test_launch_plan_mirrors_the_source():
+    """``launch_plan``'s shared-memory alignment and limit are the
+    kernel's, which its ``static_assert`` holds the shared bytes to. The
+    rest of the plan (rays, threads, stages, shared bytes) is held to the
+    compiled one, ``spath_sweep_mm_plan``, on the card in
+    ``chip_smoke.py`` phase 42."""
+    from spath_tpu_torch.ops.kernels import build
+
+    src = (build.SOURCE_DIR / "sweep_mm.cu").read_text()
+    assert int(_source_constant(src, "kAlign")) == sm.SMEM_ALIGN
+    assert int(_source_constant(src, "kSmemLimit")) == sm.SMEM_LIMIT
+    assert "static_assert(kSmemBytes <= kSmemLimit" in src
+
+
+@pytest.mark.parametrize("k", [64, 128])
+@pytest.mark.parametrize("n_rays", [1, 255, 257, 447, 448, 449, 1349,
+                                    230400])
+def test_launch_plan(k, n_rays):
+    """The launch covers every ray with whole CTAs of 448 (four
+    warpgroups of 112), no cluster, and fits the H100's 227 KB of shared memory a
+    block: the rays' K-major copy, the ring of stages, the block-end
+    exchange and the barriers, after the 1024-byte alignment."""
+    p = sm.launch_plan(k, n_rays, 65536)
+    assert p["cta_rays"] == 4 * p["wg_rays"] == 448
+    assert p["threads"] == 640 and p["cluster"] == 1
+    assert (p["ctas"] - 1) * p["cta_rays"] < n_rays <= p["ctas"] * p[
+        "cta_rays"]
+    assert p["stage_bytes"] == 64 * k * 2
+    assert p["ray_bytes"] == 448 * k * 2
+    assert p["smem_bytes"] == (1024 + p["ray_bytes"] + p["stages"]
+                               * p["stage_bytes"] + p["xch_bytes"]
+                               + p["bar_bytes"])
+    assert p["smem_bytes"] <= sm.SMEM_LIMIT == 227 * 1024
+    assert p["stages"] >= 4
+    assert p["waves"] == pytest.approx(p["ctas"] / 132)
+    assert sm.launch_plan(k, n_rays, sms=114)["waves"] == pytest.approx(
+        p["ctas"] / 114)
+    assert p["l2_bytes_of_g"] == p["ctas"] * 4 * 65536 * k * 2
+    if n_rays == 230400:
+        # the tool's shape: 515 CTAs, 3.90 waves; G read 34.6 / 17.3 GB
+        assert p["ctas"] == 515
+        assert p["l2_bytes_of_g"] / 1e9 == pytest.approx(
+            34.561 if k == 128 else 17.281, abs=1e-3)
+
+
+def test_launch_plan_refuses_other_depths():
+    with pytest.raises(ValueError):
+        sm.launch_plan(32, 100)
+    with pytest.raises(ValueError):
+        sm.launch_plan(64, 0)
+
+
+def test_tool_lines_name_the_instruction():
+    """The tool's T1 lines name ``wgmma`` (and TMA), not ``mma.sync``."""
+    ops = tool.operands(16, 16, 512, torch.device("cpu"))
+    names = {line["key"]: line["name"] for line in tool.lines(ops)}
+    for k in sm.DEPTHS:
+        assert "(wgmma bf16, TMA)" in names[f"T1 K={k}"]
+        assert "mma.sync" not in names[f"T1 K={k}"]
 
 
 def test_bound_reckoning():

@@ -26,6 +26,10 @@ main path runs it at, after a warm-up launch:
   procedural_scene(2^20) (``K5_2e20``); and (``K5_splits``) each of
   these with its rows cut into each count of ``--k5-splits`` (default 1)
   in place of ``sweep_plan``'s, in turns with the plan;
+- T1 at the sweep microbenchmark's shape, 640x360 camera rays against
+  procedural_scene(65536) (``T1_K128``, ``T1_K64``), each beside the
+  tool's cuBLAS + ``amin`` yardstick (``T1_cublas_K128``,
+  ``T1_cublas_K64``);
 - on procedural_scene(10_000, seed=0) at 1920x1080, 5 bounces: K6 on the
   serving frame (64 spp) and on the train step's (8 spp); K8 in a train
   step's backward call (8 spp, the call less its K7 calls, as
@@ -69,7 +73,11 @@ phase 13 bounds of ``quality_bwd_plain`` on the 10k scene for three
 estimator settings, in one launch and in chunks of one sample, two calls
 bitwise equal, and on the default scene also within 1e-5 of each group's
 max of K4; K5 bit-equal to ``_sweep`` at each timed shape and at 1, 127,
-129 and 262,143 rays, two launches bitwise equal. ``--outputs DIR``
+129 and 262,143 rays, two launches bitwise equal; T1 at both depths
+within ``TIGHT_SHARE`` of its bound against ``sweep_mm_plain`` on the
+whole microbenchmark shape (the ``drop_lo`` control beyond it) and on
+``chip_smoke.py``'s ragged and small shapes, two launches bitwise
+equal. ``--outputs DIR``
 saves K1's headline frame and K2's table gradient there, K3's headline
 frame, K4's ray adjoint and table gradient at the headline, K9's frame
 and K11's radiance and hits (the timed calls), K10's table gradient and
@@ -105,7 +113,7 @@ K5_REPS = {"K5_1080p_7": 200}
 #: its rays are the first of K5_bounce's.
 K5_LAST_SLICE = 1920 * 1080 % (512 * 512)
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
-           "K11")
+           "K11", "T1")
 
 
 def card() -> str:
@@ -532,6 +540,39 @@ def k5_checks(torch, inputs: dict) -> dict:
     return {"k5_vs_plain": sorted(cases)}
 
 
+def t1_ms(torch, dev) -> tuple:
+    """T1 at the sweep microbenchmark's shape (``chip_smoke.py``'s
+    ``T1_SHAPE``: 640x360 camera rays against procedural_scene(65536)),
+    from its tool's operands: ``({"T1_K128", "T1_K64": ms a launch,
+    "T1_cublas_K128", "T1_cublas_K64": ms of the tool's cuBLAS + amin
+    yardstick}, the operands)``."""
+    from spath_tpu_torch.ops.kernels import sweep_mm as sm
+    from spath_tpu_torch.tools import sweep_microbench as tool
+
+    w, h, n_tris = cs.T1_SHAPE
+    ops = tool.operands(w, h, n_tris, dev)
+    out = {}
+    for k in (128, 64):
+        g, r = ops["t1"][k]
+        out[f"T1_K{k}"] = timed(torch, lambda: sm.sweep_mm_call(g, r),
+                                cs.T1_REPS)
+        out[f"T1_cublas_K{k}"] = timed(torch, lambda: tool.yardstick(g, r),
+                                       2)
+    return out, ops
+
+
+def t1_checks(torch, ops: dict) -> dict:
+    """T1 at both depths against ``sweep_mm_plain`` by ``chip_smoke.py``'s
+    checks: on the whole shape (every ray within ``TIGHT_SHARE`` of the
+    bound, the ``drop_lo`` control beyond it, two launches bitwise equal)
+    and at its ragged and small shapes."""
+    out = {}
+    for k in (128, 64):
+        out[f"t1_check_K{k}"] = cs.t1_vs_plain(torch, ops, k)
+        out[f"t1_ragged_K{k}"] = cs.t1_ragged(torch, ops, k)
+    return out
+
+
 def k1_k2_checks(torch, dev, cam, want: set) -> dict:
     """K1 bit-equal to ``megakernel_plain`` and K2 within ``chip_smoke.py``'s
     phase 6 bounds of ``mega_bwd_plain`` (``backward_vs_plain``, two
@@ -756,6 +797,12 @@ def main() -> int:
         saved["k5_dist"], saved["k5_idx"] = k5.nearest_hit_call(
             *k5_in["K5_bounce"])
         del k5_in
+    if "T1" in want:
+        t1, t1_ops = t1_ms(torch, dev)
+        ms.update(t1)
+        if args.check:
+            result.update(t1_checks(torch, t1_ops))
+        del t1_ops
     btri = mk.scene_table(big)
     train = head.replace(spp=BIG_TRAIN_SPP)
     o, d, s = mk.pack_rays(cam, head, 0)

@@ -161,6 +161,23 @@ VARIANTS = {
           "  __syncthreads();\n"
           "  const spath::ConfArgs a{tri, n_tris, spp, max_bounces,\n"
           "                         n_tris <= 256 ? stab : nullptr};")]),
+    # T1 (the wgmma kernel): the parts of its time.
+    "t1_no_fold": (
+        "T1 without its fold: one accumulator's min a stage in place of "
+        "the 56 (wrong sums; the product, the ring and the block ends "
+        "alone)",
+        "the wgmma T1",
+        [("csrc/sweep_mm.cu",
+          "          lo[2 * j + c] = fminf(lo[2 * j + c],\n"
+          "                                fminf(acc[4 * j + c], "
+          "acc[4 * j + 2 + c]));",
+          "          if (j == 0 && c == 0) lo[0] = fminf(lo[0], acc[0]);")]),
+    "t1_stages_4": (
+        "T1 with a ring of 4 stages at both depths (8 and 6 shipped)",
+        "the wgmma T1",
+        [("csrc/sweep_mm.cu",
+          "static constexpr int kStages = K == 64 ? 8 : 6;",
+          "static constexpr int kStages = 4;")]),
 }
 
 
