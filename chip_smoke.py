@@ -12,8 +12,10 @@ on large scenes (phases 18-25: K6, K8 and K7) and quality estimator on
 large scenes (phases 26-33: the light distribution beyond one block, K9,
 K10 and K7 at 19 columns) and visibility gradients with the wavefront on
 the card (phases 34-41: K5, K11, the backward kernels beyond 16
-bounces), and the matmul-only sweep microbenchmark (phase 42: T1)
-through the entry points a user calls; any failure exits
+bounces), the matmul-only sweep microbenchmark (phase 42: T1), and the
+threefry and table streams (phases 43-46: the threefry kernel,
+``config.QUALITY``'s frame and training, the table stream), through the
+entry points a user calls; any failure exits
 non-zero before a result is printed. Every plain wavefront the kernels
 are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
 
@@ -255,6 +257,31 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     triangles (1, 4, 17 blocks), each within TIGHT_SHARE, two launches
     bitwise equal.
 
+43. The threefry kernel (``csrc/threefry.cu``, the threefry stream's
+    draws; XLA in the JAX package, no Pallas kernel): its ``ptxas -v``
+    line; bit-equal to ``per_pixel_uniforms`` over the 1080p frame's pixel
+    ids and 131,072 ids near 2^32 at 2, 5 and 7 draws and three (seed,
+    sample, bounce) steps; two launches bitwise equal; timed in turns with
+    its plain version at 1080p, 5 draws, beside its bound (integer
+    operations at the SMs' issue rate, 128 a clock an SM).
+44. ``render_pt_fast`` on ``config.QUALITY`` (threefry, cosine, NEE with
+    MIS) at 1920x1080, 64 spp, 5 bounces: the wavefront, launching K5, the
+    light distribution and the threefry kernel (320 launches) only; its
+    first call and two frames through ``utils/profiling.py``'s
+    ``FrameTimer`` (rays/s), a profiled frame for the kernels' device
+    time and the threefry kernel's share; at 320x240x4 bit-equal to the
+    frame of the plain sweep and plain draws; ``bounce_stats``.
+45. The table stream (the reference's ``vec_dist``, angle sampler) at
+    1920x1080x64x5 through ``render_pt_fast``: the wavefront on K5 and
+    nothing else, timed; at 320x240x4 bit-equal to the plain sweep's
+    frame, and its gradient (K5, its gathers' backward on K7) within
+    GRAD_RTOL of each max of the plain sweep's.
+46. 3 ``recover`` steps on ``config.QUALITY`` at 1920x1080, 8 spp (cut
+    from 64 for time), 5 bounces, albedo perturbed as the CLI does, pose
+    frozen: K5, K7, the light distribution and the threefry kernel launch,
+    none of K1-K4, K6, K8-K11; the loss falls; two gradients on one seed
+    bitwise equal; peak device memory.
+
 The last three lines of standard output are the kernels' JSON record,
 the card as ``nvidia-smi`` names it, and ``{"ok": true, "device": ...}``.
 """
@@ -411,6 +438,29 @@ T1_SHAPE, T1_REPS = (640, 360, 65536), 5
 #: blocks of 256), all pairs, on the tool's operands.
 T1_RAY_COUNTS = (1, 255, 257, 447, 449, 3 * 448 + 5)
 T1_TRI_COUNTS = (256, 1024, 4352)
+#: The threefry kernel's work (csrc/threefry.cu), counted as the integer
+#: instructions it needs at the least: a Threefry-2x32 block 73 (its 20
+#: rounds of add, funnel shift and xor 60, its five key injections a
+#: three-input add and an add each, the first key addition 2, the third
+#: key word one three-input xor), a draw 3 more (xor, shift, or); bytes:
+#: the pixel id read (8) and each draw written (4). The rate: an SM issues
+#: at most 4 warp instructions a clock (one a scheduler), 128 thread
+#: operations, on each of the H100 SXM's 132 SMs at its 1.98 GHz boost
+#: clock, 33.4e12 /s. The int32 pipes' own 64 a clock (16.7e12 /s) is no
+#: bound: nvcc issues integer adds as IMAD on the FP32 pipes too, and the
+#: kernel ran faster than 16.7e12 /s allows (an H100 at 700 W, PERF.md).
+THREEFRY_BLOCK_OPS, THREEFRY_DRAW_OPS = 73, 3
+PEAK_INT32_OPS = 132 * 128 * 1.98e9
+#: The (seed, sample, bounce) steps at which phase 43 holds the threefry
+#: kernel to its plain version, and the draws a pixel it checks.
+THREEFRY_STEPS = ((0, 0, 0), (3, 17, 4), (2**31 - 1, 63, 1))
+THREEFRY_DRAWS = (2, 5, 7)
+#: The frame of phases 44 and 45's bit-equality with the plain sweep and
+#: plain draws; the QUALITY preset's training cell at 1080p, 5 bounces,
+#: PRESET_TRAIN_SPP samples (cut from 64 for time: the autograd wavefront's
+#: tape holds every sample, ~1.8 KB a pixel and sample counted on the CPU).
+STREAM_CHECK = dict(width=320, height=240, spp=4, max_bounces=5)
+PRESET_TRAIN_SPP = 8
 
 
 class SmokeFailure(Exception):
@@ -1623,7 +1673,7 @@ def quality_kernels(big: bool) -> dict:
 def every_kernel() -> dict:
     return {**conformance_kernels(False), **conformance_kernels(True),
             **quality_kernels(False), **quality_kernels(True),
-            **vis_kernels(), **t1_kernels()}
+            **vis_kernels(), **t1_kernels(), **stream_kernels()}
 
 
 def launched_only(expect: dict, what: str) -> dict:
@@ -2213,14 +2263,14 @@ def t1_kernels() -> dict:
     return {"T1": sm.sweep_mm_call}
 
 
-def t1_ptxas() -> str:
-    """``sweep_mm.cu``'s register, shared-memory and spill lines from the
-    build log."""
+def ptxas_lines(source: str) -> str:
+    """A source's register, shared-memory and spill lines from the build
+    log."""
     from spath_tpu_torch.ops.kernels import build
 
     text = (build.BUILD_DIR / "build.log").read_text()
-    check("== sweep_mm.cu" in text, "sweep_mm.cu is not in the build log")
-    part = text[text.index("== sweep_mm.cu"):]
+    check(f"== {source}" in text, f"{source} is not in the build log")
+    part = text[text.index(f"== {source}"):]
     end = part.find("\n== ", 1)
     part = part if end < 0 else part[:end]
     return " | ".join(ln.strip() for ln in part.splitlines()
@@ -2228,13 +2278,12 @@ def t1_ptxas() -> str:
                       or "smem" in ln)
 
 
-def t1_sass() -> dict:
-    """The instructions of the built ``sweep_mm`` kernels (``cuobjdump
-    -sass`` of the library, as ``tools/sass_loop.py`` reads it): for each,
-    the count of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA loads) and ``HMMA``
-    (mma.sync) instructions. Each must hold the first two and not the
-    third: a return to ``mma.sync`` fails here."""
+def sass_opcodes(part: str) -> dict:
+    """The static instruction counts by opcode of each built kernel whose
+    name holds ``part`` (``cuobjdump -sass`` of the library, as
+    ``tools/sass_loop.py`` reads it): ``{kernel: {opcode: count}}``."""
     import re
+    from collections import Counter
 
     from spath_tpu_torch.ops.kernels import build
 
@@ -2247,15 +2296,25 @@ def t1_sass() -> dict:
     for line in listing.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            if "8sweep_mm" not in name:
+            if part not in name:
                 name = None
             else:
-                found[name] = dict(HGMMA=0, UTMALDG=0, HMMA=0)
+                found[name] = Counter()
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
                       line)
-        if name is not None and m and m[1] in found[name]:
+        if name is not None and m:
             found[name][m[1]] += 1
+    return {k: dict(v) for k, v in found.items()}
+
+
+def t1_sass() -> dict:
+    """The count of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA loads) and
+    ``HMMA`` (mma.sync) instructions in each built ``sweep_mm`` kernel.
+    Each must hold the first two and not the third: a return to
+    ``mma.sync`` fails here."""
+    found = {name: {op: ops.get(op, 0) for op in ("HGMMA", "UTMALDG", "HMMA")}
+             for name, ops in sass_opcodes("8sweep_mm").items()}
     check(len(found) == 2, f"T1: {len(found)} sweep_mm kernels in the SASS, "
           "want 2 (K = 64 and 128)")
     for fn, c in found.items():
@@ -2357,7 +2416,7 @@ def t1_phase(torch) -> tuple:
     from spath_tpu_torch.ops.kernels import sweep_mm as sm
     from spath_tpu_torch.tools import sweep_microbench as tool
 
-    log(f"[42] T1 ptxas: {t1_ptxas()}")
+    log(f"[42] T1 ptxas: {ptxas_lines('sweep_mm.cu')}")
     log(f"[42] T1 SASS (cuobjdump): {t1_sass()}")
     w, h, n_tris = T1_SHAPE
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2444,6 +2503,337 @@ def t1_phase(torch) -> tuple:
         })
     del ops, bench
     return records, k5_check
+
+
+def stream_kernels() -> dict:
+    """The threefry kernel's wrapper (phases 43-46)."""
+    from spath_tpu_torch.ops.kernels import threefry as tf
+
+    return {"threefry": tf.threefry_call}
+
+
+def threefry_bound(n: int, n_draws: int):
+    """The threefry kernel's bound at ``n`` pixels: ``(ms, by, ops,
+    bytes)`` from THREEFRY_BLOCK_OPS over PEAK_INT32_OPS and the bytes
+    over PEAK_BYTES."""
+    ops = n * ((n_draws + 1) * THREEFRY_BLOCK_OPS
+               + n_draws * THREEFRY_DRAW_OPS)
+    nbytes = n * (8 + 4 * n_draws)
+    t_ops, t_bytes = ops / PEAK_INT32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", ops, nbytes
+    return t_bytes, "bytes", ops, nbytes
+
+
+def device_ms_by_kernel(torch, fn, names: dict) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device ms of the
+    kernels whose names hold each value of ``names``, of every kernel, the
+    kernels' count, and the call's host ms (ending in a synchronise)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    out = {key: sum(e["dur"] for e in kernels if part in e.get("name", ""))
+           / 1e3 for key, part in names.items()}
+    out.update(all_kernels_ms=sum(e["dur"] for e in kernels) / 1e3,
+               kernels=len(kernels), wall_ms=wall_ms)
+    return out
+
+
+def threefry_phase(torch, dev) -> dict:
+    """Phase 43: the threefry kernel bit-equal to ``per_pixel_uniforms`` over
+    the 1080p frame's pixel ids and 131,072 ids near 2^32, at
+    THREEFRY_DRAWS draws and THREEFRY_STEPS' keys; two launches bitwise
+    equal; timed in turns with its plain version at the QUALITY preset's
+    step (1080p, 5 draws), beside its bound (PEAK_INT32_OPS)."""
+    from spath_tpu_torch.ops import rng
+    from spath_tpu_torch.ops.kernels import threefry as tf
+
+    log(f"[43] threefry ptxas: {ptxas_lines('threefry.cu')}")
+    sass = sass_opcodes("threefry_draws")
+    check(len(sass) == 1, f"{len(sass)} threefry kernels in the SASS")
+    log(f"[43] threefry SASS, static instructions by opcode (the block's "
+        f"adds as IADD3 or IMAD, rotations SHF, xors LOP3): {sass}")
+    n = HEADLINE["width"] * HEADLINE["height"]
+    frame_ids = torch.arange(n, dtype=torch.int64, device=dev)
+    gen = torch.Generator().manual_seed(43)
+    high = torch.cat([(1 << 32) - 1 - torch.arange(65_536),
+                      torch.randint(1 << 31, 1 << 32, (65_536,),
+                                    generator=gen)]).to(dev)
+    checked = 0
+    for seed, sample, bounce in THREEFRY_STEPS:
+        key = rng.fold_in(rng.fold_in(rng.threefry_key(seed), sample),
+                          bounce)
+        for ids in (frame_ids, high):
+            for n_draws in THREEFRY_DRAWS:
+                got = tf.threefry_call(key, ids, n_draws)
+                want = rng.per_pixel_uniforms(key, ids, n_draws)
+                torch.cuda.synchronize()
+                check(torch.equal(got.view(torch.int32),
+                                  want.view(torch.int32)),
+                      f"threefry at step {(seed, sample, bounce)}, "
+                      f"{n_draws} draws, {ids.shape[0]} ids: "
+                      f"{int((got != want).sum())} draws differ from "
+                      "per_pixel_uniforms")
+                checked += got.numel()
+    key = rng.fold_in(rng.fold_in(rng.threefry_key(0), 0), 0)
+    first = tf.threefry_call(key, frame_ids, 5)
+    check(torch.equal(first.view(torch.int32),
+                      tf.threefry_call(key, frame_ids, 5).view(torch.int32)),
+          "two threefry launches differ")
+    check(0.0 <= first.min().item() and first.max().item() < 1.0
+          and abs(first.mean().item() - 0.5) < 1e-3,
+          f"threefry draws: min {first.min().item()}, max "
+          f"{first.max().item()}, mean {first.mean().item()}")
+    ms, plain_ms = in_turns(
+        torch, lambda: tf.threefry_call(key, frame_ids, 5),
+        lambda: rng.per_pixel_uniforms(key, frame_ids, 5), kernel_reps=50)
+    b_ms, b_by, ops, nbytes = threefry_bound(n, 5)
+    out = dict(draws_checked=checked, ms=sum(ms) / len(ms), ms_runs=ms,
+               plain_ms=sum(plain_ms) / 2, plain_runs=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
+               mean=first.mean().item())
+    log(f"[43] threefry vs per_pixel_uniforms bit for bit: {checked} draws "
+        f"({len(THREEFRY_STEPS)} steps x {THREEFRY_DRAWS} draws x the 1080p "
+        f"ids and 131072 ids near 2^32); two launches bitwise equal; at "
+        f"1080p, 5 draws, in turns, on {card()}: kernel {ms} ms (50 "
+        f"launches each), plain {plain_ms} ms; bound {b_ms:.5f} ms "
+        f"({b_by}: {ops / 1e9:.4f} G integer operations at the SMs' "
+        f"issue rate, {PEAK_INT32_OPS / 1e12:.2f} T/s, {nbytes / 1e6:.2f} "
+        "MB)")
+    return out
+
+
+def quality_preset_frame(torch, dev, cam) -> dict:
+    """Phase 44: ``render_pt_fast`` on ``config.QUALITY`` at the headline
+    shape: routed to the wavefront, it launches K5, the light distribution
+    and the threefry kernel (a launch a sample and bounce) and nothing
+    else; its first call, two frames through ``FrameTimer``, one under the
+    profiler for the kernels' device shares; at STREAM_CHECK bit-equal to
+    the frame of the plain sweep and plain draws; ``bounce_stats`` at
+    1080p."""
+    from spath_tpu_torch.config import QUALITY
+    from spath_tpu_torch.models.pathtracer import render_pt_fast
+    from spath_tpu_torch.models.renderer import forward_renderer
+    from spath_tpu_torch.scene import default_scene
+    from spath_tpu_torch.utils.profiling import FrameTimer, bounce_stats
+
+    scene = default_scene(dev)
+    cfg = QUALITY.replace(**HEADLINE)
+    check(forward_renderer(scene, cfg).name == "wavefront",
+          "the QUALITY preset is not routed to the wavefront")
+    zero_counts(every_kernel())
+    t0 = time.perf_counter()
+    img = render_pt_fast(scene, cam, cfg, 0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launched = {k: v for k, v in counts(every_kernel()).items() if v}
+    steps = cfg.spp * cfg.max_bounces
+    check(set(launched) == {"K5", "light", "threefry"}
+          and launched["threefry"] == steps,
+          f"the QUALITY frame launched {launched}; want K5, the light "
+          f"distribution and {steps} threefry launches only")
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3)
+          and torch.isfinite(img).all().item()
+          and img.min().item() >= 0.0 and img.max().item() <= 1.0,
+          "the QUALITY frame is not a finite (H, W, 3) frame in [0, 1]")
+    mean = img.mean().item()
+    check(mean > 0.01, f"the QUALITY frame is black (mean {mean})")
+    del img
+    ft = FrameTimer(cfg)
+    for _ in range(2):
+        with ft.frame():
+            render_pt_fast(scene, cam, cfg, 0)
+    shares = device_ms_by_kernel(
+        torch, lambda: render_pt_fast(scene, cam, cfg, 0),
+        {"threefry_ms": "threefry_draws", "k5_ms": "nearest_hit",
+         "merge_ms": "merge_hits", "light_ms": "light_cdf"})
+    small = QUALITY.replace(**STREAM_CHECK)
+    got = render_pt_fast(scene, cam, small, 0)
+    with plain_sweep():
+        want = render_pt_fast(scene, cam, small, 0)
+    check(torch.equal(got, want), "the QUALITY frame at 320x240x4 differs "
+          "from the plain sweep's and plain draws' in "
+          f"{int((got != want).any(-1).sum())} pixels")
+    stats = bounce_stats(scene, cam, cfg, 0).tolist()
+    out = dict(launches=launched, first_s=first_s, frame_s=ft.times,
+               rays_per_s=ft.rays_per_s, mean=mean, profiled=shares,
+               threefry_share=shares["threefry_ms"] / (ft.last_s * 1e3),
+               bounce_stats=stats)
+    log(f"[44] render_pt_fast on config.QUALITY, {cfg.width}x{cfg.height} "
+        f"spp{cfg.spp} {cfg.max_bounces} bounces, on {card()}: launched "
+        f"{launched}; first call {first_s:.3f} s, frames {ft.times} s, "
+        f"{ft.rays_per_s:.6g} rays/s (FrameTimer), mean {mean:.6f}; "
+        f"profiled frame {shares}; threefry's share of a frame "
+        f"{out['threefry_share']:.6f}; at 320x240x4 bit-equal to the plain "
+        f"sweep's and plain draws' frame; bounce_stats {stats}")
+    return out
+
+
+def wavefront_grads(torch, scene, cam, cfg):
+    """Gradients of ``mean(img^2)`` through ``render_radiance_fastgrad``
+    with respect to the scene's vertices, albedo and emission."""
+    from spath_tpu_torch.models.pathtracer import render_radiance_fastgrad
+
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (scene.vertices, scene.albedo, scene.emission)]
+    img = render_radiance_fastgrad(
+        dataclasses.replace(scene, vertices=leaves[0], albedo=leaves[1],
+                            emission=leaves[2]), cam, cfg, 0)
+    return torch.autograd.grad(img.square().mean(), leaves)
+
+
+def table_stream_phase(torch, dev, cam) -> dict:
+    """Phase 45: a conformance frame on the table stream (angle sampler)
+    at the headline shape through ``render_pt_fast``: the wavefront on K5
+    and no other kernel; two frames through ``FrameTimer``; at
+    STREAM_CHECK bit-equal to the plain sweep's frame, and its gradient
+    (vertices, albedo, emission; the wavefront on K5, its gathers' backward
+    on K7) within GRAD_RTOL of each max of the plain sweep's."""
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.models.pathtracer import render_pt_fast
+    from spath_tpu_torch.models.renderer import forward_renderer, \
+        grad_renderer
+    from spath_tpu_torch.scene import default_scene
+    from spath_tpu_torch.utils.profiling import FrameTimer
+
+    scene = default_scene(dev)
+    cfg = RenderConfig(**HEADLINE, rng="table")
+    check(forward_renderer(scene, cfg).name == "wavefront",
+          "the table stream is not routed to the wavefront")
+    zero_counts(every_kernel())
+    t0 = time.perf_counter()
+    img = render_pt_fast(scene, cam, cfg, 0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launched = {k: v for k, v in counts(every_kernel()).items() if v}
+    check(set(launched) == {"K5"}, f"the table frame launched {launched}; "
+          "want K5 only")
+    check(torch.isfinite(img).all().item() and img.mean().item() > 0.01,
+          "the table frame is black or not finite")
+    mean = img.mean().item()
+    del img
+    ft = FrameTimer(cfg)
+    for _ in range(2):
+        with ft.frame():
+            render_pt_fast(scene, cam, cfg, 0)
+    small = cfg.replace(**STREAM_CHECK)
+    got = render_pt_fast(scene, cam, small, 0)
+    with plain_sweep():
+        want = render_pt_fast(scene, cam, small, 0)
+    check(torch.equal(got, want), "the table frame at 320x240x4 differs "
+          "from the plain sweep's in "
+          f"{int((got != want).any(-1).sum())} pixels")
+    check(grad_renderer(scene, small).name == "wavefront",
+          "the table stream's gradient is not routed to the wavefront")
+    zero_counts(every_kernel())
+    grads = wavefront_grads(torch, scene, cam, small)
+    torch.cuda.synchronize()
+    glaunched = {k: v for k, v in counts(every_kernel()).items() if v}
+    check(set(glaunched) == {"K5", "K7"}, f"the table stream's gradient "
+          f"launched {glaunched}; want K5 and K7")
+    with plain_sweep():
+        plain = wavefront_grads(torch, scene, cam, small)
+    errs = {}
+    for name, g, w in zip(("vertices", "albedo", "emission"), grads, plain):
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        check(scale > 0 and err <= GRAD_RTOL * scale, f"the table stream's "
+              f"{name} gradient off the plain sweep's by {err:.6g}, max "
+              f"{scale:.6g}")
+        errs[name] = err / scale
+    out = dict(launches=launched, first_s=first_s, frame_s=ft.times,
+               rays_per_s=ft.rays_per_s, mean=mean,
+               grad_launches=glaunched, grad_rel_err=errs)
+    log(f"[45] render_pt_fast on the table stream, {cfg.width}x"
+        f"{cfg.height} spp{cfg.spp} {cfg.max_bounces} bounces, on {card()}: "
+        f"launched {launched}; first call {first_s:.3f} s, frames "
+        f"{ft.times} s, {ft.rays_per_s:.6g} rays/s, mean {mean:.6f}; at "
+        f"320x240x4 bit-equal to the plain sweep's frame; its gradient "
+        f"launched {glaunched}, off the plain sweep's by {errs} of each max")
+    return out
+
+
+def quality_preset_training(torch, dev, cam) -> dict:
+    """Phase 46: 3 ``recover`` steps on ``config.QUALITY`` at 1080p,
+    PRESET_TRAIN_SPP samples, 5 bounces, the CLI's perturbation and
+    optimizer (albedo at 2e-2, pose frozen), the target's seed fixed:
+    through the wavefront's autograd, launching K5, K7, the light
+    distribution and the threefry kernel and none of K1-K4, K6, K8-K11;
+    the loss falls; two gradients on one seed bitwise equal."""
+    import numpy as np
+
+    from spath_tpu_torch.config import QUALITY
+    from spath_tpu_torch.models.inverse import (
+        InverseParams, param_group_optimizer, recover, render_loss,
+    )
+    from spath_tpu_torch.models.renderer import forward_renderer, \
+        grad_renderer
+    from spath_tpu_torch.scene import default_scene
+
+    scene = default_scene(dev)
+    cfg = QUALITY.replace(**HEADLINE).replace(spp=PRESET_TRAIN_SPP)
+    check(grad_renderer(scene, cfg).name == "wavefront",
+          "the QUALITY preset's gradient is not routed to the wavefront")
+    target = forward_renderer(scene, cfg).render_radiance(scene, cam, cfg, 0)
+    true_albedo = scene.albedo.cpu().numpy()
+    bad = np.clip(true_albedo + np.random.default_rng(1).uniform(
+        -0.4, 0.4, true_albedo.shape).astype(np.float32), 0.05, 1.0)
+    params = InverseParams(cam_pos=cam.pos, cam_angle=cam.angle,
+                           cam_focal=cam.focal,
+                           albedo=torch.from_numpy(bad).to(dev))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(every_kernel())
+    msgs = []
+    t0 = time.perf_counter()
+    state, losses = recover(
+        scene, target, params, cfg,
+        param_group_optimizer(freeze_pose=True, albedo_lr=2e-2), steps=3,
+        fixed_seed=0, log_every=1, log_fn=msgs.append)
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launched = {k: v for k, v in counts(every_kernel()).items() if v}
+    draws = 3 * cfg.spp * cfg.max_bounces
+    check(set(launched) == {"K5", "K7", "light", "threefry"}
+          and launched["threefry"] == draws,
+          f"3 QUALITY train steps launched {launched}; want K5, K7, the "
+          f"light distribution and {draws} threefry launches only")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"QUALITY training: the loss did not fall: {losses}")
+    leaves = state.params.leaves()
+    grads, fwd_bwd_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        loss = render_loss(leaves, scene, target, cfg, 0)
+        grads.append(torch.autograd.grad(loss, [leaves.albedo])[0])
+        torch.cuda.synchronize()
+        fwd_bwd_s.append(time.perf_counter() - t0)
+    check(torch.isfinite(grads[0]).all().item()
+          and grads[0].abs().max().item() > 0, "QUALITY training: the "
+          "albedo gradient is zero or not finite")
+    check(torch.equal(grads[0], grads[1]), "two QUALITY gradients on one "
+          "seed differ by " f"{(grads[0] - grads[1]).abs().max().item()}")
+    out = dict(launches=launched, losses=losses, steps_s=steps_s,
+               step_s=steps_s / 3, fwd_bwd_s=fwd_bwd_s, peak_gb=peak_gb,
+               log=msgs)
+    log(f"[46] 3 recover steps on config.QUALITY, {cfg.width}x{cfg.height} "
+        f"spp{cfg.spp} (cut from 64 for time) {cfg.max_bounces} bounces, "
+        f"on {card()}: launched {launched}; losses {losses}; {steps_s:.3f} "
+        f"s in all; two gradients on one seed bitwise equal, "
+        f"{fwd_bwd_s} s each; peak device memory {peak_gb:.3f} GB")
+    return out
 
 
 def run() -> None:
@@ -3686,6 +4076,13 @@ def run() -> None:
     # 42. T1, the matmul-only sweep microbenchmark, through its tool
     t1_records, k5_bench = t1_phase(torch)
 
+    # 43-46. the threefry and table streams: the threefry kernel, the
+    # QUALITY preset's frame, the table stream, training on QUALITY
+    tf_check = threefry_phase(torch, dev)
+    preset = quality_preset_frame(torch, dev, cam)
+    table = table_stream_phase(torch, dev, cam)
+    preset_tr = quality_preset_training(torch, dev, cam)
+
     print(json.dumps({"kernels": [{
         "name": "megakernel_forward",
         "route": "cuda",
@@ -3923,7 +4320,29 @@ def run() -> None:
         "bound_ms": k11_bound[0],
         "bound_by": k11_bound[1],
         "library_ms": None,
-    }, *t1_records]}))
+    }, *t1_records, {
+        "name": "threefry",
+        "route": "cuda",
+        "source": "spath_tpu_torch/csrc/threefry.cu",
+        "replaces": "spath_tpu/ops/rng.py:220",
+        "replaces_note": "per_pixel_uniforms, XLA; no Pallas kernel",
+        "launches": preset["launches"]["threefry"],
+        "launches_by_path": {
+            "QUALITY serving": preset["launches"]["threefry"],
+            "QUALITY training": preset_tr["launches"]["threefry"]},
+        "max_abs_err": 0.0,
+        "ms": tf_check["ms"],
+        "ms_runs": tf_check["ms_runs"],
+        "at": f"{HEADLINE['width']}x{HEADLINE['height']} pixels, 5 draws",
+        "share_of_quality_frame": preset["threefry_share"],
+        "plain_ms": tf_check["plain_ms"],
+        "bound_ms": tf_check["bound_ms"],
+        "bound_by": tf_check["bound_by"],
+        "bound_rate": "33.4e12 integer operations/s (the SMs' issue "
+                      "rate)",
+        "library_ms": None,
+        "library_note": "none: torch.rand is Philox, another stream",
+    }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,20 +10,30 @@ in both modes: the fused kernels (K1/K2, K3/K4) take the small ones, the
 streamed kernels (K6/K8/K7, K9/K10/K7) the large ones.
 
 ``--mode conformance`` (the default) is the reference's estimator, LCG
-and angle sampler; ``--mode quality`` is the cosine sampler with
-next-event estimation and MIS on the counter-based ``hash`` stream, with
-``--rr-start`` (Russian roulette) and ``--stratify``, as the JAX
-package's CLI builds it. The clamped frame goes through
-``render_pt_fast``, the serving path (the CUDA kernel of the mode, K1,
-K6, K3 or K9, on a CUDA device); ``--flat`` renders the flat debug view.
-``invert`` trains through ``render_radiance_fastgrad`` (the kernel
-forward and its reverse sweep backward, K1+K2, K6+K8, K3+K4 or K9+K10,
-on a CUDA device). Examples::
+and angle sampler, or with ``--rng table`` the reference's ``vec_dist``
+table stream; ``--mode quality`` is the cosine sampler with next-event
+estimation and MIS on a counter-based stream, ``--rng hash`` (the
+default) or ``--rng threefry`` (``jax.random``'s stream, the JAX
+package's ``QUALITY`` preset), with ``--rr-start`` (Russian roulette) and
+``--stratify``, as the JAX package's CLI builds it. The clamped frame
+goes through ``render_pt_fast``, the serving path (on a CUDA device the
+CUDA kernel of the mode, K1, K6, K3 or K9; the threefry and table streams
+take the wavefront on K5, threefry's draws from ``csrc/threefry.cu``);
+``--tonemap`` maps the serving path's unclamped radiance instead, after
+``--exposure``; ``--flat`` renders the flat debug view. ``--intersect``
+names the JAX package's nearest-hit implementation; each is the same
+exact sweep in the port. ``invert`` trains through
+``render_radiance_fastgrad`` (the kernel forward and its reverse sweep
+backward, K1+K2, K6+K8, K3+K4 or K9+K10, on a CUDA device; the wavefront
+with autograd for the threefry and table streams). Examples::
 
   python -m spath_tpu_torch.cli render --size 640x480 --spp 128 --out frame.png
   python -m spath_tpu_torch.cli render --scene procedural:10000 --size 1920x1080 --spp 64
   python -m spath_tpu_torch.cli render --mode quality --spp 32 --out q.png
   python -m spath_tpu_torch.cli render --mode quality --scene procedural:10000
+  python -m spath_tpu_torch.cli render --mode quality --rng threefry --spp 32
+  python -m spath_tpu_torch.cli render --mode quality --tonemap aces --exposure 2
+  python -m spath_tpu_torch.cli render --rng table --device cpu --out t.png
   python -m spath_tpu_torch.cli render --flat --device cpu --out flat.png
   python -m spath_tpu_torch.cli invert --size 640x480 --spp 16 --steps 100
 """
@@ -88,10 +98,18 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--rng", choices=["hash", "threefry", "table"],
                    default="hash",
                    help="quality-mode RNG: 'hash' (default, the fused "
-                        "quality kernels) or 'threefry' (not ported yet); "
-                        "conformance mode is always the reference LCG, "
-                        "except '--rng table', the reference's debug "
-                        "table stream (not ported yet)")
+                        "quality kernels) or 'threefry' (jax.random's "
+                        "stream, the wavefront with the threefry kernel). "
+                        "Conformance mode is always the reference LCG, "
+                        "except '--rng table', the reference's vec_dist "
+                        "shuffled-table debug RNG (src/frand.h:32-50), "
+                        "conformance mode only")
+    p.add_argument("--intersect",
+                   choices=["reference", "pluecker", "pallas", "pallas_fast"],
+                   default=None,
+                   help="the JAX package's nearest-hit implementation "
+                        "(default pluecker); every one is the same exact "
+                        "sweep here")
     p.add_argument("--rr-start", type=int, default=0,
                    help="Russian-roulette start bounce (0 = off; quality "
                         "mode only)")
@@ -106,16 +124,13 @@ def _config(args):
     from spath_tpu_torch.config import RenderConfig
 
     w, h = args.size
-    base = dict(width=w, height=h, spp=args.spp, max_bounces=args.bounces)
+    base = dict(width=w, height=h, spp=args.spp, max_bounces=args.bounces,
+                intersect=args.intersect or "pluecker")
     if args.mode == "quality":
         if args.rng == "table":
             raise SystemExit(
                 "--rng table is a conformance-mode debug RNG (quality "
                 "mode's NEE needs a counter-based stream)")
-        if args.rng == "threefry":
-            raise NotImplementedError(
-                "--rng threefry: the threefry stream is not ported yet "
-                "(ROADMAP queue 1, item 2); use --rng hash")
         return RenderConfig(**base, rng=args.rng, sampler="cosine",
                             nee=True, rr_start=args.rr_start,
                             stratify=args.stratify)
@@ -123,11 +138,8 @@ def _config(args):
         raise SystemExit(
             "--rr-start/--stratify need --mode quality (the conformance "
             "LCG stream layout has no slot for them)")
-    if args.rng == "table":
-        raise NotImplementedError(
-            "--rng table: the vec_dist table stream is not ported yet "
-            "(ROADMAP queue 1, item 2)")
-    return RenderConfig(**base, rng="lcg", sampler="angle")
+    return RenderConfig(**base, rng="table" if args.rng == "table"
+                        else "lcg", sampler="angle")
 
 
 def _scene(spec: str, device):
@@ -154,12 +166,17 @@ def _scene(spec: str, device):
 
 def cmd_render(args) -> int:
     cfg = _config(args)
+    if args.flat and args.tonemap != "clamp":
+        raise SystemExit(
+            "--tonemap operators need HDR radiance; the flat debug "
+            "view is already LDR (drop --flat or --tonemap)")
     device = _device(args.device)
 
     from spath_tpu_torch.convert import camera_from_numpy
     from spath_tpu_torch.models.flat import render_flat
     from spath_tpu_torch.models.pathtracer import render_pt_fast
-    from spath_tpu_torch.utils.image import write_png, write_ppm
+    from spath_tpu_torch.models.renderer import forward_renderer
+    from spath_tpu_torch.utils.image import tonemap, write_png, write_ppm
 
     scene = _scene(args.scene, device)
     cam = camera_from_numpy(args.camera_pos, args.camera_angle, args.focal,
@@ -167,10 +184,14 @@ def cmd_render(args) -> int:
     w, h = args.size
     t0 = time.perf_counter()
     if args.flat:
-        img = render_flat(scene, cam, cfg)
+        img = render_flat(scene, cam, cfg).cpu().numpy()
+    elif args.tonemap != "clamp":
+        # the serving path's unclamped radiance (its kernel on the card)
+        hdr = forward_renderer(scene, cfg).render_radiance(scene, cam, cfg,
+                                                           args.seed)
+        img = tonemap(hdr.cpu().numpy(), args.tonemap, args.exposure)
     else:
-        img = render_pt_fast(scene, cam, cfg, args.seed)
-    img = img.cpu().numpy()          # waits for the device
+        img = render_pt_fast(scene, cam, cfg, args.seed).cpu().numpy()
     dt = time.perf_counter() - t0
     n_rays = w * h * (1 if args.flat else cfg.spp * cfg.max_bounces)
     print(f"rendered {w}x{h} on {device} in {dt:.3f}s "
@@ -247,6 +268,12 @@ def main(argv=None) -> int:
     _add_common(p)
     p.add_argument("--flat", action="store_true",
                    help="flat-shaded debug view (reference render_flat)")
+    p.add_argument("--tonemap", default="clamp",
+                   choices=["clamp", "reinhard", "aces", "gamma22"],
+                   help="HDR->display operator (clamp = reference "
+                        "semantics, src/scene.h:32-39)")
+    p.add_argument("--exposure", type=float, default=1.0,
+                   help="linear exposure multiplier before tonemapping")
     p.add_argument("--out", default="frame.png")
     p.set_defaults(fn=cmd_render)
 

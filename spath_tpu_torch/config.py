@@ -2,10 +2,12 @@
 
 The same frozen dataclass, fields and defaults as the JAX package's
 ``spath_tpu/config.py``, copied rather than imported so the port never
-pulls in JAX. The ``lcg`` and ``hash`` streams are implemented, with
-every sampler, NEE, MIS, Russian roulette and stratification; the
-renderers raise ``NotImplementedError`` for the ``threefry`` and
-``table`` streams instead of rendering something else.
+pulls in JAX. Every stream is implemented: ``lcg``, ``hash``,
+``threefry`` (``jax.random``'s, bit for bit) and ``table`` (the
+reference's ``vec_dist``), with every sampler, NEE, MIS, Russian roulette
+and stratification where the JAX package allows them. ``intersect`` names
+the JAX package's nearest-hit implementations; every one of them is the
+same exact sweep in the port (K5 on the card).
 """
 
 from __future__ import annotations
@@ -53,3 +55,9 @@ class RenderConfig:
 
 #: Conformance config: the reference's per-pixel LCG + angle sampler.
 CONFORMANCE = RenderConfig(rng="lcg", sampler="angle", intersect="reference")
+
+#: Quality config: threefry RNG + cosine-weighted sampling + NEE
+#: (``spath_tpu/config.py``'s ``QUALITY``, letter for letter).
+QUALITY = RenderConfig(
+    rng="threefry", sampler="cosine", intersect="pluecker", nee=True
+)

@@ -6,15 +6,19 @@ The parameters are four tensors (camera position, angles, focal length
 and the albedo field); the loss is the mean squared error between the
 differentiable render ``render_radiance_fastgrad`` (on a CUDA device K1
 forward and K2 backward for the conformance estimator, K3 and K4 for the
-quality estimator, on large scenes K6 and K8 or K9 and K10, each with the
-scatter K7; autograd of the wavefront on the CPU) and the target;
+quality estimator in its hash form, on large scenes K6 and K8 or K9 and
+K10, each with the scatter K7; for the threefry stream of
+``config.QUALITY`` and the table stream autograd of the wavefront on K5,
+its draws from the threefry kernel; autograd of the wavefront on the CPU)
+and the target;
 ``recover``, ``make_train_step`` and ``make_multiview_train_step`` take a
 config with ``vis_grad`` as it is, and the gradient then adds the
 visibility residual (``VisGradFusedRenderer``, whose sweeps are K5 and,
 on large quality scenes at up to 8 spp, whose interior's forward is
 K11), so a pose step sees light silhouettes and shadow boundaries;
-the optimizer is ``torch.optim.Adam`` with a pose and an albedo parameter
-group, in place of the JAX package's optax transforms. The conformance
+the optimizer is ``torch.optim.Adam`` (``recover``'s default at
+``learning_rate``, or with a pose and an albedo parameter group), in
+place of the JAX package's optax transforms. The conformance
 estimator's camera gradient is exactly zero; the quality estimator's
 next-event term makes it smooth and non-zero (K4's or K10's camera-ray
 adjoint, carried to the pose by ``generate_rays``' autograd).
@@ -33,10 +37,9 @@ What differs from the JAX package, and why:
   against 0-d tensors, whose gradient at a bound is 0.5, as
   ``jnp.clip``'s; ``torch.clamp``'s is 1.0 there, and the default
   scene's albedo lies on the bounds.
-- ``recover`` takes its optimizer (no ``learning_rate`` default), saves
-  and logs at fixed intervals (``CHECKPOINT_EVERY``, ``LOG_EVERY``) and
-  writes no metrics file: the port's one caller, ``cli invert``, sets
-  none of these.
+- ``recover`` takes the optimizer as its fifth positional argument and
+  ``steps`` after it (the JAX package takes ``steps`` fifth); by keyword
+  every option is the JAX package's, with its defaults and meaning.
 - The sharded ``mesh`` paths are not ported.
 """
 
@@ -228,24 +231,31 @@ def make_multiview_train_step(base_scene: Scene, cameras: Camera,
     return step_fn
 
 
-#: ``recover`` saves a checkpoint every CHECKPOINT_EVERY steps (and at
-#: the end) and logs the loss every LOG_EVERY steps (and at the end).
-CHECKPOINT_EVERY, LOG_EVERY = 50, 20
-
-
 def recover(base_scene: Scene, target: torch.Tensor,
             init_params: InverseParams, cfg: RenderConfig,
-            optimizer: Optimizer, steps: int = 200,
-            fixed_seed: int | None = None,
-            checkpoint_dir: str | None = None, log_fn=print,
-            max_retries: int = 0):
-    """The optimization loop, with checkpoint and resume.
+            optimizer: Optimizer | None = None, steps: int = 200,
+            learning_rate: float = 5e-3, fixed_seed: int | None = None,
+            checkpoint_dir: str | None = None, checkpoint_every: int = 50,
+            log_every: int = 20, log_fn=print,
+            metrics_path: str | None = None, max_retries: int = 0):
+    """The optimization loop, with checkpoint and resume
+    (``spath_tpu/models/inverse.py::recover``).
 
-    Returns ``(state, losses)``. If ``checkpoint_dir`` holds a previous
-    run, resumes from its latest step. ``max_retries``: if a step raises,
-    roll back to the last checkpoint and go on, up to this many times;
-    needs ``checkpoint_dir``.
+    Returns ``(state, losses)``. ``optimizer`` (a factory,
+    ``param_group_optimizer``) defaults to Adam at ``learning_rate`` on
+    every parameter. If ``checkpoint_dir`` holds a previous run, resumes
+    from its latest step; saves every ``checkpoint_every`` steps and at
+    the end. Logs the loss through ``log_fn`` at step 0, every
+    ``log_every`` steps and at the last (``log_every=0``: never).
+    ``metrics_path``: append a ``train_step`` record (step, loss,
+    grad_norm) a step to that JSONL file (``utils/logging.py``).
+    ``max_retries``: if a step raises, roll back to the last checkpoint and
+    go on, up to this many times; needs ``checkpoint_dir``.
     """
+    if optimizer is None:
+        def optimizer(p: InverseParams) -> torch.optim.Optimizer:
+            return torch.optim.Adam(list(p.tensors().values()),
+                                    lr=learning_rate)
     if max_retries and checkpoint_dir is None:
         raise ValueError("max_retries requires checkpoint_dir")
     state = init_state(optimizer, init_params)
@@ -259,6 +269,12 @@ def recover(base_scene: Scene, target: torch.Tensor,
         if restored is not None:
             state = restored
             log_fn(f"resumed from step {state.step}")
+
+    metrics = None
+    if metrics_path is not None:
+        from spath_tpu_torch.utils.logging import JsonlLogger
+
+        metrics = JsonlLogger(metrics_path)
 
     train_step = make_train_step(base_scene, cfg, fixed_seed)
     losses = []
@@ -278,10 +294,15 @@ def recover(base_scene: Scene, target: torch.Tensor,
         i = state.step
         loss = float(aux["loss"])
         losses.append(loss)
-        if (i - 1) % LOG_EVERY == 0 or i == steps:
+        if metrics is not None:
+            metrics.log("train_step", step=i - 1, loss=loss,
+                        grad_norm=float(aux["grad_norm"]))
+        if log_every and ((i - 1) % log_every == 0 or i == steps):
             log_fn(f"step {i - 1}: loss {loss:.6f}")
-        if ckpt is not None and i % CHECKPOINT_EVERY == 0:
+        if ckpt is not None and i % checkpoint_every == 0:
             ckpt.save(i, state)
     if ckpt is not None:
         ckpt.save(state.step, state)
+    if metrics is not None:
+        metrics.close()
     return state, losses

@@ -10,20 +10,27 @@ Dead rays are masked lanes, not branches. The camera rays' first hit is
 the same for every sample, so it is computed once and shared. Attributes
 of the hit triangle are gathered by ``ops/gather.py::gather_rows``.
 
-Two estimators are ported:
+Two estimators, four streams:
 
 - **conformance** (``rng="lcg"``, ``sampler="angle"``): the reference's
   per-pixel LCG, advanced twice and only where a ray hit, and its
-  angle-uniform sampler, ``w_b = 2·cosθ``;
-- **quality** (``rng="hash"``): the counter-based hash stream keyed by
-  (seed, pixel, sample, bounce, draw), the cosine (``w_b = 1``), uniform
-  or angle sampler, and with ``nee`` next-event estimation
-  (``ops/nee.py``): camera-ray emitter hits count fully, later
-  BSDF-sampled ones carry the MIS partner weight (``mis``) or are dropped;
-  ``rr_start`` Russian roulette on the continuation, survival
-  q = max throughput component with a 1/q reweight, its draw at the fixed
-  index 5 with NEE and 2 without; ``stratify`` spreads the first
-  bounce's azimuth over the spp samples.
+  angle-uniform sampler, ``w_b = 2·cosθ``; ``rng="table"`` swaps in the
+  reference's ``vec_dist`` table (``ops/rng.py::table_uniforms``: two
+  draws a bounce, stateless, the frame seed as the cursor's offset), with
+  any sampler;
+- **quality** (``rng="hash"`` or ``"threefry"``): a counter-based stream
+  keyed by the ray's global pixel id, the hash stream by (seed, pixel,
+  sample, bounce, draw), the threefry stream ``jax.random``'s (the frame
+  key ``threefry_key(seed)`` folded with the sample and the bounce on the
+  host, then with the pixel id on the device, ``csrc/threefry.cu`` on the
+  card); the cosine (``w_b = 1``), uniform or angle sampler, and with
+  ``nee`` next-event estimation (``ops/nee.py``): camera-ray emitter hits
+  count fully, later BSDF-sampled ones carry the MIS partner weight
+  (``mis``) or are dropped; ``rr_start`` Russian roulette on the
+  continuation, survival q = max throughput component with a 1/q
+  reweight, its draw at the fixed index 5 with NEE and 2 without;
+  ``stratify`` spreads the first bounce's azimuth over the spp samples.
+  ``config.QUALITY`` is the JAX package's preset, threefry with NEE.
 
 The walk is written over the scene's geometry ``(v0, e1, e2, normals,
 albedo, emission)``, so the fused kernel K1's plain version
@@ -40,11 +47,14 @@ emission and the camera under ``torch.autograd``;
 kernels' hand-written backward on a CUDA device. With ``cfg.vis_grad``
 the wavefront adds the visibility terms of ``ops/warp.py`` (exactly
 neutral forward), and ``render_vis_residual`` gives them alone, for
-``VisGradFusedRenderer``. The ``threefry`` and ``table`` streams are not
-ported and raise ``NotImplementedError``.
+``VisGradFusedRenderer``. A config the JAX package refuses (NEE, Russian
+roulette or stratification on the LCG or table stream) raises its
+``ValueError``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -55,18 +65,16 @@ from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.ops import nee
 from spath_tpu_torch.ops.gather import gather_rows
 from spath_tpu_torch.ops.intersect import (
-    check_method, nearest_hit_edges, sweep_table,
+    check_method, in_plain_sweep, nearest_hit_edges, sweep_table,
 )
-from spath_tpu_torch.ops.rng import fmix32, hash_keys, key_uniforms, lcg_next
+from spath_tpu_torch.ops.rng import (
+    fmix32, fold_in, hash_keys, key_uniforms, lcg_next, per_pixel_uniforms,
+    table_tensor, table_uniforms, threefry_key,
+)
+from spath_tpu_torch.ops.kernels.threefry import threefry_call
 from spath_tpu_torch.ops.sampling import cross3, dot3, hemisphere_sample
 from spath_tpu_torch.ops.warp import nee_boundary_term, reparam_emitter_factor
 from spath_tpu_torch.scene import Scene
-
-#: What is not ported, and where the ROADMAP queues it.
-_MISSING = {
-    "threefry": "the threefry stream (ROADMAP queue 1, item 2)",
-    "table": "the vec_dist table stream (ROADMAP queue 1, item 2)",
-}
 
 
 def _conformance_gaps(cfg: RenderConfig) -> list[str]:
@@ -99,25 +107,36 @@ def require_conformance(cfg: RenderConfig) -> None:
             + ", ".join(gaps))
 
 
-def unported(cfg: RenderConfig) -> list[str]:
-    """What of ``cfg`` the port cannot render, in words."""
-    missing = []
-    if cfg.rng in _MISSING:
-        missing.append(f"rng={cfg.rng!r}: {_MISSING[cfg.rng]}")
-    return missing
-
-
-def require_ported(cfg: RenderConfig) -> None:
-    """Raise ``NotImplementedError`` naming what is missing when the port
-    has no estimator for ``cfg``, and ``ValueError`` for the settings the
-    JAX package refuses."""
-    missing = unported(cfg)
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
-    if cfg.nee and cfg.rng == "lcg":
+def check_estimator(cfg: RenderConfig) -> None:
+    """Raise the JAX package's ``ValueError`` for the settings it refuses:
+    NEE, Russian roulette or stratification on a stream with no slot for
+    their draws (``lcg``, ``table``)."""
+    if cfg.nee and cfg.rng in ("lcg", "table"):
         raise ValueError("cfg.nee requires rng='threefry' or 'hash'")
-    if (cfg.rr_start or cfg.stratify) and cfg.rng == "lcg":
+    if (cfg.rr_start or cfg.stratify) and cfg.rng in ("lcg", "table"):
         raise ValueError("rr_start/stratify require rng='threefry'/'hash'")
+
+
+class ThreefryRays(NamedTuple):
+    """The threefry stream of a set of rays: a key's two words (the
+    frame's, or a sample's once ``sample`` has folded it) and the rays'
+    int64 global pixel ids, which key each ray's draws."""
+
+    key: tuple[int, int]
+    ids: torch.Tensor
+
+    def sample(self, s: int) -> "ThreefryRays":
+        return ThreefryRays(fold_in(self.key, s), self.ids)
+
+
+class TableRays(NamedTuple):
+    """The ``table`` stream of a set of rays: the ``vec_dist`` table on
+    their device, their int64 global pixel ids and the frame seed, the
+    cursors' offset."""
+
+    table: torch.Tensor
+    ids: torch.Tensor
+    offset: int
 
 
 def scene_geometry(scene: Scene):
@@ -133,13 +152,33 @@ def geometry_lights(geom) -> tuple[nee.Lights, torch.Tensor]:
 
 
 def n_draws(cfg: RenderConfig) -> int:
-    """Uniforms a hash-stream bounce draws: direction (2), light choice
-    and point (3) with NEE, roulette (1), and with ``vis_grad`` and NEE
-    the edge sample's two (``ops/warp.py``), after the roulette slot. Each
-    draw is keyed by its index (``ops/rng.py::key_uniforms``), so the
-    first five or six are the same with or without ``vis_grad``."""
+    """Uniforms a bounce of a counter-based stream draws: direction (2),
+    light choice and point (3) with NEE, roulette (1), and with
+    ``vis_grad`` and NEE the edge sample's two (``ops/warp.py``), after
+    the roulette slot; the table stream's 2. Each draw is keyed by its
+    index, so the first five or six are the same with or without
+    ``vis_grad``."""
     return ((5 if cfg.nee else 2) + (1 if cfg.rr_start else 0)
             + (2 if cfg.vis_grad and cfg.nee else 0))
+
+
+def _bounce_uniforms(cfg: RenderConfig, rng, sample: int,
+                     bounce: int) -> torch.Tensor:
+    """The ``(n_draws(cfg), N)`` uniforms of one bounce of a counter-based
+    stream (``spath_tpu/models/pathtracer.py::_bounce_uniforms``): the
+    hash stream from the rays' first-round hashes, the table stream's
+    cursors, or the threefry stream's sample key folded with the bounce,
+    drawn by ``csrc/threefry.cu`` on the card (its plain version inside
+    ``plain_sweep()``, where the kernels' plain references run)."""
+    if cfg.rng == "hash":
+        return key_uniforms(rng, sample, bounce, n_draws(cfg))
+    if cfg.rng == "table":
+        return table_uniforms(rng.table, rng.ids, sample, bounce,
+                              n_draws(cfg), cfg.max_bounces, rng.offset)
+    key = fold_in(rng.key, bounce)
+    if in_plain_sweep():
+        return per_pixel_uniforms(key, rng.ids, n_draws(cfg))
+    return threefry_call(key, rng.ids, n_draws(cfg))
 
 
 def _tri_dist(o, d, v0h, e1h, e2h, hit):
@@ -173,14 +212,17 @@ def _tri_dist(o, d, v0h, e1h, e2h, hit):
 def trace_geometry(geom, origins, directions, rng, cfg: RenderConfig,
                    first_hit=None, lights=None, sample: int = 0,
                    verts=None, vis_residual: bool = False,
-                   hits_replay=None):
+                   hits_replay=None, alive_fractions=None):
     """Trace one sample per ray through ``geom`` (``scene_geometry``).
 
     ``rng`` is the rays' stream: for ``rng="lcg"`` their int64 LCG states,
     for ``rng="hash"`` their first-round hashes ``fmix32(keys)``, the same
-    for every sample. ``lights`` (``geometry_lights``) is needed with NEE;
-    ``sample`` is the sample's counter. Returns ``(radiance (N, 3),
-    rng)``.
+    for every sample, for ``rng="threefry"`` a ``ThreefryRays`` with the
+    sample's key, for ``rng="table"`` a ``TableRays``. ``lights``
+    (``geometry_lights``) is needed with NEE; ``sample`` is the sample's
+    counter. Returns ``(radiance (N, 3), rng)``. ``alive_fractions``, a
+    list, gets each bounce's share of rays still alive after it (0-d
+    float32 tensors; ``utils/profiling.py::bounce_stats``).
 
     With ``cfg.vis_grad`` every emitter hit after the camera's carries the
     warped-area factor and, with NEE, every vertex the edge-sampled
@@ -277,7 +319,7 @@ def trace_geometry(geom, origins, directions, rng, cfg: RenderConfig,
             rng = torch.where(hit, s2, rng)
             us = (u1, u2)
         else:
-            us = key_uniforms(rng, sample, bounce, n_draws(cfg))
+            us = _bounce_uniforms(cfg, rng, sample, bounce)
         u_az = us[0]
         if cfg.stratify and bounce == 0:
             u_az = (float(np.float32(sample)) + u_az) \
@@ -359,6 +401,8 @@ def trace_geometry(geom, origins, directions, rng, cfg: RenderConfig,
         if use_mis:
             prev_pdf = nee.bsdf_pdf(cfg.sampler,
                                     dot3(next_d, adj_n)).detach()
+        if alive_fractions is not None:
+            alive_fractions.append(alive.float().mean())
     return radiance, rng
 
 
@@ -374,8 +418,11 @@ def mean_radiance_geometry(geom, origins, directions, rng,
     Under autograd with ``cfg.remat`` and more than 8 samples, each
     sample is checkpointed (``torch.utils.checkpoint``), as the JAX
     package's ``jax.checkpoint`` per sample: the tape holds one sample's
-    walk at a time, which is recomputed in the backward pass."""
-    require_ported(cfg)
+    walk at a time, which is recomputed in the backward pass, its draws
+    too (every stream is counter-based or carried, so they are the same
+    numbers). A threefry stream's key is folded with each sample's
+    counter (``ThreefryRays.sample``)."""
+    check_estimator(cfg)
     n, device = origins.shape[0], origins.device
     first_hit = None
     if hits_replay is None:
@@ -396,12 +443,16 @@ def mean_radiance_geometry(geom, origins, directions, rng,
         replay = None if hits_replay is None else [
             (hits_replay[0][s, b], hits_replay[1][s, b])
             for b in range(cfg.max_bounces)]
-        args = (geom, origins, directions, rng, cfg, first_hit, lights, s,
+        rng_s = rng.sample(s) if cfg.rng == "threefry" else rng
+        args = (geom, origins, directions, rng_s, cfg, first_hit, lights, s,
                 verts, vis_residual, replay)
         if remat:
-            rad, rng = checkpoint(trace_geometry, *args, use_reentrant=False)
+            rad, rng_s = checkpoint(trace_geometry, *args,
+                                    use_reentrant=False)
         else:
-            rad, rng = trace_geometry(*args)
+            rad, rng_s = trace_geometry(*args)
+        if cfg.rng == "lcg":
+            rng = rng_s
         accum = accum + rad
     return accum * float(np.float32(1.0) / np.float32(cfg.spp))
 
@@ -416,47 +467,71 @@ def _scene_verts(scene: Scene):
     return scene.v0, scene.v1, scene.v2
 
 
+def _stream(cfg: RenderConfig, seed, ids: torch.Tensor):
+    """The counter-based stream of rays with global pixel ids ``ids``
+    under the frame seed ``seed`` (a threefry key's two words too):
+    ``trace_geometry``'s ``rng`` for every sample."""
+    if cfg.rng == "hash":
+        return fmix32(hash_keys(int(seed), ids))
+    if cfg.rng == "threefry":
+        return ThreefryRays(threefry_key(seed), ids)
+    return TableRays(table_tensor(cfg.table_size, ids.device), ids,
+                     int(seed))
+
+
 def trace_radiance(scene: Scene, origins, directions, cfg: RenderConfig,
                    rng_state, pixel_ids=None, sample_idx: int = 0,
-                   vis_residual: bool = False, hits_replay=None):
+                   vis_residual: bool = False, hits_replay=None,
+                   return_aux: bool = False):
     """Trace ONE sample per ray. Returns ``(radiance (N, 3), rng_state)``:
     for ``rng="lcg"`` ``rng_state`` holds the rays' int64 LCG seeds and
-    advances; for ``rng="hash"`` it is the frame seed, keyed with the
-    rays' global ``pixel_ids`` (default ``arange(N)``) and the counter
+    advances; for the counter-based streams it is the frame seed (for
+    ``threefry`` a seed or a key's two words, already folded with the
+    sample, as the JAX package's per-sample state), keyed with the rays'
+    global ``pixel_ids`` (default ``arange(N)``) and the counter
     ``sample_idx``. ``vis_residual`` and ``hits_replay`` (one ``(dist,
-    idx)`` a bounce) as ``trace_geometry`` takes them."""
-    require_ported(cfg)
+    idx)`` a bounce) as ``trace_geometry`` takes them. ``return_aux`` adds
+    ``{"alive_fraction": (max_bounces,) float32}``, each bounce's share of
+    rays still alive after it."""
+    check_estimator(cfg)
     check_method(cfg.intersect)
     geom = scene_geometry(scene)
     lights = geometry_lights(geom) if cfg.nee else None
+    fractions = [] if return_aux else None
     kw = dict(lights=lights, verts=_scene_verts(scene),
-              vis_residual=vis_residual, hits_replay=hits_replay)
+              vis_residual=vis_residual, hits_replay=hits_replay,
+              alive_fractions=fractions)
     if cfg.rng == "lcg":
-        return trace_geometry(geom, origins, directions, rng_state, cfg,
-                              **kw)
-    ids = _pixel_ids(origins.shape[0], pixel_ids, origins.device)
-    h1 = fmix32(hash_keys(int(rng_state), ids))
-    rad, _ = trace_geometry(geom, origins, directions, h1, cfg,
-                            sample=sample_idx, **kw)
+        rad, rng_state = trace_geometry(geom, origins, directions,
+                                        rng_state, cfg, **kw)
+    else:
+        ids = _pixel_ids(origins.shape[0], pixel_ids, origins.device)
+        rad, _ = trace_geometry(geom, origins, directions,
+                                _stream(cfg, rng_state, ids), cfg,
+                                sample=sample_idx, **kw)
+    if return_aux:
+        return rad, rng_state, {"alive_fraction": torch.stack(fractions)}
     return rad, rng_state
 
 
 def trace_mean_radiance(scene: Scene, origins, directions,
-                        cfg: RenderConfig, seed: int = 0, pixel_ids=None,
+                        cfg: RenderConfig, seed=0, pixel_ids=None,
                         vis_residual: bool = False, hits_replay=None):
     """Average ``cfg.spp`` samples per ray → ``(N, 3)``. LCG streams start
-    at each ray's pixel index plus ``seed``; hash streams are keyed by
-    ``seed`` and the pixel index. ``vis_residual`` and ``hits_replay``
-    (``(dist (spp, B, N), idx (spp, B, N))``) as ``trace_geometry`` and
-    ``mean_radiance_geometry`` take them."""
-    require_ported(cfg)
+    at each ray's pixel index plus ``seed``; the hash and table streams
+    are keyed by ``seed`` and the pixel index, the threefry stream by the
+    key ``seed`` makes (or ``seed`` itself, a key's two words), folded
+    with each sample, then the pixel index. ``vis_residual`` and
+    ``hits_replay`` (``(dist (spp, B, N), idx (spp, B, N))``) as
+    ``trace_geometry`` and ``mean_radiance_geometry`` take them."""
+    check_estimator(cfg)
     check_method(cfg.intersect)
     n, device = origins.shape[0], origins.device
     ids = _pixel_ids(n, pixel_ids, device)
     if cfg.rng == "lcg":
         rng = (ids + seed) & 0xFFFFFFFF
     else:
-        rng = fmix32(hash_keys(seed, ids))
+        rng = _stream(cfg, seed, ids)
     return mean_radiance_geometry(scene_geometry(scene), origins,
                                   directions, rng, cfg,
                                   verts=_scene_verts(scene),
@@ -551,7 +626,7 @@ def render_vis_residual(scene: Scene, camera: Camera, cfg: RenderConfig,
     then only the NEE shadow-boundary edge rays are swept."""
     if not cfg.vis_grad:
         raise ValueError("render_vis_residual needs cfg.vis_grad")
-    require_ported(cfg)
+    check_estimator(cfg)
     check_method(cfg.intersect)
     _check_devices(scene, camera)
     origins, directions = generate_rays(camera, cfg.width, cfg.height)

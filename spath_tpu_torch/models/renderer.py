@@ -15,13 +15,17 @@ visibility gradients (one of those interiors plus the residual of
 from K11 where it is K9 at up to 8 spp), and the wavefront, with
 autograd: on CPU tensors the plain version of every path, on a CUDA
 device the wavefront with its sweeps on K5, last in the registry, for
-what no fused kernel takes (other samplers with the hash stream,
-gradients deeper than the backward kernels' 64 bounces, ``vis_grad``
-over such an interior). A config that a fused kernel takes never reaches
-it. On a CUDA device the port raises only above 2^20 triangles, above
+what no fused kernel takes (the threefry stream, ``config.QUALITY``'s,
+with its draws from ``csrc/threefry.cu``; the table stream; other
+samplers with the hash stream; gradients deeper than the backward
+kernels' 64 bounces; ``vis_grad`` over such an interior, as the JAX
+package's ``VisGradFusedRenderer`` refuses a wavefront interior). A
+config that a fused kernel takes never reaches it. On a CUDA device the
+port raises ``NotImplementedError`` only above 2^20 triangles and above
 ``LIGHT_MAX`` lights with NEE (the caps of the streamed kernels, which
-the wavefront keeps), and for the threefry and table streams. The
-compacted renderers are not registered.
+the wavefront keeps), and the JAX package's ``ValueError`` for the
+settings it refuses (NEE, roulette or stratification on the LCG or table
+stream). The compacted renderers are not registered.
 """
 
 from __future__ import annotations
@@ -335,7 +339,7 @@ def _no_kernel(scene: Scene, cfg: RenderConfig, grad: bool) -> str:
 def forward_renderer(scene: Scene, cfg: RenderConfig) -> Renderer:
     """The fastest backend that renders ``(scene, cfg)`` exactly; raises
     ``NotImplementedError`` when no ported backend does."""
-    pathtracer.require_ported(cfg)
+    pathtracer.check_estimator(cfg)
     for r in REGISTRY:
         if r.supports(scene, cfg):
             return r
@@ -345,7 +349,7 @@ def forward_renderer(scene: Scene, cfg: RenderConfig) -> Renderer:
 def grad_renderer(scene: Scene, cfg: RenderConfig) -> Renderer:
     """The fastest backend that differentiates ``(scene, cfg)``; raises
     ``NotImplementedError`` when no ported backend does."""
-    pathtracer.require_ported(cfg)
+    pathtracer.check_estimator(cfg)
     for r in REGISTRY:
         if r.supports_grad(scene, cfg):
             return r

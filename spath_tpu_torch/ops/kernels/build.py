@@ -174,6 +174,10 @@ def library() -> ctypes.CDLL:
     lib.spath_light_cdf.restype = i32
     lib.spath_light_cdf_scratch.argtypes = [i32]
     lib.spath_light_cdf_scratch.restype = i32
+    # the threefry draws: key words, ids, out, n, n_draws
+    lib.spath_threefry.argtypes = [ctypes.c_uint, ctypes.c_uint, ptr, ptr,
+                                   i32, i32, ptr]
+    lib.spath_threefry.restype = i32
     # K6: K1's arguments with the queue's counter after out, then the grid
     lib.spath_bigscene_forward.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]

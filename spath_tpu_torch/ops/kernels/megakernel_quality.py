@@ -44,7 +44,7 @@ import torch
 from spath_tpu_torch.camera import Camera, generate_rays
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.models.pathtracer import (
-    geometry_lights, n_draws, require_ported, scene_geometry,
+    check_estimator, geometry_lights, n_draws, scene_geometry,
 )
 from spath_tpu_torch.ops.fp import sqrt_rn
 from spath_tpu_torch.ops.intersect import nearest_hit_edges, plain_sweep
@@ -331,7 +331,7 @@ def kernel_args(cfg: RenderConfig, n_tris: int, n_rows: int) -> list:
 
 def _check(origins, directions, keys, tri, light_idx, cfg: RenderConfig,
            max_tris: int = MAX_TRIS) -> None:
-    require_ported(cfg)
+    check_estimator(cfg)
     if cfg.rng != "hash" or cfg.sampler != "cosine":
         raise NotImplementedError(
             "the quality kernel takes rng='hash', sampler='cosine'; got "

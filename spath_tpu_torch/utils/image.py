@@ -1,8 +1,9 @@
 """Tonemap and image IO (numpy only), as ``spath_tpu/utils/image.py``.
 
 Tonemap of the reference: clamp to [0,1], scale by 255, add 0.5 and
-truncate to uint8 (round half up). PNG and binary PPM writers, and a
-reader for the PNGs the writer makes.
+truncate to uint8 (round half up), alpha 0 in RGBA (``src/scene.h:32-39``).
+The HDR operators of ``tonemap`` go beyond the reference. PNG and binary
+PPM writers, and a reader for the PNGs the writer makes.
 """
 
 from __future__ import annotations
@@ -18,6 +19,39 @@ def to_rgb_u8(img) -> np.ndarray:
     img = np.asarray(img, np.float32)
     c = np.clip(img, 0.0, 1.0) * np.float32(255.0) + np.float32(0.5)
     return c.astype(np.uint8)  # truncation == round-half-up after +0.5
+
+
+def to_rgba_u8(img) -> np.ndarray:
+    """Float RGB → uint8 RGBA with alpha 0 (``src/scene.h:38``)."""
+    rgb = to_rgb_u8(img)
+    alpha = np.zeros(rgb.shape[:-1] + (1,), np.uint8)
+    return np.concatenate([rgb, alpha], axis=-1)
+
+
+#: The operators of ``tonemap`` (``render --tonemap``).
+TONEMAP_MODES = ("clamp", "reinhard", "aces", "gamma22")
+
+
+def tonemap(img, mode: str = "clamp", exposure: float = 1.0) -> np.ndarray:
+    """Linear HDR radiance (``render_radiance``, unclamped) → display
+    [0, 1], after a linear ``exposure`` multiplier, in float32:
+
+    - clamp: the reference's, clip to [0, 1];
+    - reinhard: x / (1 + x);
+    - aces: Narkowicz's ACES filmic fit;
+    - gamma22: clamp, then gamma 1/2.2.
+    """
+    x = np.asarray(img, np.float32) * np.float32(exposure)
+    if mode == "clamp":
+        return np.clip(x, 0.0, 1.0)
+    if mode == "reinhard":
+        return np.clip(x / (1.0 + x), 0.0, 1.0)
+    if mode == "aces":
+        a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
+        return np.clip((x * (a * x + b)) / (x * (c * x + d) + e), 0.0, 1.0)
+    if mode == "gamma22":
+        return np.clip(x, 0.0, 1.0) ** np.float32(1.0 / 2.2)
+    raise ValueError(f"unknown tonemap mode {mode!r}; one of {TONEMAP_MODES}")
 
 
 def write_ppm(path: str, img) -> None:

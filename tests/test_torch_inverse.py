@@ -194,17 +194,16 @@ def _quiet(msg):
     pass
 
 
-def test_recover_resumes_from_checkpoint(tmp_path, monkeypatch):
-    monkeypatch.setattr(inv, "CHECKPOINT_EVERY", 2)
+def test_recover_resumes_from_checkpoint(tmp_path):
     scene, cam, target = _start()
     params = inv.InverseParams.init(scene, cam)
     ckdir = str(tmp_path / "ck")
     cfg = RenderConfig(**SMALL)
     inv.recover(scene, target, params, cfg, adam(), steps=4,
-                checkpoint_dir=ckdir, log_fn=_quiet)
+                checkpoint_dir=ckdir, checkpoint_every=2, log_fn=_quiet)
     assert Checkpointer(ckdir).steps() == [2, 4]
     state2, losses2 = inv.recover(scene, target, params, cfg,
-                                  adam(), steps=6,
+                                  adam(), steps=6, checkpoint_every=2,
                                   checkpoint_dir=ckdir, log_fn=_quiet)
     assert state2.step == 6
     assert len(losses2) == 2          # only the remaining steps ran
@@ -213,7 +212,6 @@ def test_recover_resumes_from_checkpoint(tmp_path, monkeypatch):
 def test_elastic_recovery_from_injected_failure(tmp_path, monkeypatch):
     """A step that raises mid-run rolls back to the last checkpoint and
     the loop completes."""
-    monkeypatch.setattr(inv, "CHECKPOINT_EVERY", 2)
     scene, cam, target = _start()
     params = inv.InverseParams.init(scene, cam)
     real_make = inv.make_train_step
@@ -234,8 +232,8 @@ def test_elastic_recovery_from_injected_failure(tmp_path, monkeypatch):
     log = []
     state, losses = inv.recover(
         scene, target, params, RenderConfig(**SMALL), adam(),
-        steps=6, checkpoint_dir=str(tmp_path / "ck"), max_retries=2,
-        log_fn=log.append)
+        steps=6, checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=2,
+        max_retries=2, log_fn=log.append)
     assert state.step == 6
     # steps 1-3, the failed call, then steps 3-6 again from step 2
     assert calls["n"] == 8

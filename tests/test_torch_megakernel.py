@@ -179,7 +179,8 @@ def test_build_flags_and_rebuild_hash(tmp_path, monkeypatch):
         "bigscene.cu", "bigscene_grad.cu", "bigscene_quality.cu",
         "bigscene_quality_grad.cu", "intersect.cu", "light_cdf.cu",
         "megakernel.cu", "megakernel_grad.cu", "megakernel_quality.cu",
-        "megakernel_quality_grad.cu", "stream_scatter.cu", "sweep_mm.cu"]
+        "megakernel_quality_grad.cu", "stream_scatter.cu", "sweep_mm.cu",
+        "threefry.cu"]
     assert [p.name for p in build.hashed_files()] == [
         "bigscene.cu", "bigscene_grad.cu", "bigscene_quality.cu",
         "bigscene_quality_grad.cu", "intersect.cu", "light_cdf.cu",
@@ -188,7 +189,8 @@ def test_build_flags_and_rebuild_hash(tmp_path, monkeypatch):
         "megakernel_quality_grad.cu", "pixel_source.cuh",
         "quality_lanes.cuh", "quality_queue.cuh", "quality_reverse.cuh",
         "quality_walk.cuh",
-        "stream_scatter.cu", "stream_sweep.cuh", "sweep_mm.cu"]
+        "stream_scatter.cu", "stream_sweep.cuh", "sweep_mm.cu",
+        "threefry.cu"]
     assert build.LIBRARY.parent.parts[-2:] == ("build", "kernels")
     monkeypatch.setattr(build, "SOURCE_DIR", tmp_path)
     (tmp_path / "k.cu").write_text('#include "k.cuh"\n')

@@ -431,11 +431,12 @@ def test_quality_routing_sends_cuda_scenes_to_k3_k4(monkeypatch, n_tris, kw):
 def test_quality_routing_raises_for_cuda_scenes_without_a_kernel(
         monkeypatch):
     """No silent render or gradient past a cap on a CUDA device: above
-    2^20 triangles the streamed quality kernels' cap is named; threefry
-    says what is missing. vis_grad renders through K3 and differentiates
-    through K3+K4 with the residual; a path longer than K4's and K10's
-    saved state (64 bounces) and a sampler no kernel takes go to the
-    wavefront on the card."""
+    2^20 triangles the streamed quality kernels' cap is named. The
+    threefry stream, which no kernel takes, goes to the wavefront on the
+    card (its draws from the threefry kernel), in both directions.
+    vis_grad renders through K3 and differentiates through K3+K4 with the
+    residual; a path longer than K4's and K10's saved state (64 bounces)
+    and a sampler no kernel takes go to the wavefront on the card."""
     from spath_tpu_torch.ops.kernels import bigscene_quality as bq
 
     big = Scene(torch.zeros((bq.BIGQ_MAX_TRIS + 1, 3, 3)),
@@ -449,10 +450,11 @@ def test_quality_routing_raises_for_cuda_scenes_without_a_kernel(
         render_pt_fast(big, cam, q)
     with pytest.raises(NotImplementedError, match="K9 and K10 take T <= "):
         render_radiance_fastgrad(big, cam, q)
-    for fn in (render_pt_fast, render_radiance_fastgrad):
-        with pytest.raises(NotImplementedError, match="threefry"):
-            fn(small, cam, q.replace(rng="threefry"))
     assert calls == []
+    for fn in (render_pt_fast, render_radiance_fastgrad):
+        fn(small, cam, q.replace(rng="threefry"))
+    assert calls == [("wavefront", 7)] * 2
+    del calls[:]
     for fn in (render_pt_fast, render_radiance_fastgrad):
         fn(small, cam, q.replace(vis_grad=True))
         fn(small, cam, q.replace(sampler="uniform"))

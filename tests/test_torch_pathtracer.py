@@ -123,19 +123,37 @@ def test_trace_radiance_one_sample_matches():
     dict(rng="table", nee=True),
 ])
 def test_unported_configs_raise(kw):
-    """The threefry and table streams are not ported: the serving path and
-    the wavefront raise, on the CPU too. Visibility gradients are ported
-    and change no frame: with ``vis_grad`` both render the frame without
-    it, bit for bit."""
+    """The configs this test once held to ``NotImplementedError`` (its
+    name is theirs): every stream is ported now. The threefry and table
+    streams render through the serving path and the wavefront on the CPU,
+    and match the JAX package's ``render_pt`` run op by op within
+    ``_assert_conforms``' bounds; table with NEE raises the JAX package's
+    ``ValueError``, as the JAX function does. Visibility gradients change
+    no frame: with ``vis_grad`` both render the frame without it, bit for
+    bit."""
     scene, cam = default_scene(CPU), Camera.default(CPU)
     cfg = RenderConfig(width=8, height=4, spp=1, **kw)
+    if cfg.nee and cfg.rng == "table":
+        for fn in (render_pt_fast, render_pt):
+            with pytest.raises(ValueError, match="nee requires"):
+                fn(scene, cam, cfg)
+        with pytest.raises(ValueError, match="nee requires"), \
+                jax.disable_jit():
+            j_render_pt(j_default_scene(), JCamera.default(),
+                        JConfig(width=8, height=4, spp=1, **kw), 0)
+        return
     for fn in (render_pt_fast, render_pt):
         if cfg.vis_grad:
             assert torch.equal(fn(scene, cam, cfg),
                                fn(scene, cam, cfg.replace(vis_grad=False)))
             continue
-        with pytest.raises(NotImplementedError):
-            fn(scene, cam, cfg)
+        got = fn(scene, cam, cfg).numpy()
+        with jax.disable_jit():
+            want = np.asarray(j_render_pt(
+                j_default_scene(), JCamera.default(),
+                JConfig(width=8, height=4, spp=1, **kw), 0))
+        _assert_conforms(got, want)
+        assert got.max() > 0.0
 
 
 def test_routing_keeps_cpu_tensors_off_the_kernel(monkeypatch):

@@ -245,16 +245,28 @@ def test_cli_invert_quality_on_cpu(capsys):
     (["--mode", "quality", "--rng", "table"], SystemExit),
     (["--rr-start", "2"], SystemExit),
     (["--stratify"], SystemExit),
-    (["--mode", "quality", "--rng", "threefry"], NotImplementedError),
-    (["--rng", "table"], NotImplementedError),
+    (["--mode", "quality", "--rng", "threefry"], None),
+    (["--rng", "table"], None),
 ])
 def test_cli_refusals(argv, error, tmp_path):
-    """The JAX CLI's refusals; the streams not ported raise naming their
-    ROADMAP item; nothing is written."""
+    """The JAX CLI's refusals, nothing written. The threefry and table
+    streams, which this test once held to ``NotImplementedError``, render:
+    the PNG is the serving path's frame of the config the JAX CLI builds
+    (``--mode quality --rng threefry``: threefry, cosine, NEE; ``--rng
+    table``: table, angle sampler), u8 for u8."""
     out = tmp_path / "x.png"
-    with pytest.raises(error) as exc:
-        cli.main(["render", "--size", "8x4", "--spp", "1", "--device",
-                  "cpu", "--out", str(out), *argv])
-    if error is NotImplementedError:
-        assert "ROADMAP" in str(exc.value)
-    assert not out.exists()
+    run = ["render", "--size", "8x4", "--spp", "1", "--device", "cpu",
+           "--out", str(out), *argv]
+    if error is not None:
+        with pytest.raises(error):
+            cli.main(run)
+        assert not out.exists()
+        return
+    assert cli.main(run) == 0
+    quality = "quality" in argv
+    cfg = RenderConfig(width=8, height=4, spp=1, intersect="pluecker",
+                       rng=argv[-1], sampler="cosine" if quality else
+                       "angle", nee=quality)
+    want = render_pt_fast(default_scene(CPU), Camera.default(CPU), cfg, 0)
+    np.testing.assert_array_equal(read_png(str(out)),
+                                  to_rgb_u8(want.numpy()))
