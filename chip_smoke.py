@@ -359,6 +359,14 @@ EDGE_MOVE = 1e-6
 #: weight (2 adds, 1 multiply), the total, the divide, the scan's adds in
 #: and across blocks of 16; emission and area read, cdf and prob written.
 LIGHT_OPS, LIGHT_BYTES = 7, 24
+#: The light distribution's sizes held to its plain version on
+#: light_inputs: phase 11 up to the one-block route's SHARED_TRIS, phase
+#: 26 above it (with procedural_scene at BIG_T, HUGE_T and 2^20, and an
+#: all-dark table at HUGE_T); LIGHT_CROSSOVER_T the sizes at which both
+#: routes are timed in turns to place SHARED_TRIS.
+LIGHT_SMALL_T = (33, 1025, 8192)
+LIGHT_BIG_T = (8193, 32769, (1 << 20) - 1)
+LIGHT_CROSSOVER_T = (4608, 6144, 7168, 8192, 10240)
 #: (label, estimator) of the K3/K4 comparisons
 QUALITY_GRID = [
     ("nee+mis", dict(QUALITY)),
@@ -560,13 +568,12 @@ def event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(torch, fn, reps: int, kernel: str) -> float:
-    """Device ms of one launch of the kernel whose name holds ``kernel``,
-    from a ``torch.profiler`` trace of ``reps`` calls of ``fn``: CUDA
-    events around back-to-back launches of a few microseconds time the
-    host's launch rate, not the kernel. The trace must hold all ``reps``
-    launches; on an H100 the profiler once missed one launch of 50 (in
-    eight runs), so a short trace is taken again, up to three times."""
+def traced_kernels(torch, fn, reps: int, enough) -> list:
+    """``(name, device ms)`` of each kernel in a ``torch.profiler`` trace
+    of ``reps`` calls of ``fn``. On an H100 a trace of a few short calls
+    has come back with no kernel at all, and one with a launch short of
+    50, so a trace that ``enough`` refuses is taken again, up to three
+    times; the last is returned whatever it holds."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -580,13 +587,31 @@ def kernel_device_ms(torch, fn, reps: int, kernel: str) -> float:
             path = Path(tmp) / "trace.json"
             prof.export_chrome_trace(str(path))
             events = json.loads(path.read_text())["traceEvents"]
-        durs = [e["dur"] for e in events if e.get("cat") == "kernel"
-                and kernel in e.get("name", "") and "dur" in e]
-        if len(durs) == reps:
+        kernels = [(e["name"], e["dur"] / 1e3) for e in events
+                   if e.get("cat") == "kernel" and "dur" in e]
+        if enough(kernels):
             break
-    check(len(durs) == reps, f"{len(durs)} {kernel} kernels traced in "
-          f"{reps} calls (the last of 3 traces)")
-    return sum(durs) / 1e3 / reps
+    return kernels
+
+
+def kernel_device_ms(torch, fn, reps: int, kernel: str) -> float:
+    """Device ms of one launch of the kernel whose name holds ``kernel``,
+    from a ``torch.profiler`` trace of ``reps`` calls of ``fn``: CUDA
+    events around back-to-back launches of a few microseconds time the
+    host's launch rate, not the kernel. The mean of the launches traced
+    (``traced_kernels``: taken again while any is missing); where three
+    traces hold none, the device ms a call from CUDA events
+    (``queued_ms``), logged as such."""
+    def mine(kernels):
+        return [ms for name, ms in kernels if kernel in name]
+
+    durs = mine(traced_kernels(torch, fn, reps,
+                               lambda ks: len(mine(ks)) == reps))
+    if durs:
+        return sum(durs) / len(durs)
+    log(f"no {kernel} kernel in three traces of {reps} calls: its device "
+        f"ms a call from CUDA events instead")
+    return queued_ms(torch, fn, reps)
 
 
 def bound(ops: float, nbytes: float):
@@ -797,14 +822,41 @@ def cli_invert(cli) -> str:
 
 
 def light_cdf_vs_plain(torch, scene, name: str) -> dict:
-    """Phase 11: the light distribution kernel against its plain version
-    on the scene's emission and areas, to the bit (a discrete choice reads
-    the cdf)."""
+    """Phases 11 and 26: ``light_vs_plain`` on the scene's emission and
+    areas."""
     from spath_tpu_torch.ops import nee
+
+    return light_vs_plain(torch, scene.emission, nee.triangle_areas(scene),
+                          name)
+
+
+def light_inputs(torch, dev, n_tris: int, seed: int, lit: bool = True):
+    """``(emission (T, 3), area (T,))`` on ``dev`` from numpy's Philox at
+    ``seed``: emission over twelve decades, a third of the rows dark (all
+    of them unless ``lit``), areas over six decades."""
+    import numpy as np
+
+    g = np.random.Generator(np.random.Philox(seed))
+    emission = (np.exp(g.uniform(-14.0, 14.0, size=(n_tris, 3)))
+                * (g.uniform(size=(n_tris, 1)) < 2 / 3) * lit)
+    area = np.exp(g.uniform(-7.0, 7.0, size=n_tris))
+    return (torch.from_numpy(emission.astype(np.float32)).to(dev),
+            torch.from_numpy(area.astype(np.float32)).to(dev))
+
+
+def light_vs_plain(torch, emission, area, name: str) -> dict:
+    """The light distribution kernel against its plain version on these
+    emissions and areas, to the bit (a discrete choice reads the cdf), two
+    calls bitwise equal, and the kernels a call launched by the library's
+    count (phase 26 counts them in a trace too): one up to SHARED_TRIS
+    triangles, at most three above."""
     from spath_tpu_torch.ops.kernels import light_cdf as lc
 
-    emission, area = scene.emission, nee.triangle_areas(scene)
+    n_tris = emission.shape[0]
+    before = lc.kernel_launches()
     cdf, prob = lc.light_cdf_call(emission, area)
+    launches = lc.kernel_launches() - before
+    again = lc.light_cdf_call(emission, area)
     torch.cuda.synchronize()
     want_cdf, want_prob = lc.light_cdf_plain(emission, area)
     err = max((cdf - want_cdf).abs().max().item(),
@@ -812,8 +864,141 @@ def light_cdf_vs_plain(torch, scene, name: str) -> dict:
     check(torch.equal(cdf, want_cdf) and torch.equal(prob, want_prob),
           f"{name}: the light distribution kernel is off its plain version "
           f"by {err:.6g}")
-    return dict(n_tris=scene.n_tris, max_abs_err=err, bit_exact=True,
+    check(torch.equal(again[0], cdf) and torch.equal(again[1], prob),
+          f"{name}: two light distribution calls differ")
+    check(launches == 1 if n_tris <= lc.SHARED_TRIS else 1 <= launches <= 3,
+          f"{name}: {launches} kernels launched in one call at T={n_tris}")
+    return dict(n_tris=n_tris, max_abs_err=err, bit_exact=True,
+                two_calls_bitwise_equal=True, launches_per_call=launches,
                 lit=bool(want_prob.any().item()))
+
+
+def device_calls(torch, fn, reps: int, launches: int = 0) -> dict:
+    """The kernels of a call of ``fn`` from a ``torch.profiler`` trace of
+    ``reps`` calls (``traced_kernels``, taken again while it holds no
+    kernel or, where ``launches`` a call are given, not ``reps`` times
+    that many):
+    ``by_kernel``, each kernel's device ms a call by name (its mean
+    duration times its launches a call), ``busy_ms``, their sum, and
+    ``kernels_per_call``. A kernel's launches a call are its traced count
+    over ``reps``, rounded: the profiler can lose a launch. Where three
+    traces hold no kernel, ``traced`` is False, ``busy_ms`` the device ms
+    a call from CUDA events (``queued_ms``) and the rest None."""
+    kernels = traced_kernels(
+        torch, fn, reps, lambda ks: ks and (not launches
+                                            or len(ks) == reps * launches))
+    if not kernels:
+        log(f"no kernel in three traces of {reps} calls: device ms a call "
+            f"from CUDA events instead")
+        return dict(busy_ms=queued_ms(torch, fn, reps), by_kernel=None,
+                    kernels_per_call=None, traced=False)
+    durs = {}
+    for name, ms in kernels:
+        name = name.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].split("<")[0].split("::")[-1].strip()
+        durs.setdefault(name, []).append(ms)
+    per_call = {name: round(len(d) / reps) for name, d in durs.items()}
+    by_kernel = {name: sum(d) / len(d) * per_call[name]
+                 for name, d in durs.items()}
+    return dict(busy_ms=sum(by_kernel.values()), by_kernel=by_kernel,
+                kernels_per_call=sum(per_call.values()), traced=True)
+
+
+def queued_ms(torch, fn, reps: int) -> float:
+    """Device ms a call of ``fn``, the gaps between its launches included
+    but not the host's launch rate: CUDA events around ``reps`` calls
+    enqueued while the card runs a sleeping kernel, which must outlast
+    the enqueueing (else the sleep is doubled, up to three times)."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = int(4e6 * max(1, reps // 5))
+    for _ in range(4):
+        slept, start, end = (torch.cuda.Event(enable_timing=True)
+                             for _ in range(3))
+        slept.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if slept.elapsed_time(start) > host_ms:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise SmokeFailure(f"the host took {host_ms:.3f} ms to enqueue {reps} "
+                       f"calls, longer than the sleep before them")
+
+
+def light_timing(torch, emission, area, reps: int = 20) -> dict:
+    """Phase 26: the light distribution at these inputs, timed: device ms
+    a call (``queued_ms``), its kernels' busy time and the kernels a call
+    (``device_calls``; the count equal to the library's where the trace
+    held the kernels, ``traced``), CUDA-event ms a call over ``reps``
+    calls back to back (the host's launch rate included), the plain
+    version's ms a call
+    (CUDA events over two calls), the bound (LIGHT_BYTES a
+    triangle at the memory's rate), and ``torch.cumsum`` of the prob
+    column, the library call beside it (the cdf alone, not in the plain
+    version's order), timed the same ways."""
+    from spath_tpu_torch.ops.kernels import light_cdf as lc
+
+    n_tris = emission.shape[0]
+    before = lc.kernel_launches()
+    cdf, prob = lc.light_cdf_call(emission, area)
+    launches = lc.kernel_launches() - before
+
+    def call():
+        lc.light_cdf_call(emission, area)
+
+    def cumsum():
+        torch.cumsum(prob, 0)
+
+    kernel, library = device_calls(torch, call, reps, launches), device_calls(
+        torch, cumsum, reps)
+    out = dict(
+        ms=queued_ms(torch, call, reps), busy_ms=kernel["busy_ms"],
+        busy_by_kernel_ms=kernel["by_kernel"],
+        kernels_per_call=kernel["kernels_per_call"], traced=kernel["traced"],
+        call_ms=event_ms(torch, call, reps),
+        plain_ms=event_ms(torch, lambda: lc.light_cdf_plain(emission, area),
+                          2),
+        bound_ms=bound(LIGHT_OPS * n_tris, LIGHT_BYTES * n_tris)[0],
+        cumsum_ms=queued_ms(torch, cumsum, reps),
+        cumsum_busy_ms=library["busy_ms"],
+        cumsum_call_ms=event_ms(torch, cumsum, reps),
+        cumsum_bit_equal=torch.equal(torch.cumsum(prob, 0), cdf))
+    check(out["ms"] > 0 and out["cumsum_ms"] > 0, "timing failed")
+    check(not kernel["traced"] or out["kernels_per_call"] == launches,
+          f"{out['kernels_per_call']} kernels a call in the trace, "
+          f"{launches} by the library's count")
+    return out
+
+
+def light_crossover(torch, dev) -> dict:
+    """Phase 26: the light distribution's one-block route and its grid's
+    three launches (``light_cdf.launch``) at each LIGHT_CROSSOVER_T, both
+    bit-equal to the plain version, then timed in turns (block, grid,
+    grid, block), device ms a call (``queued_ms``), to place
+    SHARED_TRIS."""
+    from spath_tpu_torch.ops.kernels import light_cdf as lc
+
+    out = {}
+    for n_tris in LIGHT_CROSSOVER_T:
+        emission, area = light_inputs(torch, dev, n_tris, n_tris)
+        want = lc.light_cdf_plain(emission, area)
+        for grid in (False, True):
+            got = lc.launch(emission, area, grid)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1]),
+                  f"light distribution at T={n_tris}, "
+                  f"{'grid' if grid else 'one block'}: off the plain version")
+        ms = [queued_ms(torch, lambda g=grid: lc.launch(emission, area, g),
+                        20) for grid in (False, True, True, False)]
+        out[n_tris] = dict(block_ms=(ms[0] + ms[3]) / 2,
+                           grid_ms=(ms[1] + ms[2]) / 2, turns_ms=ms)
+    return out
 
 
 def quality_vs_plain(torch, cam, scene, cfg, name: str) -> dict:
@@ -3048,6 +3233,11 @@ def run() -> None:
                          ("wall and light", wall_and_light_scene(dev))):
         log(f"[11] light distribution vs plain, {name}: "
             f"{light_cdf_vs_plain(torch, lscene, name)}")
+    for n_light in LIGHT_SMALL_T:
+        log(f"[11] light distribution vs plain, {n_light} triangles: "
+            f"{light_vs_plain(torch, *light_inputs(torch, dev, n_light,
+                                                   n_light),
+                              f'{n_light} triangles')}")
     for name, qscene in small_scenes:
         for label, est in QUALITY_GRID:
             qcfg = small.replace(**est)
@@ -3201,11 +3391,16 @@ def run() -> None:
                 kernel_device_ms(torch, light, 50, "light_cdf")]
     light_call_ms = event_ms(torch, light, 200)
     light_plain_ms.append(event_ms(torch, light_plain, 20))
+    # the library call beside it: torch.cumsum of the prob column
+    lprob = lc.light_cdf_call(emission, area)[1]
+    light_lib_ms = device_calls(torch, lambda: torch.cumsum(lprob, 0),
+                                50)["busy_ms"]
     check(min(light_ms) > 0 and min(light_plain_ms) > 0, "timing failed")
     light_bound = bound(LIGHT_OPS * n_tris, LIGHT_BYTES * n_tris)
     log(f"[17] light distribution, {n_tris} triangles, on {smi}: kernel "
         f"{light_ms} ms on the device, {light_call_ms:.6f} ms a call "
-        f"back to back; plain {light_plain_ms} ms; bound "
+        f"back to back; plain {light_plain_ms} ms; torch.cumsum of prob "
+        f"{light_lib_ms:.6f} ms on the device (its kernels); bound "
         f"{light_bound[0]:.4g} ms ({light_bound[1]})")
     log(f"[17] quality {frame} on {smi}: K3 {timed['k3'][0]} ms, plain "
         f"{timed['k3'][1]} ms; K4 {timed['k4'][0]} ms, plain "
@@ -3472,32 +3667,33 @@ def run() -> None:
     from spath_tpu_torch.ops.kernels import bigscene_quality_grad as bqg
 
     # 26. the light distribution up to 2^20 triangles, and K7 at 19
-    # columns, against their plain versions
-    light_big_ms, light_big = {}, {}
-    for n_light in (8193, BIG_T, HUGE_T, 1 << 20):
-        lscene = procedural_scene(n_light, seed=0, device=dev)
-        name = f"{n_light} triangles"
-        c = light_cdf_vs_plain(torch, lscene, name)
-        emission, area = lscene.emission, nee.triangle_areas(lscene)
-        light_big_ms[lscene.n_tris] = event_ms(
-            torch, lambda: lc.light_cdf_call(emission, area), 5)
-        # the bound (24 bytes a triangle at the memory's rate), and one
-        # library call beside it: torch.cumsum of the prob column, which
-        # does not sum in the plain version's order (nor give its bits)
-        cdf, prob = lc.light_cdf_call(emission, area)
-        cumsum = torch.cumsum(prob, 0)
-        cumsum_ms = event_ms(torch, lambda: torch.cumsum(prob, 0), 20)
-        light_big[lscene.n_tris] = dict(
-            ms=light_big_ms[lscene.n_tris],
-            bound_ms=bound(LIGHT_OPS * lscene.n_tris,
-                           LIGHT_BYTES * lscene.n_tris)[0],
-            cumsum_ms=cumsum_ms, cumsum_bit_equal=torch.equal(cumsum, cdf))
-        log(f"[26] light distribution vs plain, {name}: {c}; "
-            f"{light_big_ms[lscene.n_tris]:.4f} ms a call; bound "
-            f"{light_big[lscene.n_tris]['bound_ms']:.6f} ms (bytes); "
-            f"torch.cumsum of prob {cumsum_ms:.6f} ms, bit-equal to the "
-            f"cdf: {light_big[lscene.n_tris]['cumsum_bit_equal']}")
-    del lscene, emission, area, cdf, prob, cumsum
+    # columns, against their plain versions; the light distribution timed
+    # at every size beside its bound and torch.cumsum, and its two routes
+    # in turns around SHARED_TRIS
+    light_big = {}
+    light_cases = [(f"procedural_scene({n_light})", n_light)
+                   for n_light in (BIG_T, HUGE_T, 1 << 20)]
+    light_cases += [(f"{n_light} triangles", n_light)
+                    for n_light in (*LIGHT_SMALL_T, *LIGHT_BIG_T)]
+    light_cases.append((f"{HUGE_T} triangles, all dark", HUGE_T))
+    for name, n_light in light_cases:
+        if name.startswith("procedural"):
+            lscene = procedural_scene(n_light, seed=0, device=dev)
+            emission, area = lscene.emission, nee.triangle_areas(lscene)
+            del lscene
+        else:
+            emission, area = light_inputs(torch, dev, n_light, n_light,
+                                          lit="dark" not in name)
+        c = light_vs_plain(torch, emission, area, name)
+        light_big[name] = dict(light_timing(torch, emission, area),
+                               launches_per_call=c["launches_per_call"])
+        log(f"[26] light distribution vs plain, {name}: {c}; timed on "
+            f"{smi}: {light_big[name]}")
+    del emission, area
+    light_routes = light_crossover(torch, dev)
+    log(f"[26] light distribution, the one-block route and the grid in "
+        f"turns on {smi} (device ms a call; SHARED_TRIS = "
+        f"{lc.SHARED_TRIS}): {light_routes}")
     for n_tris_s, n_events in SCATTER_CASES:
         log(f"[26] K7 at 19 columns vs plain, T={n_tris_s}, {n_events} "
             f"events: {scatter_vs_plain(torch, dev, n_tris_s, n_events,
@@ -4135,10 +4331,11 @@ def run() -> None:
         "plain_ms": sum(light_plain_ms) / 2,
         "bound_ms": light_bound[0],
         "bound_by": light_bound[1],
-        "library_ms": None,
+        "library_ms": light_lib_ms,
+        "library_call": "torch.cumsum of the prob column (the cdf alone, "
+                        "not in the plain version's order)",
         "by_triangles": light_big,
-        "library_call_by_triangles": "torch.cumsum of the prob column "
-                                     "(not the plain version's order)",
+        "routes_by_triangles": light_routes,
     }, {
         "name": "quality_forward",
         "route": "cuda",

@@ -169,11 +169,14 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [i32]
         fn.restype = i32
     # the light choice's distribution: emission, area, cdf, prob, scratch,
-    # T; and the scratch floats it needs for T
-    lib.spath_light_cdf.argtypes = [ptr] * 5 + [i32, ptr]
+    # T, the grid route; the scratch floats it needs for T on the route;
+    # the kernels it has launched
+    lib.spath_light_cdf.argtypes = [ptr] * 5 + [i32, i32, ptr]
     lib.spath_light_cdf.restype = i32
-    lib.spath_light_cdf_scratch.argtypes = [i32]
+    lib.spath_light_cdf_scratch.argtypes = [i32, i32]
     lib.spath_light_cdf_scratch.restype = i32
+    lib.spath_light_cdf_kernel_launches.argtypes = []
+    lib.spath_light_cdf_kernel_launches.restype = ctypes.c_longlong
     # the threefry draws: key words, ids, out, n, n_draws
     lib.spath_threefry.argtypes = [ctypes.c_uint, ctypes.c_uint, ptr, ptr,
                                    i32, i32, ptr]

@@ -7,20 +7,27 @@ wavefront's light sampling walk. An all-dark scene gets a uniform cdf and
 a prob of zeros (callers mask by ``prob > 0``).
 
 The choice is discrete, so a last-bit difference in the cdf picks another
-light. Both versions compute in the JAX package's order on the CPU: the
-luminance and the total summed left to right, the cumulative sum as XLA's
-CPU scan does it (sequential within blocks of 16, the block totals
-scanned the same way, then added). XLA's CPU reduction of more than 32
-terms is not sequential; for such scenes the total may differ from the
-JAX package's in the last bit.
+light. Both versions compute in the JAX package's order on the CPU, which
+is XLA's:
+
+- the luminance ``(r + g) + b``, times the area;
+- the total as XLA's CPU reduction sums (``_total``): its tree-reduction
+  rewriter turns a sum of more than 32 terms into windows of 32, each
+  summed in order from 0 (``reduce-window``, ``window={size=32 stride=32
+  pad=lo_hi}`` in the HLO of ``jax.jit(jnp.sum).lower(x).compile()``, the
+  padding split with its smaller half in front), level by level, and sums
+  the last at most 32 in order from 0;
+- the cumulative sum as XLA's CPU scan does it (``_scan``: sequential
+  within blocks of 16, the block totals scanned the same way, then added).
 
 On CUDA tensors the wrapper launches ``csrc/light_cdf.cu`` on PyTorch's
 current stream, without synchronisation, and counts the call in
-``light_cdf_call.launches``: one block up to ``SHARED_TRIS`` triangles,
-above that a launch per step of the scan with its levels in a scratch
-buffer, up to ``MAX_TRIS``. A CUDA scene's table never goes through the
-host. CPU tensors take ``light_cdf_plain``, which sums in numpy: PyTorch's
-CPU float32 ``cumsum`` accumulates in float64, not in XLA's order.
+``light_cdf_call.launches``: one launch of one block up to
+``SHARED_TRIS`` triangles, above that three launches with the levels in a
+scratch buffer, up to ``MAX_TRIS``. A CUDA scene's table never goes
+through the host. CPU tensors take ``light_cdf_plain``, which sums in
+numpy: PyTorch's CPU float32 ``sum`` and ``cumsum`` do not sum in XLA's
+order (``cumsum`` accumulates in float64).
 """
 
 from __future__ import annotations
@@ -32,9 +39,36 @@ import torch
 
 from spath_tpu_torch.ops.kernels.build import library
 
-#: Largest table the kernel scans in one block, its levels in shared
-#: memory; and the largest it takes (the streamed kernels' cap, 2^20).
+#: Largest table the kernel takes in one block, its levels in shared
+#: memory, and the largest it takes (the streamed kernels' cap, 2^20).
+#: Above SHARED_TRIS the grid's three launches are faster: on an H100 (700
+#: W) one block took 11.2 µs at 8,192 triangles and 13.0 at 10,240, the
+#: grid 11.8 at both (``chip_smoke.py::light_crossover``). The one-block
+#: route's shared memory stays under 48 KB up to CTA_MAX_TRIS.
 SHARED_TRIS, MAX_TRIS = 8192, 1 << 20
+#: The one-block route's largest table, and the grid route's smallest.
+CTA_MAX_TRIS, GRID_MIN_TRIS = 10240, 4097
+
+
+def _total(w: np.ndarray) -> np.float32:
+    """The float32 sum of ``w`` in XLA's CPU order: windows of 32 with
+    zero padding (``pad // 2`` in front), each summed in order from 0,
+    until at most 32 values remain, which are summed in order from 0."""
+    x = np.asarray(w, np.float32)
+    while x.shape[0] > 32:
+        n = x.shape[0]
+        nw = -(-n // 32)
+        lo = (nw * 32 - n) // 2
+        win = np.zeros(nw * 32, np.float32)
+        win[lo:lo + n] = x
+        win = win.reshape(nw, 32)
+        x = np.zeros(nw, np.float32)
+        for j in range(32):
+            x = x + win[:, j]
+    s = np.float32(0)
+    for v in x:
+        s = np.float32(s + v)
+    return s
 
 
 def _scan(x: np.ndarray) -> np.ndarray:
@@ -59,7 +93,7 @@ def light_cdf_plain(emission: torch.Tensor, area: torch.Tensor):
     em = emission.detach().cpu().numpy()
     a = area.detach().cpu().numpy()
     w = ((em[:, 0] + em[:, 1]) + em[:, 2]) * a
-    total = np.add.accumulate(w, dtype=np.float32)[-1]
+    total = _total(w)
     t = w.shape[0]
     if total > 0:
         prob = w / total
@@ -88,8 +122,8 @@ def _check(emission: torch.Tensor, area: torch.Tensor) -> None:
 def light_cdf_call(emission: torch.Tensor, area: torch.Tensor):
     """``(cdf (T,), prob (T,))`` of the light choice over ``T`` triangles,
     detached, on the inputs' device. Launches the kernel on CUDA tensors
-    (``T <= MAX_TRIS``; a failed build or launch raises); CPU tensors take
-    ``light_cdf_plain``."""
+    (``T <= MAX_TRIS``; one block up to ``SHARED_TRIS``, the grid above; a
+    failed build or launch raises); CPU tensors take ``light_cdf_plain``."""
     emission, area = emission.detach(), area.detach()
     _check(emission, area)
     if emission.device.type == "cpu":
@@ -101,11 +135,24 @@ def light_cdf_call(emission: torch.Tensor, area: torch.Tensor):
     if t > MAX_TRIS:
         raise ValueError(f"T={t} above the light-distribution kernel's "
                          f"{MAX_TRIS}")
+    return launch(emission, area, grid=t > SHARED_TRIS)
+
+
+def launch(emission: torch.Tensor, area: torch.Tensor, grid: bool):
+    """One call of the kernel on checked CUDA inputs, on the route given:
+    the grid's three launches (``GRID_MIN_TRIS <= T <= MAX_TRIS``) or one
+    block (``T <= CTA_MAX_TRIS``). ``light_cdf_call`` routes by
+    ``SHARED_TRIS``; ``chip_smoke.py`` times both routes to place it.
+    Counts the call in ``light_cdf_call.launches``."""
+    t = emission.shape[0]
+    if not (GRID_MIN_TRIS <= t <= MAX_TRIS if grid else t <= CTA_MAX_TRIS):
+        raise ValueError(f"T={t} outside the light-distribution kernel's "
+                         f"{'grid' if grid else 'one-block'} route")
     emission, area = emission.contiguous(), area.contiguous()
     cdf = torch.empty(t, dtype=torch.float32, device=emission.device)
     prob = torch.empty_like(cdf)
     lib = library()
-    floats = lib.spath_light_cdf_scratch(t)
+    floats = lib.spath_light_cdf_scratch(t, int(grid))
     scratch = torch.empty(floats, dtype=torch.float32,
                           device=emission.device) if floats else None
     with torch.cuda.device(emission.device):
@@ -116,13 +163,19 @@ def light_cdf_call(emission: torch.Tensor, area: torch.Tensor):
             ctypes.c_void_p(cdf.data_ptr()), ctypes.c_void_p(prob.data_ptr()),
             ctypes.c_void_p(None if scratch is None
                             else scratch.data_ptr()),
-            t, ctypes.c_void_p(stream))
+            t, int(grid), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"light-distribution kernel launch failed: CUDA "
                            f"error {err} "
                            f"({lib.spath_error_string(err).decode()})")
     light_cdf_call.launches += 1
     return cdf, prob
+
+
+def kernel_launches() -> int:
+    """CUDA kernels the library's light-distribution entry point has
+    launched in this process: one a one-block call, three a grid call."""
+    return int(library().spath_light_cdf_kernel_launches())
 
 
 light_cdf_call.launches = 0

@@ -69,8 +69,10 @@ def quality_table(scene: Scene) -> torch.Tensor:
     light choice's prob, the area and the cdf. Differentiable in the
     vertices (through the edges, the normal and the area), the albedo and
     the emission; prob and cdf are detached and computed on the scene's
-    device in the JAX package's CPU order (``light_cdf.light_cdf_call``),
-    so the table equals ``spath_tpu``'s ``quality_table`` on the CPU."""
+    device in the JAX package's CPU order (``light_cdf.light_cdf_call``:
+    the total in XLA's windows of 32, the ``reduce-window`` ops of
+    ``jnp.sum``'s HLO, the cdf in its scan's blocks of 16), so the table
+    equals ``spath_tpu``'s ``quality_table`` on the CPU."""
     geom = scene_geometry(scene)
     lights, area = geometry_lights(geom)
     return torch.cat([*geom, lights.prob[:, None], area[:, None],

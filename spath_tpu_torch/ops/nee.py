@@ -17,8 +17,10 @@ Lights are double-sided (cosθ_ℓ = |n_ℓ·ω|).
 The selection distribution (``light_cdf``) is a discrete choice, so a
 last-bit difference in the cdf changes which light a draw picks. It is
 computed in the order of operations of the JAX package on the CPU, on the
-scene's device: ``ops/kernels/light_cdf.py`` (a CUDA kernel for a CUDA
-scene, numpy on the host for a CPU scene).
+scene's device: the total in XLA's windows of 32 (the ``reduce-window``
+ops in the HLO of ``jnp.sum``), the cdf in XLA's blocks of 16 (its scan),
+by ``ops/kernels/light_cdf.py`` (a CUDA kernel for a CUDA scene, numpy on
+the host for a CPU scene).
 """
 
 from __future__ import annotations

@@ -191,22 +191,24 @@ def test_light_choice_equals_the_full_table_choice_of_the_wavefront(
 @pytest.mark.parametrize("n_tris", [8193, 20_000])
 def test_light_distribution_plain_beyond_one_block(n_tris):
     """Above the kernel's one-block size (``SHARED_TRIS``) the plain
-    version is the same function: prob = w / total with the total summed
-    left to right, the cdf XLA's CPU blocked scan of prob (equal to the
-    JAX package's ``jnp.cumsum`` run op by op)."""
+    version is the same function: prob = w / total with the total the JAX
+    package's ``jnp.sum`` (XLA's windows of 32), the cdf XLA's CPU blocked
+    scan of prob (its ``jnp.cumsum``), both run op by op; and the pair is
+    the JAX package's ``light_cdf`` to the bit."""
     js = j_procedural(n_tris, seed=0, emissive_fraction=0.01)
     ps = _port_scene(js)
     area = nee.triangle_areas(ps)
     cdf, prob = light_cdf.light_cdf_plain(ps.emission, area)
     em, a = ps.emission.numpy(), area.numpy()
     w = ((em[:, 0] + em[:, 1]) + em[:, 2]) * a
-    total = np.float32(0)
-    for x in w:
-        total = np.float32(total + x)
-    np.testing.assert_array_equal(prob.numpy(), w / total)
     with jax.disable_jit():
+        total = np.asarray(jnp.sum(jnp.asarray(w)))
         want = np.asarray(jnp.cumsum(jnp.asarray(prob.numpy())))
+        j_cdf, j_prob = (np.asarray(x) for x in jnee.light_cdf(js))
+    np.testing.assert_array_equal(prob.numpy(), w / total)
     np.testing.assert_array_equal(cdf.numpy(), want)
+    np.testing.assert_array_equal(prob.numpy(), j_prob)
+    np.testing.assert_array_equal(cdf.numpy(), j_cdf)
     assert n_tris > light_cdf.SHARED_TRIS and light_cdf.MAX_TRIS == 1 << 20
 
 
@@ -241,10 +243,9 @@ def test_plain_forward_equals_op_by_op_jax(combined):
     reference wavefront run op by op (16x8: the op-by-op run's cost is per
     operation; jitted JAX rounds some multiply-adds differently and can
     flip a bright path, which moves a small frame's mean). The two light
-    distributions differ in the last bits here (XLA's CPU total of more
-    than 32 terms is not summed left to right; the port's is), so the
-    frames are held to tests/test_bigscene_quality.py's flip bounds; with
-    the JAX package's prob and cdf in the table, to
+    distributions are equal to the bit (both sum the total in XLA's
+    windows of 32); the frames are held to tests/test_bigscene_quality.py's
+    flip bounds; with the JAX package's prob and cdf in the table, to
     test_torch_megakernel_quality.py's bounds for the kernel body (under
     1% of pixels off by more than 1e-4, the others within 1e-6: the
     last-bit differences of the two libraries' trigonometry and of the
@@ -256,8 +257,8 @@ def test_plain_forward_equals_op_by_op_jax(combined):
         j_cdf, j_prob = (np.asarray(x) for x in jnee.light_cdf(combined))
         want = np.asarray(j_render_radiance(combined, JCamera.default(),
                                             JConfig(**small), 0))
-    assert not np.array_equal(cdf.numpy(), j_cdf)
-    np.testing.assert_allclose(cdf.numpy(), j_cdf, rtol=4e-7, atol=0)
+    np.testing.assert_array_equal(cdf.numpy(), j_cdf)
+    np.testing.assert_array_equal(prob.numpy(), j_prob)
     cfg = RenderConfig(**small)
     got = _plain_image(combined, cfg)
     assert combined.n_tris == 1150 and want.mean() > 1e-3

@@ -42,6 +42,13 @@ main path runs it at, after a warm-up launch:
   ``torch.profiler``; the resident CTAs an SM of each kernel that runs a
   queue of pixels (K6, K8, K9, K11, K10; K6's alone where the package
   sizes every grid by K6's);
+- the light distribution (``LIGHT``) on the default scene and on
+  ``chip_smoke.py``'s ``light_inputs`` at each of ``LIGHT_T``: device ms
+  a call, 20 calls queued behind a sleeping kernel (``queued_ms``), its
+  kernels' busy time and the kernels a call (``device_calls``, a
+  ``torch.profiler`` trace of 20 calls), and CUDA-event ms a call over 20
+  calls back to back (its bits are held by ``chip_smoke.py``'s phases 11
+  and 26);
 - with ``--vis-steps N``, the host seconds of N quality train steps with
   ``vis_grad`` (``vis_step_s``) on the default scene at 1920x1080,
   ``chip_smoke.py``'s VIS_TRAIN_SPP, and on procedural_scene(10_000) at
@@ -113,7 +120,10 @@ K5_REPS = {"K5_1080p_7": 200}
 #: its rays are the first of K5_bounce's.
 K5_LAST_SLICE = 1920 * 1080 % (512 * 512)
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
-           "K11", "T1")
+           "K11", "T1", "LIGHT")
+#: The light distribution's sizes: chip_smoke.py's phase 11 and 26 sizes.
+LIGHT_T = tuple(sorted({*cs.LIGHT_SMALL_T, *cs.LIGHT_BIG_T, cs.BIG_T,
+                        cs.HUGE_T, 1 << 20}))
 
 
 def card() -> str:
@@ -239,6 +249,25 @@ def window_runs(torch, idx, n_tris: int, window: int) -> dict:
                 mean_longest=longest.float().mean().item(),
                 max_longest=int(longest.max()),
                 longest_share=longest.sum().item() / tri.numel())
+
+
+def light_ms(torch, dev, small) -> dict:
+    """The light distribution's timings at the default scene's and each
+    LIGHT_T's inputs, by size."""
+    from spath_tpu_torch.ops import nee
+    from spath_tpu_torch.ops.kernels import light_cdf as lc
+
+    cases = {"default": (small.emission, nee.triangle_areas(small))}
+    cases.update({n: cs.light_inputs(torch, dev, n, n) for n in LIGHT_T})
+    out = {}
+    for name, (emission, area) in cases.items():
+        def call():
+            lc.light_cdf_call(emission, area)
+
+        out[name] = dict(cs.device_calls(torch, call, 20),
+                         ms=cs.queued_ms(torch, call, 20),
+                         call_ms=timed(torch, call, 20))
+    return out
 
 
 def ptxas_lines(log: Path) -> list[str]:
@@ -782,6 +811,8 @@ def main() -> int:
         saved["k4_gtab"], saved["k4_grays"] = mqg.quality_bwd_call(
             qo, qd, qk, qtri, qrows, g, qhead)
     del o, d, s, g, qo, qd, qk
+    if "LIGHT" in want:
+        ms["LIGHT"] = light_ms(torch, dev, small)
 
     big = procedural_scene(BIG_T, seed=0, device=dev)
     if "K5" in want:
