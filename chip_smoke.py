@@ -14,7 +14,9 @@ K10 and K7 at 19 columns) and visibility gradients with the wavefront on
 the card (phases 34-41: K5, K11, the backward kernels beyond 16
 bounces), the matmul-only sweep microbenchmark (phase 42: T1), and the
 threefry and table streams (phases 43-46: the threefry kernel,
-``config.QUALITY``'s frame and training, the table stream), through the
+``config.QUALITY``'s frame and training, the table stream), and
+ray-sharded rendering and training over ``torch.distributed`` (phases
+47-48: one rank on NCCL, two ranks sharing the card), through the
 entry points a user calls; any failure exits
 non-zero before a result is printed. Every plain wavefront the kernels
 are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
@@ -281,6 +283,39 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     frozen: K5, K7, the light distribution and the threefry kernel launch,
     none of K1-K4, K6, K8-K11; the loss falls; two gradients on one seed
     bitwise equal; peak device memory.
+
+47. One rank on NCCL: ``init_multihost`` with a world of one (a second
+    call a no-op), ``make_mesh(1)``; ``render_pt_fast(mesh=)`` bit-equal
+    to ``render_pt_fast`` on the headline frame (default scene,
+    1920x1080, 64 spp, 5 bounces: K1; the light distribution and K3), on
+    procedural_scene(10_000) at 320x240, 4 spp (cut for time: K6; the
+    light distribution and K9) and through the wavefront on
+    ``config.QUALITY`` at 1920x1080, 8 spp (K5, the light distribution and
+    the threefry kernel), each call launching its route's kernels only;
+    the six gradients of a weighted frame sum (vertices, albedo,
+    emission, camera position, angles, focal length) through
+    ``render_radiance_fastgrad(mesh=)`` (K1, K2; K3, K4; K6, K8, K7; K9,
+    K10, K7; K5, K7, light, threefry) and one ``make_train_step(mesh=)``
+    step bitwise equal to one device's (a world of one sums nothing); a
+    scene above K9's ``LIGHT_MAX`` lights with NEE (procedural, 100k
+    triangles, about 70k lights, 64x48, 1 spp) routed to the wavefront:
+    its frame (K5, light) bit-equal to the plain sweep's and to one
+    rank's, its gradient (K5, K7, light) within GRAD_RTOL of the plain
+    sweep's; the sharded serving call's overhead at the headline (CUDA
+    events, eight pairs in alternating order) and the collectives alone.
+48. Two ranks sharing the card, spawned here (``torch.multiprocessing``):
+    NCCL refuses two ranks on one GPU, so they run on gloo and the mesh
+    stages each collective's tensors through host memory. At 1920x1080, 8
+    spp (the default scene: conformance, quality, and the wavefront on
+    ``config.QUALITY``) and at phase 47's 10k frame: both ranks' frames
+    bit-equal to one device's; the six
+    gradients, sums of the two ranks' parts in rank order, within
+    GRAD_RTOL of each group's max of one device's, bitwise equal on both
+    ranks and over two runs; each call launching its route's kernels
+    only. 3 ``recover(mesh=)`` steps at 1920x1080, 8 spp lower the loss
+    with both ranks' parameters bitwise equal; ``scaling_efficiency(2)``
+    and the collectives' ms logged (on one card: machinery, not a scaling
+    result).
 
 The last three lines of standard output are the kernels' JSON record,
 the card as ``nvidia-smi`` names it, and ``{"ok": true, "device": ...}``.
@@ -3021,6 +3056,442 @@ def quality_preset_training(torch, dev, cam) -> dict:
     return out
 
 
+#: The sharded phases (47, 48): the 10k scene's frame in both, and the
+#: two-rank phase's default-scene frame and the wavefront's
+#: (``config.QUALITY``) in both, cut for time (the headline's 64 spp stay
+#: in phase 47 for K1-K4).
+SHARD_BIG = dict(width=320, height=240, spp=4, max_bounces=5)
+SHARD_FRAME = dict(width=1920, height=1080, spp=8, max_bounces=5)
+SHARD_GROUPS = ("vertices", "albedo", "emission", "pos", "angle", "focal")
+#: pairs of one-device and one-rank headline calls timed in phase 47
+OVERHEAD_TURNS = 8
+#: Phase 47's scene above K9's light cap: procedural_scene(LIGHT_CAP_T,
+#: seed=0, emissive_fraction=LIGHT_CAP_EMISSIVE), about 70,000 lights, at
+#: a frame the plain sweep renders in about a second.
+LIGHT_CAP_T, LIGHT_CAP_EMISSIVE = 100_000, 0.7
+LIGHT_CAP_FRAME = dict(width=64, height=48, spp=1, max_bounces=5)
+#: the kernels' records by the short names of the launch counts
+RECORD_NAMES = {
+    "K1": "megakernel_forward", "K2": "megakernel_backward",
+    "light": "light_cdf", "K3": "quality_forward", "K4": "quality_backward",
+    "K5": "nearest_hit", "K6": "bigscene_forward", "K7": "stream_scatter",
+    "K8": "bigscene_backward", "K9": "bigscene_quality_forward",
+    "K10": "bigscene_quality_backward", "threefry": "threefry"}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def shard_cases(torch, dev, frame: dict, big: dict) -> list:
+    """``(name, scene, cfg, forward kernels, gradient kernels)`` of the
+    five sharded routes: the default scene at ``frame`` (K1; K1, K2; the
+    light distribution and K3; and K4), procedural_scene(10_000) at
+    ``big`` (K6; K6, K8, K7; the light distribution and K9; K9, K10,
+    K7), and the wavefront on ``config.QUALITY`` (threefry) on the
+    default scene at SHARD_FRAME (K5, the light distribution and the
+    threefry kernel; and K7, the gathers' backward)."""
+    from spath_tpu_torch.config import QUALITY as PRESET
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.scene import default_scene, procedural_scene
+
+    dscene, ten_k = default_scene(dev), procedural_scene(BIG_T, seed=0,
+                                                         device=dev)
+    return [
+        ("conformance", dscene, RenderConfig(**frame), {"K1"},
+         {"K1", "K2"}),
+        ("quality", dscene, RenderConfig(**frame, **QUALITY),
+         {"light", "K3"}, {"light", "K3", "K4"}),
+        ("conformance 10k", ten_k, RenderConfig(**big), {"K6"},
+         {"K6", "K8", "K7"}),
+        ("quality 10k", ten_k, RenderConfig(**big, **QUALITY),
+         {"light", "K9"}, {"light", "K9", "K10", "K7"}),
+        ("wavefront, config.QUALITY", dscene, PRESET.replace(**SHARD_FRAME),
+         {"K5", "light", "threefry"}, {"K5", "K7", "light", "threefry"}),
+    ]
+
+
+def shard_weights(torch, cfg, dev):
+    """The loss weights of the sharded gradients, the same in every
+    process."""
+    g = torch.Generator().manual_seed(11)
+    return (0.5 + torch.rand((cfg.height, cfg.width, 3), generator=g)
+            ).to(dev)
+
+
+def six_grads(torch, scene, cam, cfg, mesh=None) -> list:
+    """The gradients of ``sum(weights * render_radiance_fastgrad)`` in the
+    scene's vertices, albedo and emission and the camera's position,
+    angles and focal length, through ``mesh`` or on one device."""
+    from spath_tpu_torch.camera import Camera
+    from spath_tpu_torch.models.pathtracer import render_radiance_fastgrad
+    from spath_tpu_torch.scene import Scene
+
+    leaves = [t.detach().clone().requires_grad_() for t in (
+        scene.vertices, scene.albedo, scene.emission, cam.pos, cam.angle,
+        cam.focal)]
+    img = render_radiance_fastgrad(Scene(*leaves[:3], scene.light_idx),
+                                   Camera(*leaves[3:]), cfg, 0, mesh=mesh)
+    loss = (img * shard_weights(torch, cfg, img.device)).sum()
+    return list(torch.autograd.grad(loss, leaves))
+
+
+def launched_set(expect: set, what: str) -> dict:
+    """The counts since they were zeroed: every kernel of ``expect``
+    launched, no other."""
+    launched = {k: v for k, v in counts(every_kernel()).items() if v}
+    check(set(launched) == expect, f"{what} launched {launched}, want "
+          f"{sorted(expect)} and nothing else")
+    return launched
+
+
+def shard_train_state(torch, dev, scene, cam):
+    """A train state at step 0 with the CLI's albedo perturbation, pose
+    frozen (phase 8's)."""
+    import numpy as np
+
+    from spath_tpu_torch.models.inverse import (
+        InverseParams, init_state, param_group_optimizer,
+    )
+
+    true_albedo = scene.albedo.cpu().numpy()
+    rng = np.random.default_rng(1)
+    bad = np.clip(true_albedo + rng.uniform(-0.4, 0.4, true_albedo.shape)
+                  .astype(np.float32), 0.05, 1.0)
+    params = InverseParams(cam_pos=cam.pos, cam_angle=cam.angle,
+                           cam_focal=cam.focal,
+                           albedo=torch.from_numpy(bad).to(dev))
+    return params, init_state(param_group_optimizer(
+        freeze_pose=True, albedo_lr=2e-2), params)
+
+
+def collective_ms(torch, mesh, dev, timer) -> dict:
+    """ms of the sharded paths' collectives on ``mesh``, 10 calls after
+    one: the all-gather of a rank's block of the 1080p frame, and the
+    rank-ordered sum's all-gather of the 10k scene's six gradients
+    (15 floats a triangle, 7 of the camera)."""
+    pixels = HEADLINE["width"] * HEADLINE["height"]
+    block = torch.zeros((pixels // mesh.size, 3), device=dev)
+    grads = torch.zeros(BIG_T * 15 + 7, device=dev)
+    out = {}
+    for name, t in (("frame all-gather", block), ("gradient sum", grads)):
+        mesh.all_gather(t)
+        out[name] = timer(torch, lambda: mesh.all_gather(t), 10)
+    return out
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """ms a call on the host's clock, ending in a synchronise: a gloo
+    collective blocks the host."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def light_cap_check(torch, dev, cam, mesh) -> dict:
+    """Phase 47's scene above K9's ``LIGHT_MAX`` lights, with NEE: K9 and
+    K10 decline it and the wavefront takes it, forward and gradient; its
+    frame launches K5 and the light distribution only and is bit-equal to
+    the plain sweep's, on one device and on ``mesh``; its gradient
+    (vertices, albedo, emission) within GRAD_RTOL of each max of the
+    plain sweep's."""
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.models.pathtracer import render_pt_fast
+    from spath_tpu_torch.models.renderer import forward_renderer, \
+        grad_renderer
+    from spath_tpu_torch.ops.kernels.bigscene_quality import (
+        LIGHT_MAX, static_light_idx,
+    )
+    from spath_tpu_torch.scene import procedural_scene
+
+    scene = procedural_scene(LIGHT_CAP_T, seed=0,
+                             emissive_fraction=LIGHT_CAP_EMISSIVE,
+                             device=dev)
+    lights = len(static_light_idx(scene))
+    cfg = RenderConfig(**LIGHT_CAP_FRAME, **QUALITY)
+    shape = f"{cfg.width}x{cfg.height} spp{cfg.spp}"
+    check(lights > LIGHT_MAX, f"{lights} lights, not above {LIGHT_MAX}")
+    check(forward_renderer(scene, cfg).name == "wavefront"
+          and grad_renderer(scene, cfg).name == "wavefront",
+          f"{lights} lights with NEE are not routed to the wavefront")
+    zero_counts(every_kernel())
+    img = render_pt_fast(scene, cam, cfg, 0)
+    torch.cuda.synchronize()
+    launched = launched_set({"K5", "light"}, f"{lights} lights' frame")
+    with plain_sweep():
+        want = render_pt_fast(scene, cam, cfg, 0)
+    check(torch.equal(img, want), f"{lights} lights, {shape}: the frame "
+          f"differs from the plain sweep's in "
+          f"{int((img != want).any(-1).sum())} pixels")
+    check(torch.equal(render_pt_fast(scene, cam, cfg, 0, mesh=mesh), img),
+          f"{lights} lights, {shape}: the one-rank frame differs")
+    mean = img.mean().item()
+    check(torch.isfinite(img).all().item() and mean > 0.01,
+          f"{lights} lights: the frame is black or not finite ({mean})")
+    zero_counts(every_kernel())
+    grads = wavefront_grads(torch, scene, cam, cfg)
+    torch.cuda.synchronize()
+    glaunched = launched_set({"K5", "K7", "light"},
+                             f"{lights} lights' gradient")
+    with plain_sweep():
+        plain = wavefront_grads(torch, scene, cam, cfg)
+    errs = {}
+    for name, g, w in zip(("vertices", "albedo", "emission"), grads, plain):
+        scale, err = w.abs().max().item(), (g - w).abs().max().item()
+        check(scale > 0 and err <= GRAD_RTOL * scale, f"{lights} lights: "
+              f"the {name} gradient off the plain sweep's by {err:.6g}, "
+              f"max {scale:.6g}")
+        errs[name] = err / scale
+    log(f"[47] procedural_scene({LIGHT_CAP_T}) with {lights} lights (> "
+        f"LIGHT_MAX {LIGHT_MAX}), NEE, {shape}: routed to the wavefront; "
+        f"frame bit-equal to the plain sweep's and to one rank's, mean "
+        f"{mean:.6f} ({launched}); gradient ({glaunched}) off the plain "
+        f"sweep's by {errs} of each max")
+    return dict(lights=lights, launches=launched, grad_launches=glaunched,
+                grad_rel_err=errs, mean=mean)
+
+
+def one_rank_phase(torch, dev, cam) -> dict:
+    """Phase 47: ``init_multihost`` with a world of one on NCCL, and the
+    five sharded routes on ``make_mesh(1)`` against one device: frames
+    bit-equal, the six gradients and a train step bitwise equal (a world
+    of one sums nothing), each sharded call launching its route's kernels
+    only; a scene above K9's light cap (``light_cap_check``); the sharded
+    call's overhead over the one-device call, in turns."""
+    import torch.distributed as dist
+
+    from spath_tpu_torch import parallel
+    from spath_tpu_torch.models.inverse import make_train_step
+    from spath_tpu_torch.models.pathtracer import render_pt_fast
+
+    check(parallel.init_multihost(f"localhost:{free_port()}", 1, 0),
+          "init_multihost started no process group")
+    check(not parallel.init_multihost(f"localhost:{free_port()}", 1, 0),
+          "a second init_multihost was not a no-op")
+    mesh = parallel.make_mesh(1)
+    check(mesh.backend == "nccl" and mesh.device == dev
+          and mesh.group is not None, f"mesh {mesh}")
+    out = {"launches": {}, "grad_launches": {}}
+    for name, scene, cfg, fwd, grad in shard_cases(torch, dev, HEADLINE,
+                                                   SHARD_BIG):
+        shape = f"{cfg.width}x{cfg.height} spp{cfg.spp}"
+        zero_counts(every_kernel())
+        sharded = render_pt_fast(scene, cam, cfg, 0, mesh=mesh)
+        torch.cuda.synchronize()
+        out["launches"][name] = launched_set(fwd, f"sharded {name}")
+        check(torch.equal(sharded, render_pt_fast(scene, cam, cfg, 0)),
+              f"{name} {shape}: the one-rank frame differs from one "
+              "device's")
+        zero_counts(every_kernel())
+        got = six_grads(torch, scene, cam, cfg, mesh)
+        torch.cuda.synchronize()
+        out["grad_launches"][name] = launched_set(
+            grad, f"the sharded {name} gradient")
+        want = six_grads(torch, scene, cam, cfg)
+        for group, g, w in zip(SHARD_GROUPS, got, want):
+            check(torch.equal(g, w), f"{name} {shape}: the one-rank "
+                  f"{group} gradient differs from one device's")
+        target = render_pt_fast(scene, cam, cfg, 0)
+        steps = [make_train_step(scene, cfg, 0, mesh=m)(
+            shard_train_state(torch, dev, scene, cam)[1], target)
+            for m in (mesh, None)]
+        check(torch.equal(steps[0][1]["loss"], steps[1][1]["loss"])
+              and torch.equal(steps[0][1]["grad_norm"],
+                              steps[1][1]["grad_norm"])
+              and torch.equal(steps[0][0].params.albedo,
+                              steps[1][0].params.albedo),
+              f"{name} {shape}: the one-rank train step differs from one "
+              "device's")
+        log(f"[47] one rank on NCCL, {name} {shape}: frame bit-equal to "
+            f"render_pt_fast ({out['launches'][name]}); six gradients and "
+            f"a train step bitwise equal ({out['grad_launches'][name]})")
+    out["light_cap"] = light_cap_check(torch, dev, cam, mesh)
+    # the sharded call's overhead at the headline: after a call each way,
+    # OVERHEAD_TURNS pairs of 5 calls each way, the order alternating, a
+    # difference a pair
+    scene, cfg = shard_cases(torch, dev, HEADLINE, SHARD_BIG)[0][1:3]
+    calls = {"one": lambda: render_pt_fast(scene, cam, cfg, 0),
+             "sharded": lambda: render_pt_fast(scene, cam, cfg, 0,
+                                               mesh=mesh)}
+    for fn in calls.values():
+        fn()
+    ms = {"one": [], "sharded": []}
+    for turn in range(OVERHEAD_TURNS):
+        for k in (("one", "sharded") if turn % 2 else ("sharded", "one")):
+            ms[k].append(event_ms(torch, calls[k], 5))
+    diffs = sorted(s - o for s, o in zip(ms["sharded"], ms["one"]))
+    out["overhead_ms"] = sum(diffs) / len(diffs)
+    out["overhead_ms_median"] = (diffs[(len(diffs) - 1) // 2]
+                                 + diffs[len(diffs) // 2]) / 2
+    out["overhead_ms_range"] = [diffs[0], diffs[-1]]
+    out["one_device_ms"], out["sharded_ms"] = ms["one"], ms["sharded"]
+    out["collective_ms"] = collective_ms(torch, mesh, dev, event_ms)
+    log(f"[47] the headline serving call, CUDA events, {OVERHEAD_TURNS} "
+        f"pairs in alternating order, 5 calls each, on {card()}: one "
+        f"device {ms['one']} ms, one rank on NCCL {ms['sharded']} ms; "
+        f"overhead by pair {diffs} ms, mean {out['overhead_ms']:.4f}, "
+        f"median {out['overhead_ms_median']:.4f} ms; "
+        f"the collectives alone (CUDA events): {out['collective_ms']}")
+    dist.destroy_process_group()
+    return out
+
+
+def two_rank_worker(rank: int, port: int, out: str) -> None:
+    """Phase 48's rank ``rank`` of two sharing card 0 on gloo (NCCL refuses
+    two ranks on one GPU; the mesh stages each collective's tensors
+    through host memory): the four routes' frames and gradients (twice),
+    3 ``recover`` steps and ``scaling_efficiency``, saved for the parent
+    to check."""
+    import torch
+    import torch.distributed as dist
+
+    from spath_tpu_torch import parallel
+    from spath_tpu_torch.camera import Camera
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.models.inverse import (
+        param_group_optimizer, recover,
+    )
+    from spath_tpu_torch.models.pathtracer import render_pt_fast
+    from spath_tpu_torch.parallel.shard_fast import (
+        render_radiance_fast_sharded,
+    )
+    from spath_tpu_torch.scene import default_scene
+
+    parallel.init_multihost(f"localhost:{port}", 2, rank, backend="gloo")
+    dev = torch.device("cuda", 0)
+    mesh = parallel.make_mesh(2)
+    cam = Camera.default(dev)
+    res = {"device": str(mesh.device), "backend": mesh.backend,
+           "staged": mesh.staged(torch.empty(1, device=dev))}
+    for name, scene, cfg, _, _ in shard_cases(torch, dev, SHARD_FRAME,
+                                              SHARD_BIG):
+        zero_counts(every_kernel())
+        res[f"frame/{name}"] = render_pt_fast(scene, cam, cfg, 0,
+                                              mesh=mesh).cpu()
+        res[f"launches/{name}"] = {k: v for k, v in
+                                   counts(every_kernel()).items() if v}
+        zero_counts(every_kernel())
+        grads = six_grads(torch, scene, cam, cfg, mesh)
+        res[f"grad_launches/{name}"] = {k: v for k, v in
+                                        counts(every_kernel()).items() if v}
+        again = six_grads(torch, scene, cam, cfg, mesh)
+        res[f"grad/{name}"] = [g.cpu() for g in grads]
+        res[f"again/{name}"] = all(torch.equal(a, b)
+                                   for a, b in zip(grads, again))
+    res["collective_ms"] = collective_ms(torch, mesh, dev, host_ms)
+    scene, cfg = default_scene(dev), RenderConfig(**SHARD_FRAME)
+    params, _ = shard_train_state(torch, dev, scene, cam)
+    target = render_radiance_fast_sharded(scene, cam, cfg, 0, mesh)
+    t0 = time.perf_counter()
+    state, losses = recover(
+        scene, target, params, cfg,
+        param_group_optimizer(freeze_pose=True, albedo_lr=2e-2), steps=3,
+        fixed_seed=0, log_every=0, mesh=mesh)
+    torch.cuda.synchronize()
+    res["recover_s"] = time.perf_counter() - t0
+    res["losses"] = losses
+    res["params"] = {k: t.detach().cpu() for k, t in
+                     state.params.tensors().items()}
+    res["scaling"] = parallel.scaling_efficiency(
+        scene, cam, RenderConfig(width=320, height=240, spp=8), 2, reps=2)
+    torch.save(res, f"{out}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def two_rank_phase(torch, dev, cam) -> dict:
+    """Phase 48: two ranks sharing the card, spawned here
+    (``two_rank_worker``), held to one device: frames bit-equal, the six
+    gradients (rank-ordered sums) within GRAD_RTOL of each group's max
+    and bitwise equal across the ranks and across two runs, each call
+    launching its route's kernels only; 3 ``recover`` steps lower the
+    loss with both ranks' parameters bitwise equal; ``scaling_efficiency``
+    logged, which on one card measures nothing of scaling."""
+    import torch.multiprocessing as mp
+
+    from spath_tpu_torch.models.pathtracer import render_pt_fast
+
+    torch.cuda.empty_cache()            # the ranks share the card
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(two_rank_worker, args=(free_port(), tmp), nprocs=2,
+                 join=True)
+        spawn_s = time.perf_counter() - t0
+        res = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+               for r in range(2)]
+    out = {"spawn_s": spawn_s, "launches": {}, "grad_launches": {}}
+    for r in res:
+        check(r["backend"] == "gloo" and r["staged"]
+              and r["device"] == str(dev), f"rank: {r['backend']}, "
+              f"staged {r['staged']}, {r['device']}")
+    log(f"[48] two ranks on one card ({dev}): gloo, each collective's "
+        "tensors staged through host memory (NCCL refuses two ranks on "
+        f"one GPU); spawn to exit {spawn_s:.2f} s")
+    for name, scene, cfg, fwd, grad in shard_cases(torch, dev, SHARD_FRAME,
+                                                   SHARD_BIG):
+        shape = f"{cfg.width}x{cfg.height} spp{cfg.spp}"
+        one = render_pt_fast(scene, cam, cfg, 0).cpu()
+        want = [g.cpu() for g in six_grads(torch, scene, cam, cfg)]
+        errs = {}
+        for rank, r in enumerate(res):
+            check(set(r[f"launches/{name}"]) == fwd
+                  and set(r[f"grad_launches/{name}"]) == grad,
+                  f"rank {rank}, {name}: launched {r[f'launches/{name}']} "
+                  f"and {r[f'grad_launches/{name}']}, want {sorted(fwd)} "
+                  f"and {sorted(grad)}")
+            check(torch.equal(r[f"frame/{name}"], one), f"rank {rank}, "
+                  f"{name} {shape}: the two-rank frame differs from one "
+                  "device's")
+            check(r[f"again/{name}"], f"rank {rank}, {name}: two sharded "
+                  "gradients differ")
+            for group, g, w in zip(SHARD_GROUPS, r[f"grad/{name}"], want):
+                err = (g - w).abs().max().item()
+                scale = w.abs().max().item()
+                check(err <= GRAD_RTOL * scale, f"rank {rank}, {name}: the "
+                      f"{group} gradient is {err} off, over {GRAD_RTOL} of "
+                      f"its max {scale}")
+                errs[group] = err / scale if scale else err
+        for group, a, b in zip(SHARD_GROUPS, res[0][f"grad/{name}"],
+                               res[1][f"grad/{name}"]):
+            check(torch.equal(a, b), f"{name}: the ranks' {group} "
+                  "gradients differ")
+        out["launches"][name] = res[0][f"launches/{name}"]
+        out["grad_launches"][name] = res[0][f"grad_launches/{name}"]
+        log(f"[48] two ranks, {name} {shape}: both frames bit-equal to one "
+            f"device's ({out['launches'][name]} a rank); gradients bitwise "
+            f"equal across the ranks and two runs ("
+            f"{out['grad_launches'][name]} a rank), against one device "
+            f"(share of each group's max): {errs}")
+    losses = [r["losses"] for r in res]
+    check(losses[0] == losses[1] and losses[0][-1] < losses[0][0],
+          f"3 sharded recover steps: losses {losses}")
+    for k, t in res[0]["params"].items():
+        check(torch.equal(t, res[1]["params"][k]),
+              f"after 3 sharded recover steps the ranks' {k} differ")
+    eff, t1, tn = res[0]["scaling"]
+    check(res[0]["scaling"] == res[1]["scaling"] and all(
+        x > 0 for x in (eff, t1, tn)), f"scaling {res[0]['scaling']} "
+        f"{res[1]['scaling']}")
+    out.update(losses=losses[0], recover_s=[r["recover_s"] for r in res],
+               scaling=dict(efficiency=eff, t1_s=t1, tn_s=tn),
+               collective_ms=[r["collective_ms"] for r in res])
+    log(f"[48] the collectives through host memory, host clock, by rank: "
+        f"{out['collective_ms']}")
+    log(f"[48] 3 recover steps on two ranks, default scene "
+        f"{SHARD_FRAME['width']}x{SHARD_FRAME['height']} "
+        f"spp{SHARD_FRAME['spp']}: losses {losses[0]}, parameters bitwise "
+        f"equal on both ranks, {out['recover_s']} s")
+    log(f"[48] scaling_efficiency(2) of render_pt_sharded, 320x240 spp8, "
+        f"on {card()} (two ranks on one card: machinery only, not a "
+        f"scaling result): efficiency {eff}, t1 {t1} s, t2 {tn} s")
+    return out
+
+
 def run() -> None:
     import torch
 
@@ -4279,7 +4750,12 @@ def run() -> None:
     table = table_stream_phase(torch, dev, cam)
     preset_tr = quality_preset_training(torch, dev, cam)
 
-    print(json.dumps({"kernels": [{
+    # 47-48. ray-sharded rendering and training: one rank on NCCL, then
+    # two ranks sharing the card on gloo
+    one_rank = one_rank_phase(torch, dev, cam)
+    two_ranks = two_rank_phase(torch, dev, cam)
+
+    record = {"kernels": [{
         "name": "megakernel_forward",
         "route": "cuda",
         "source": "spath_tpu_torch/csrc/megakernel.cu",
@@ -4539,7 +5015,23 @@ def run() -> None:
                       "rate)",
         "library_ms": None,
         "library_note": "none: torch.rand is Philox, another stream",
-    }]}))
+    }]}
+    by_name = {k["name"]: k for k in record["kernels"]}
+    for path, runs in (
+            ("sharded serving, one rank", one_rank["launches"]),
+            ("sharded training, one rank", one_rank["grad_launches"]),
+            ("sharded serving, rank 0 of two", two_ranks["launches"]),
+            ("sharded training, rank 0 of two",
+             two_ranks["grad_launches"]),
+            ("above LIGHT_MAX lights, serving",
+             {"": one_rank["light_cap"]["launches"]}),
+            ("above LIGHT_MAX lights, training",
+             {"": one_rank["light_cap"]["grad_launches"]})):
+        for launched in runs.values():
+            for short, n in launched.items():
+                paths = by_name[RECORD_NAMES[short]]["launches_by_path"]
+                paths[path] = paths.get(path, 0) + n
+    print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,13 @@ class Camera:
         return torch.stack([x, y, z], dim=-1)
 
 
+def pixel_rays(camera: Camera, width: int, height: int):
+    """``generate_rays`` and each ray's pixel id: ``(origins, directions,
+    ids)``, ``ids`` int64 ``0 .. height*width - 1``."""
+    o, d = generate_rays(camera, width, height)
+    return o, d, torch.arange(o.shape[0], dtype=torch.int64, device=o.device)
+
+
 def generate_rays(camera: Camera, width: int, height: int):
     """Per-pixel camera rays.
 

@@ -40,7 +40,12 @@ What differs from the JAX package, and why:
 - ``recover`` takes the optimizer as its fifth positional argument and
   ``steps`` after it (the JAX package takes ``steps`` fifth); by keyword
   every option is the JAX package's, with its defaults and meaning.
-- The sharded ``mesh`` paths are not ported.
+- With a ``mesh`` (``spath_tpu_torch.parallel``) every rank of it runs
+  the same loop (SPMD): it renders its block of pixels, computes the same
+  loss from the whole frame and gets the gradients summed over the ranks
+  in rank order, so every rank's parameters stay bitwise equal from step
+  to step. Checkpoints and metrics are written by the mesh's first rank
+  only; every rank reads the checkpoints back.
 """
 
 from __future__ import annotations
@@ -99,12 +104,13 @@ def apply_params(params: InverseParams, base_scene: Scene):
 
 def render_loss(params: InverseParams, base_scene: Scene,
                 target: torch.Tensor, cfg: RenderConfig,
-                seed: int) -> torch.Tensor:
-    """MSE between the (HDR, unclamped) render and the target image."""
+                seed: int, mesh=None) -> torch.Tensor:
+    """MSE between the (HDR, unclamped) render and the target image; with
+    a ``mesh`` the render is sharded over its ranks."""
     from spath_tpu_torch.models.pathtracer import render_radiance_fastgrad
 
     scene, cam = apply_params(params, base_scene)
-    img = render_radiance_fastgrad(scene, cam, cfg, seed)
+    img = render_radiance_fastgrad(scene, cam, cfg, seed, mesh)
     return ((img - target) ** 2).mean()
 
 
@@ -199,10 +205,11 @@ def _apply(state: TrainState, loss: torch.Tensor):
 
 
 def make_train_step(base_scene: Scene, cfg: RenderConfig,
-                    fixed_seed: int | None = None):
+                    fixed_seed: int | None = None, mesh=None):
     """The train step ``(state, target) -> (state, aux)``, its gradient
     from ``render_radiance_fastgrad``: with ``cfg.vis_grad`` the kernels'
-    interior gradient plus the visibility residual's.
+    interior gradient plus the visibility residual's; with a ``mesh``
+    sharded over its ranks, the gradients summed in rank order.
 
     ``fixed_seed``: render every step with this seed (common random
     numbers); when the target was rendered with the same seed, the loss
@@ -213,7 +220,7 @@ def make_train_step(base_scene: Scene, cfg: RenderConfig,
     def step_fn(state: TrainState, target: torch.Tensor):
         seed = state.step if fixed_seed is None else fixed_seed
         return _apply(state, render_loss(state.params, base_scene, target,
-                                         cfg, seed))
+                                         cfg, seed, mesh))
 
     return step_fn
 
@@ -237,7 +244,8 @@ def recover(base_scene: Scene, target: torch.Tensor,
             learning_rate: float = 5e-3, fixed_seed: int | None = None,
             checkpoint_dir: str | None = None, checkpoint_every: int = 50,
             log_every: int = 20, log_fn=print,
-            metrics_path: str | None = None, max_retries: int = 0):
+            metrics_path: str | None = None, max_retries: int = 0,
+            mesh=None):
     """The optimization loop, with checkpoint and resume
     (``spath_tpu/models/inverse.py::recover``).
 
@@ -251,6 +259,9 @@ def recover(base_scene: Scene, target: torch.Tensor,
     grad_norm) a step to that JSONL file (``utils/logging.py``).
     ``max_retries``: if a step raises, roll back to the last checkpoint and
     go on, up to this many times; needs ``checkpoint_dir``.
+    ``mesh``: every rank of it calls ``recover`` with the same arguments;
+    each renders its block of pixels, and the first rank alone writes the
+    checkpoints and the metrics.
     """
     if optimizer is None:
         def optimizer(p: InverseParams) -> torch.optim.Optimizer:
@@ -270,13 +281,20 @@ def recover(base_scene: Scene, target: torch.Tensor,
             state = restored
             log_fn(f"resumed from step {state.step}")
 
+    writer = mesh is None or mesh.index == 0
     metrics = None
-    if metrics_path is not None:
+    if metrics_path is not None and writer:
         from spath_tpu_torch.utils.logging import JsonlLogger
 
         metrics = JsonlLogger(metrics_path)
 
-    train_step = make_train_step(base_scene, cfg, fixed_seed)
+    def save(step):
+        if writer:
+            ckpt.save(step, state)
+        if mesh is not None:
+            mesh.barrier()
+
+    train_step = make_train_step(base_scene, cfg, fixed_seed, mesh)
     losses = []
     retries_left = max_retries
     while state.step < steps:
@@ -300,9 +318,9 @@ def recover(base_scene: Scene, target: torch.Tensor,
         if log_every and ((i - 1) % log_every == 0 or i == steps):
             log_fn(f"step {i - 1}: loss {loss:.6f}")
         if ckpt is not None and i % checkpoint_every == 0:
-            ckpt.save(i, state)
+            save(i)
     if ckpt is not None:
-        ckpt.save(state.step, state)
+        save(state.step)
     if metrics is not None:
         metrics.close()
     return state, losses

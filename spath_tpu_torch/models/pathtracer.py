@@ -68,8 +68,8 @@ from spath_tpu_torch.ops.intersect import (
     check_method, in_plain_sweep, nearest_hit_edges, sweep_table,
 )
 from spath_tpu_torch.ops.rng import (
-    fmix32, fold_in, hash_keys, key_uniforms, lcg_next, per_pixel_uniforms,
-    table_tensor, table_uniforms, threefry_key,
+    fmix32, fold_in, hash_keys, key_uniforms, lcg_next, lcg_seeds,
+    per_pixel_uniforms, table_tensor, table_uniforms, threefry_key,
 )
 from spath_tpu_torch.ops.kernels.threefry import threefry_call
 from spath_tpu_torch.ops.sampling import cross3, dot3, hemisphere_sample
@@ -529,7 +529,7 @@ def trace_mean_radiance(scene: Scene, origins, directions,
     n, device = origins.shape[0], origins.device
     ids = _pixel_ids(n, pixel_ids, device)
     if cfg.rng == "lcg":
-        rng = (ids + seed) & 0xFFFFFFFF
+        rng = lcg_seeds(seed, ids)
     else:
         rng = _stream(cfg, seed, ids)
     return mean_radiance_geometry(scene_geometry(scene), origins,
@@ -644,7 +644,7 @@ def render_pt(scene: Scene, camera: Camera, cfg: RenderConfig,
 
 
 def render_radiance_fastgrad(scene: Scene, camera: Camera,
-                             cfg: RenderConfig, seed: int = 0
+                             cfg: RenderConfig, seed: int = 0, mesh=None
                              ) -> torch.Tensor:
     """Differentiable unclamped radiance ``(H, W, 3)``: the same value and
     the same detached-sampling gradients as ``render_radiance``, from the
@@ -656,9 +656,18 @@ def render_radiance_fastgrad(scene: Scene, camera: Camera,
     ``render_vis_residual``, whose sweeps are K5 (K11 the interior's
     forward on large quality scenes at up to 8 spp); what no fused kernel
     takes, autograd of the wavefront with its sweeps on K5; on the CPU,
-    autograd of the wavefront. Above the streamed kernels' caps (2^20
-    triangles, ``LIGHT_MAX`` lights with NEE) it raises
-    ``NotImplementedError``."""
+    autograd of the wavefront. Above the streamed kernels' 2^20 triangles
+    it raises ``NotImplementedError``. With a ``mesh``
+    (``spath_tpu_torch.parallel``) every rank of it traces its block of
+    pixels and gets the whole frame, and the gradients are summed over
+    the ranks (``parallel/shard_fast.py``)."""
+    if mesh is not None:
+        from spath_tpu_torch.parallel.shard_fast import (
+            render_radiance_fastgrad_sharded,
+        )
+
+        return render_radiance_fastgrad_sharded(scene, camera, cfg, seed,
+                                                mesh)
     from spath_tpu_torch.models.renderer import grad_renderer
 
     _check_devices(scene, camera)
@@ -667,14 +676,20 @@ def render_radiance_fastgrad(scene: Scene, camera: Camera,
 
 
 def render_pt_fast(scene: Scene, camera: Camera, cfg: RenderConfig,
-                   seed: int = 0) -> torch.Tensor:
+                   seed: int = 0, mesh=None) -> torch.Tensor:
     """The serving path: the clamped frame from the fastest renderer that
     renders ``(scene, cfg)`` exactly (``models/renderer.py``): a fused
     CUDA kernel on a CUDA device (K1 conformance, K3 quality) or, on large
     scenes, a streamed one (K6, K9), ``vis_grad`` or not; for other
     estimators the wavefront with its sweeps on K5; on the CPU the
-    wavefront. Above the streamed kernels' caps it raises
-    ``NotImplementedError``."""
+    wavefront. Above the streamed kernels' 2^20 triangles it raises
+    ``NotImplementedError``. With a ``mesh`` every rank of it renders its
+    block of pixels on the same route and gets the whole frame
+    (``parallel/shard_fast.py``)."""
+    if mesh is not None:
+        from spath_tpu_torch.parallel.shard_fast import render_pt_fast_sharded
+
+        return render_pt_fast_sharded(scene, camera, cfg, seed, mesh)
     from spath_tpu_torch.models.renderer import forward_renderer
 
     _check_devices(scene, camera)

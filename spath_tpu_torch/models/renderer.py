@@ -20,12 +20,13 @@ with its draws from ``csrc/threefry.cu``; the table stream; other
 samplers with the hash stream; gradients deeper than the backward
 kernels' 64 bounces; ``vis_grad`` over such an interior, as the JAX
 package's ``VisGradFusedRenderer`` refuses a wavefront interior). A
-config that a fused kernel takes never reaches it. On a CUDA device the
-port raises ``NotImplementedError`` only above 2^20 triangles and above
-``LIGHT_MAX`` lights with NEE (the caps of the streamed kernels, which
-the wavefront keeps), and the JAX package's ``ValueError`` for the
-settings it refuses (NEE, roulette or stratification on the LCG or table
-stream). The compacted renderers are not registered.
+config that a fused kernel takes never reaches it, and it takes scenes
+of more than ``LIGHT_MAX`` lights with NEE, which K9 and K10 refuse. On a
+CUDA device the port raises ``NotImplementedError`` only above 2^20
+triangles (the streamed kernels' cap, which the wavefront on the card
+keeps), and the JAX package's ``ValueError`` for the settings it refuses
+(NEE, roulette or stratification on the LCG or table stream). The
+compacted renderers are not registered.
 """
 
 from __future__ import annotations
@@ -92,6 +93,17 @@ class Renderer:
         """Can this backend differentiate this (scene, config)?"""
         return False
 
+    def trace_block(self, scene: Scene, origins, directions, pixel_ids,
+                    cfg: RenderConfig, seed: int = 0,
+                    grad: bool = False) -> torch.Tensor:
+        """Mean radiance ``(n, 3)`` of camera rays with their pixel ids in
+        the whole frame, which key the random streams, so that a block
+        of a frame's rays gets the frame's bits (``parallel/shard.py``
+        traces one a rank). ``grad``: differentiable under autograd.
+        ``render_radiance`` and ``render_radiance_grad`` are the same
+        function over the whole frame's rays."""
+        raise NotImplementedError
+
     def render_radiance(self, scene: Scene, camera: Camera,
                         cfg: RenderConfig, seed: int = 0) -> torch.Tensor:
         """Unclamped mean radiance ``(H, W, 3)``."""
@@ -109,25 +121,26 @@ class Renderer:
                            0.0, 1.0)
 
 
-def within_caps(scene: Scene, cfg: RenderConfig) -> bool:
-    """Does ``(scene, cfg)`` keep the caps of the streamed kernels: T <=
-    2^20 and, with NEE, at most ``LIGHT_MAX`` lights? Every backend on a
-    CUDA device keeps them."""
-    return (scene.n_tris <= bigscene.BIG_MAX_TRIS
-            and (not cfg.nee or len(bigscene_quality.static_light_idx(scene))
-                 <= bigscene_quality.LIGHT_MAX))
+def within_caps(scene: Scene) -> bool:
+    """Does the scene keep the streamed kernels' cap of T <= 2^20, which
+    every backend on a CUDA device keeps? The light cap, ``LIGHT_MAX``
+    with NEE, is K9's and K10's alone: the wavefront chooses its light by
+    ``torch.searchsorted`` (``ops/nee.py``) and its light distribution
+    takes 2^20 triangles (``ops/kernels/light_cdf.py``)."""
+    return scene.n_tris <= bigscene.BIG_MAX_TRIS
 
 
 class WavefrontRenderer(Renderer):
     """The wavefront with autograd, every ported estimator and every depth:
     on CPU tensors the plain PyTorch version of every path; on a CUDA
-    device, last in the registry, what no kernel renderer takes, within
+    device, last in the registry, what no kernel renderer takes (scenes
+    of more than ``LIGHT_MAX`` lights with NEE among it), within
     ``within_caps``, its sweeps on K5 (``ops/intersect.py``)."""
 
     name = "wavefront"
 
     def supports(self, scene, cfg) -> bool:
-        return scene.device.type == "cpu" or within_caps(scene, cfg)
+        return scene.device.type == "cpu" or within_caps(scene)
 
     supports_grad = supports
 
@@ -135,6 +148,11 @@ class WavefrontRenderer(Renderer):
         return pathtracer.render_radiance(scene, camera, cfg, seed)
 
     render_radiance_grad = render_radiance
+
+    def trace_block(self, scene, origins, directions, pixel_ids, cfg,
+                    seed=0, grad=False):
+        return pathtracer.trace_mean_radiance(scene, origins, directions,
+                                              cfg, seed, pixel_ids)
 
 
 class MegakernelRenderer(Renderer):
@@ -156,6 +174,12 @@ class MegakernelRenderer(Renderer):
         return (self.available(scene)
                 and scene.n_tris <= GRAD_ROUTE_MAX_TRIS
                 and megakernel_grad.supported_grad(scene, cfg))
+
+    def trace_block(self, scene, origins, directions, pixel_ids, cfg,
+                    seed=0, grad=False):
+        block = (megakernel_grad.radiance_block_grad if grad
+                 else megakernel.radiance_block)
+        return block(scene, origins, directions, pixel_ids, cfg, seed)
 
     def render_radiance(self, scene, camera, cfg, seed=0):
         return megakernel.render_radiance_megakernel(scene, camera, cfg,
@@ -182,6 +206,12 @@ class BigsceneRenderer(Renderer):
     def supports_grad(self, scene, cfg) -> bool:
         return self.available(scene) and bigscene_grad.supported_grad(
             scene, cfg)
+
+    def trace_block(self, scene, origins, directions, pixel_ids, cfg,
+                    seed=0, grad=False):
+        block = (bigscene_grad.radiance_block_grad if grad
+                 else bigscene.radiance_block)
+        return block(scene, origins, directions, pixel_ids, cfg, seed)
 
     def render_radiance(self, scene, camera, cfg, seed=0):
         return bigscene.render_radiance_bigscene(scene, camera, cfg, seed)
@@ -214,6 +244,12 @@ class QualityMegakernelRenderer(Renderer):
                 and scene.n_tris <= QUALITY_GRAD_ROUTE_MAX_TRIS
                 and megakernel_quality_grad.supported_grad(scene, cfg))
 
+    def trace_block(self, scene, origins, directions, pixel_ids, cfg,
+                    seed=0, grad=False):
+        block = (megakernel_quality_grad.radiance_block_grad if grad
+                 else megakernel_quality.radiance_block)
+        return block(scene, origins, directions, pixel_ids, cfg, seed)
+
     def render_radiance(self, scene, camera, cfg, seed=0):
         return megakernel_quality.render_radiance_quality_megakernel(
             scene, camera, cfg, seed)
@@ -242,6 +278,12 @@ class QualityBigsceneRenderer(Renderer):
     def supports_grad(self, scene, cfg) -> bool:
         return self.available(scene) and bigscene_quality_grad.supported_grad(
             scene, cfg)
+
+    def trace_block(self, scene, origins, directions, pixel_ids, cfg,
+                    seed=0, grad=False):
+        block = (bigscene_quality_grad.radiance_block_grad if grad
+                 else bigscene_quality.radiance_block)
+        return block(scene, origins, directions, pixel_ids, cfg, seed)
 
     def render_radiance(self, scene, camera, cfg, seed=0):
         return bigscene_quality.render_radiance_bigscene_quality(
@@ -272,6 +314,15 @@ class VisGradFusedRenderer(Renderer):
 
     def supports(self, scene, cfg) -> bool:
         return False            # a frame is the same without vis_grad
+
+    def trace_block(self, scene, origins, directions, pixel_ids, cfg,
+                    seed=0, grad=False):
+        """The wavefront's, ``vis_grad`` and all: the residual replays
+        the camera's whole frame, so a block of it (a rank's, in
+        ``parallel/``) takes the wavefront, as the JAX package's sharded
+        paths send ``vis_grad`` to the sharded wavefront."""
+        return WavefrontRenderer().trace_block(scene, origins, directions,
+                                               pixel_ids, cfg, seed, grad)
 
     def supports_grad(self, scene, cfg) -> bool:
         if not (self.available(scene) and cfg.vis_grad):
@@ -311,29 +362,22 @@ def _estimator(cfg: RenderConfig) -> str:
             f"rr_start={cfg.rr_start}, stratify={cfg.stratify}")
 
 
-def _no_kernel(scene: Scene, cfg: RenderConfig, grad: bool) -> str:
+def no_kernel(scene: Scene, cfg: RenderConfig, grad: bool) -> str:
     """Why no ported backend takes ``(scene, cfg)`` on the scene's device:
-    a cap of the streamed kernels, which the wavefront on the card keeps
-    for every estimator."""
+    the streamed kernels' cap of 2^20 triangles, which the wavefront on
+    the card keeps for every estimator."""
     what = "differentiates" if grad else "renders"
-    head = f"no ported kernel {what} {_estimator(cfg)} with " \
-           f"{scene.n_tris} triangles on {scene.device}: "
     if pathtracer.is_conformance(cfg):
         name = "the streamed kernels " + ("K6 and K8" if grad else "K6")
     elif cfg.rng == "hash" and cfg.sampler == "cosine":
         name = "the streamed quality kernels " + (
             "K9 and K10" if grad else "K9")
     else:
-        name = "the wavefront on the card, at the streamed kernels' caps,"
-    if scene.n_tris > bigscene.BIG_MAX_TRIS:
-        return head + (
-            f"{name} take T <= {bigscene.BIG_MAX_TRIS} (2^20), as the JAX "
-            "package's BIG_MAX_TRIS; so does the wavefront on the card")
-    n_lights = len(bigscene_quality.static_light_idx(scene))
-    return head + (
-        f"{name} take at most LIGHT_MAX = {bigscene_quality.LIGHT_MAX} "
-        f"lights with nee, the scene has {n_lights}; so does the wavefront "
-        "on the card")
+        name = "the wavefront on the card, at the streamed kernels' cap,"
+    return (f"no ported kernel {what} {_estimator(cfg)} with "
+            f"{scene.n_tris} triangles on {scene.device}: {name} take T <= "
+            f"{bigscene.BIG_MAX_TRIS} (2^20), as the JAX package's "
+            "BIG_MAX_TRIS; so does the wavefront on the card")
 
 
 def forward_renderer(scene: Scene, cfg: RenderConfig) -> Renderer:
@@ -343,7 +387,7 @@ def forward_renderer(scene: Scene, cfg: RenderConfig) -> Renderer:
     for r in REGISTRY:
         if r.supports(scene, cfg):
             return r
-    raise NotImplementedError(_no_kernel(scene, cfg, grad=False))
+    raise NotImplementedError(no_kernel(scene, cfg, grad=False))
 
 
 def grad_renderer(scene: Scene, cfg: RenderConfig) -> Renderer:
@@ -353,4 +397,4 @@ def grad_renderer(scene: Scene, cfg: RenderConfig) -> Renderer:
     for r in REGISTRY:
         if r.supports_grad(scene, cfg):
             return r
-    raise NotImplementedError(_no_kernel(scene, cfg, grad=True))
+    raise NotImplementedError(no_kernel(scene, cfg, grad=True))

@@ -150,10 +150,12 @@ def _sweep(o, d, v0, e1, e2, src_idx, tri_block: int):
 def _dist_selected(o, d, v0, e1, e2, idx):
     """Differentiable Möller–Trumbore distance of each ray to its selected
     triangle, ``BIG`` on a miss: the O(N) backward path. The guard is
-    ``|a| > 0``, as in the JAX package, not the sweep's ε."""
-    safe = idx.clamp_min(0)
-    # index_select, whose backward is index_add_ (models/pathtracer.py)
-    a0, e1s, e2s = (t.index_select(0, safe) for t in (v0, e1, e2))
+    ``|a| > 0``, as in the JAX package, not the sweep's ε. The rows are
+    gathered by ``ops/gather.py::gather_rows``, whose backward adds each
+    row's duplicates in a fixed order (on the card through K7)."""
+    from spath_tpu_torch.ops.gather import gather_rows
+
+    a0, e1s, e2s = gather_rows(idx.clamp_min(0), v0, e1, e2)
     h = torch.linalg.cross(d, e2s)
     a = (e1s * h).sum(-1)
     f = 1.0 / torch.where(a.abs() > 0.0, a, torch.ones_like(a))

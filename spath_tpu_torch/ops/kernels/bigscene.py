@@ -41,11 +41,12 @@ import heapq
 import numpy as np
 import torch
 
-from spath_tpu_torch.camera import Camera
+from spath_tpu_torch.camera import Camera, pixel_rays
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.models.pathtracer import is_conformance
 from spath_tpu_torch.ops.kernels import megakernel
 from spath_tpu_torch.ops.kernels.build import library
+from spath_tpu_torch.ops.rng import lcg_seeds
 from spath_tpu_torch.scene import Scene
 
 #: Largest scene the streamed kernels take (the JAX package's
@@ -273,12 +274,19 @@ def bigscene_call(origins, directions, seeds, tri, cfg: RenderConfig):
 bigscene_call.launches = 0
 
 
-def render_radiance_bigscene(scene: Scene, camera: Camera, cfg: RenderConfig,
-                             seed: int = 0) -> torch.Tensor:
-    """Unclamped mean radiance ``(H, W, 3)`` through ``bigscene_call``."""
+def radiance_block(scene: Scene, origins, directions, pixel_ids,
+                   cfg: RenderConfig, seed: int = 0) -> torch.Tensor:
+    """Mean radiance ``(n, 3)`` through ``bigscene_call`` of camera rays
+    with their pixel ids in the whole frame (``megakernel``'s)."""
     if not supported(scene, cfg):
         raise ValueError("the streamed kernel supports lcg+angle, "
                          f"T <= {BIG_MAX_TRIS}")
-    out = bigscene_call(*megakernel.pack_rays(camera, cfg, seed),
-                        megakernel.scene_table(scene), cfg)
-    return out.reshape(cfg.height, cfg.width, 3)
+    return bigscene_call(origins, directions, lcg_seeds(seed, pixel_ids),
+                         megakernel.scene_table(scene), cfg)
+
+
+def render_radiance_bigscene(scene: Scene, camera: Camera, cfg: RenderConfig,
+                             seed: int = 0) -> torch.Tensor:
+    """Unclamped mean radiance ``(H, W, 3)`` through ``bigscene_call``."""
+    return radiance_block(scene, *pixel_rays(camera, cfg.width, cfg.height),
+                          cfg, seed).reshape(cfg.height, cfg.width, 3)

@@ -36,11 +36,12 @@ import ctypes
 
 import torch
 
-from spath_tpu_torch.camera import Camera
+from spath_tpu_torch.camera import Camera, pixel_rays
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.ops.kernels import bigscene, megakernel, megakernel_grad
 from spath_tpu_torch.ops.kernels.build import library
 from spath_tpu_torch.ops.kernels.stream_scatter import stream_scatter_call
+from spath_tpu_torch.ops.rng import lcg_seeds
 from spath_tpu_torch.scene import Scene
 
 #: Largest scene K8 takes: the forward's cap, as in the JAX package.
@@ -148,6 +149,17 @@ class BigRows(torch.autograd.Function):
                 torch.zeros_like(directions), None, None)
 
 
+def radiance_block_grad(scene: Scene, origins, directions, pixel_ids,
+                        cfg: RenderConfig, seed: int = 0) -> torch.Tensor:
+    """``bigscene.radiance_block``, differentiable (``BigRows``)."""
+    if not supported_grad(scene, cfg):
+        raise ValueError("the streamed VJP supports lcg+angle, "
+                         f"T <= {GRAD_MAX_TRIS}, "
+                         f"max_bounces <= {MAX_BOUNCES}")
+    return BigRows.apply(megakernel.scene_table(scene), origins, directions,
+                         lcg_seeds(seed, pixel_ids), cfg)
+
+
 def render_radiance_bigscene_grad(scene: Scene, camera: Camera,
                                   cfg: RenderConfig, seed: int = 0
                                   ) -> torch.Tensor:
@@ -157,10 +169,6 @@ def render_radiance_bigscene_grad(scene: Scene, camera: Camera,
     albedo and emission, and zeros to the camera, for scenes up to
     ``GRAD_MAX_TRIS`` triangles. Raises ``ValueError`` outside the
     conformance estimator or the kernels' limits."""
-    if not supported_grad(scene, cfg):
-        raise ValueError("the streamed VJP supports lcg+angle, "
-                         f"T <= {GRAD_MAX_TRIS}, "
-                         f"max_bounces <= {MAX_BOUNCES}")
-    o, d, seeds = megakernel.pack_rays(camera, cfg, seed)
-    out = BigRows.apply(megakernel.scene_table(scene), o, d, seeds, cfg)
-    return out.reshape(cfg.height, cfg.width, 3)
+    return radiance_block_grad(
+        scene, *pixel_rays(camera, cfg.width, cfg.height), cfg,
+        seed).reshape(cfg.height, cfg.width, 3)

@@ -59,12 +59,13 @@ import ctypes
 import numpy as np
 import torch
 
-from spath_tpu_torch.camera import Camera
+from spath_tpu_torch.camera import Camera, pixel_rays
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.ops.intersect import BIG, plain_sweep
 from spath_tpu_torch.ops.kernels import bigscene
 from spath_tpu_torch.ops.kernels import megakernel_quality as mq
 from spath_tpu_torch.ops.kernels.build import library
+from spath_tpu_torch.ops.rng import hash_keys
 from spath_tpu_torch.scene import Scene
 
 #: Largest scene the streamed quality kernels take (the JAX package's
@@ -275,14 +276,21 @@ def light_rows(scene: Scene) -> torch.Tensor:
                            scene.device)
 
 
-def render_radiance_bigscene_quality(scene: Scene, camera: Camera,
-                                     cfg: RenderConfig, seed: int = 0
-                                     ) -> torch.Tensor:
-    """Unclamped mean radiance ``(H, W, 3)`` through ``bigq_call``."""
+def radiance_block(scene: Scene, origins, directions, pixel_ids,
+                   cfg: RenderConfig, seed: int = 0) -> torch.Tensor:
+    """Mean radiance ``(n, 3)`` through ``bigq_call`` of camera rays with
+    their pixel ids in the whole frame (``megakernel_quality``'s)."""
     if not supported(scene, cfg):
         raise ValueError("the streamed quality kernel needs rng='hash', "
                          f"sampler='cosine', T <= {BIGQ_MAX_TRIS}, at most "
                          f"LIGHT_MAX = {LIGHT_MAX} lights with nee")
-    out = bigq_call(*mq.pack_rays(camera, cfg, seed), mq.quality_table(scene),
-                    light_rows(scene), cfg)
-    return out.reshape(cfg.height, cfg.width, 3)
+    return bigq_call(origins, directions, hash_keys(seed, pixel_ids),
+                     mq.quality_table(scene), light_rows(scene), cfg)
+
+
+def render_radiance_bigscene_quality(scene: Scene, camera: Camera,
+                                     cfg: RenderConfig, seed: int = 0
+                                     ) -> torch.Tensor:
+    """Unclamped mean radiance ``(H, W, 3)`` through ``bigq_call``."""
+    return radiance_block(scene, *pixel_rays(camera, cfg.width, cfg.height),
+                          cfg, seed).reshape(cfg.height, cfg.width, 3)

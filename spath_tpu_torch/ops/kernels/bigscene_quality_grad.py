@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from spath_tpu_torch.camera import Camera
+from spath_tpu_torch.camera import Camera, pixel_rays
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.ops.kernels import bigscene as bs
 from spath_tpu_torch.ops.kernels import bigscene_quality as bq
@@ -45,6 +45,7 @@ from spath_tpu_torch.ops.kernels import megakernel_quality as mq
 from spath_tpu_torch.ops.kernels import megakernel_quality_grad as mqg
 from spath_tpu_torch.ops.kernels.build import library
 from spath_tpu_torch.ops.kernels.stream_scatter import stream_scatter_call
+from spath_tpu_torch.ops.rng import hash_keys
 from spath_tpu_torch.scene import Scene
 
 #: Largest scene K10 takes: the forward's cap, as in the JAX package.
@@ -206,6 +207,20 @@ def render_bigscene_quality_with_hits(scene: Scene, camera: Camera,
     return out.reshape(cfg.height, cfg.width, 3), (dist, idx)
 
 
+def radiance_block_grad(scene: Scene, origins, directions, pixel_ids,
+                        cfg: RenderConfig, seed: int = 0) -> torch.Tensor:
+    """``bigscene_quality.radiance_block``, differentiable
+    (``BigQualityRows``), the rays' adjoint included."""
+    if not supported_grad(scene, cfg):
+        raise ValueError("the streamed quality VJP needs rng='hash', "
+                         f"sampler='cosine', T <= {GRAD_MAX_TRIS}, "
+                         f"max_bounces <= {MAX_BOUNCES}, at most "
+                         f"LIGHT_MAX = {bq.LIGHT_MAX} lights with nee")
+    return BigQualityRows.apply(mq.quality_table(scene), origins, directions,
+                                hash_keys(seed, pixel_ids),
+                                bq.light_rows(scene), cfg)
+
+
 def render_radiance_bigscene_quality_grad(scene: Scene, camera: Camera,
                                           cfg: RenderConfig, seed: int = 0
                                           ) -> torch.Tensor:
@@ -217,12 +232,6 @@ def render_radiance_bigscene_quality_grad(scene: Scene, camera: Camera,
     ``generate_rays``), for scenes up to ``GRAD_MAX_TRIS`` triangles.
     Raises ``ValueError`` outside the hash+cosine estimator or the
     kernels' limits."""
-    if not supported_grad(scene, cfg):
-        raise ValueError("the streamed quality VJP needs rng='hash', "
-                         f"sampler='cosine', T <= {GRAD_MAX_TRIS}, "
-                         f"max_bounces <= {MAX_BOUNCES}, at most "
-                         f"LIGHT_MAX = {bq.LIGHT_MAX} lights with nee")
-    o, d, keys = mq.pack_rays(camera, cfg, seed)
-    out = BigQualityRows.apply(mq.quality_table(scene), o, d, keys,
-                               bq.light_rows(scene), cfg)
-    return out.reshape(cfg.height, cfg.width, 3)
+    return radiance_block_grad(
+        scene, *pixel_rays(camera, cfg.width, cfg.height), cfg,
+        seed).reshape(cfg.height, cfg.width, 3)

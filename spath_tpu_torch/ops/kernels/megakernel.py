@@ -34,7 +34,7 @@ import ctypes
 
 import torch
 
-from spath_tpu_torch.camera import Camera, generate_rays
+from spath_tpu_torch.camera import Camera, pixel_rays
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.models.pathtracer import (
     is_conformance, mean_radiance_geometry, require_conformance,
@@ -42,7 +42,7 @@ from spath_tpu_torch.models.pathtracer import (
 )
 from spath_tpu_torch.ops.intersect import plain_sweep
 from spath_tpu_torch.ops.kernels.build import library
-from spath_tpu_torch.ops.rng import pixel_seeds
+from spath_tpu_torch.ops.rng import lcg_seeds
 from spath_tpu_torch.scene import Scene
 
 #: Largest scene the kernel takes: a (1024, 18) float32 table is 72 KiB.
@@ -63,8 +63,8 @@ def supported(scene: Scene, cfg: RenderConfig) -> bool:
 def pack_rays(camera: Camera, cfg: RenderConfig, seed: int = 0):
     """Camera → ``(origins (n, 3), directions (n, 3), seeds (n,))`` on
     the camera's device."""
-    o, d = generate_rays(camera, cfg.width, cfg.height)
-    return o, d, pixel_seeds(o.shape[0], seed, device=o.device)
+    o, d, ids = pixel_rays(camera, cfg.width, cfg.height)
+    return o, d, lcg_seeds(seed, ids)
 
 
 def megakernel_plain(origins, directions, seeds, tri, cfg: RenderConfig):
@@ -153,12 +153,21 @@ def mega_call(origins, directions, seeds, tri, cfg: RenderConfig):
 mega_call.launches = 0
 
 
+def radiance_block(scene: Scene, origins, directions, pixel_ids,
+                   cfg: RenderConfig, seed: int = 0) -> torch.Tensor:
+    """Mean radiance ``(n, 3)`` through ``mega_call`` of camera rays with
+    their pixel ids in the whole frame, which key the LCG streams: a
+    block of a frame's rays gets the frame's bits."""
+    if not supported(scene, cfg):
+        raise ValueError(
+            f"megakernel supports lcg+angle, T <= {MAX_TRIS}")
+    return mega_call(origins, directions, lcg_seeds(seed, pixel_ids),
+                     scene_table(scene), cfg)
+
+
 def render_radiance_megakernel(scene: Scene, camera: Camera,
                                cfg: RenderConfig, seed: int = 0
                                ) -> torch.Tensor:
     """Unclamped mean radiance ``(H, W, 3)`` through ``mega_call``."""
-    if not supported(scene, cfg):
-        raise ValueError(
-            f"megakernel supports lcg+angle, T <= {MAX_TRIS}")
-    out = mega_call(*pack_rays(camera, cfg, seed), scene_table(scene), cfg)
-    return out.reshape(cfg.height, cfg.width, 3)
+    return radiance_block(scene, *pixel_rays(camera, cfg.width, cfg.height),
+                          cfg, seed).reshape(cfg.height, cfg.width, 3)

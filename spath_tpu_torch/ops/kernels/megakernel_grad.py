@@ -40,12 +40,12 @@ import functools
 import numpy as np
 import torch
 
-from spath_tpu_torch.camera import Camera
+from spath_tpu_torch.camera import Camera, pixel_rays
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.ops.intersect import nearest_hit_edges, plain_sweep
 from spath_tpu_torch.ops.kernels import megakernel
 from spath_tpu_torch.ops.kernels.build import library
-from spath_tpu_torch.ops.rng import lcg_next
+from spath_tpu_torch.ops.rng import lcg_next, lcg_seeds
 from spath_tpu_torch.ops.sampling import angle_sample, dot3
 from spath_tpu_torch.scene import Scene
 
@@ -446,6 +446,17 @@ class MegaRows(torch.autograd.Function):
                 torch.zeros_like(directions), None, None)
 
 
+def radiance_block_grad(scene: Scene, origins, directions, pixel_ids,
+                        cfg: RenderConfig, seed: int = 0) -> torch.Tensor:
+    """``megakernel.radiance_block``, differentiable (``MegaRows``)."""
+    if not supported_grad(scene, cfg):
+        raise ValueError("megakernel VJP supports lcg+angle, "
+                         f"T <= {GRAD_MAX_TRIS}, "
+                         f"max_bounces <= {MAX_BOUNCES}")
+    return MegaRows.apply(megakernel.scene_table(scene), origins,
+                          directions, lcg_seeds(seed, pixel_ids), cfg)
+
+
 def render_radiance_mega(scene: Scene, camera: Camera, cfg: RenderConfig,
                          seed: int = 0) -> torch.Tensor:
     """Differentiable fused render: unclamped mean radiance ``(H, W, 3)``,
@@ -453,10 +464,6 @@ def render_radiance_mega(scene: Scene, camera: Camera, cfg: RenderConfig,
     scene's vertices (through the table's normals), albedo and emission,
     and zeros to the camera. Raises ``ValueError`` outside the
     conformance estimator or the kernels' limits."""
-    if not supported_grad(scene, cfg):
-        raise ValueError("megakernel VJP supports lcg+angle, "
-                         f"T <= {GRAD_MAX_TRIS}, "
-                         f"max_bounces <= {MAX_BOUNCES}")
-    o, d, seeds = megakernel.pack_rays(camera, cfg, seed)
-    out = MegaRows.apply(megakernel.scene_table(scene), o, d, seeds, cfg)
-    return out.reshape(cfg.height, cfg.width, 3)
+    return radiance_block_grad(
+        scene, *pixel_rays(camera, cfg.width, cfg.height), cfg,
+        seed).reshape(cfg.height, cfg.width, 3)

@@ -41,7 +41,7 @@ import functools
 import numpy as np
 import torch
 
-from spath_tpu_torch.camera import Camera, generate_rays
+from spath_tpu_torch.camera import Camera, pixel_rays
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.models.pathtracer import (
     check_estimator, geometry_lights, n_draws, scene_geometry,
@@ -114,8 +114,7 @@ def supported(scene: Scene, cfg: RenderConfig) -> bool:
 def pack_rays(camera: Camera, cfg: RenderConfig, seed: int = 0):
     """Camera → ``(origins (n, 3), directions (n, 3), keys (n,))`` on the
     camera's device."""
-    o, d = generate_rays(camera, cfg.width, cfg.height)
-    ids = torch.arange(o.shape[0], dtype=torch.int64, device=o.device)
+    o, d, ids = pixel_rays(camera, cfg.width, cfg.height)
     return o, d, hash_keys(seed, ids)
 
 
@@ -415,13 +414,21 @@ def quality_call(origins, directions, keys, tri, light_idx,
 quality_call.launches = 0
 
 
+def radiance_block(scene: Scene, origins, directions, pixel_ids,
+                   cfg: RenderConfig, seed: int = 0) -> torch.Tensor:
+    """Mean radiance ``(n, 3)`` through ``quality_call`` of camera rays
+    with their pixel ids in the whole frame, which key the hash streams:
+    a block of a frame's rays gets the frame's bits."""
+    if not supported(scene, cfg):
+        raise ValueError("quality megakernel needs rng='hash', "
+                         f"sampler='cosine', T <= {MAX_TRIS}")
+    return quality_call(origins, directions, hash_keys(seed, pixel_ids),
+                        quality_table(scene), light_rows(scene), cfg)
+
+
 def render_radiance_quality_megakernel(scene: Scene, camera: Camera,
                                        cfg: RenderConfig, seed: int = 0
                                        ) -> torch.Tensor:
     """Unclamped mean radiance ``(H, W, 3)`` through ``quality_call``."""
-    if not supported(scene, cfg):
-        raise ValueError("quality megakernel needs rng='hash', "
-                         f"sampler='cosine', T <= {MAX_TRIS}")
-    out = quality_call(*pack_rays(camera, cfg, seed), quality_table(scene),
-                       light_rows(scene), cfg)
-    return out.reshape(cfg.height, cfg.width, 3)
+    return radiance_block(scene, *pixel_rays(camera, cfg.width, cfg.height),
+                          cfg, seed).reshape(cfg.height, cfg.width, 3)

@@ -47,7 +47,7 @@ import functools
 import numpy as np
 import torch
 
-from spath_tpu_torch.camera import Camera
+from spath_tpu_torch.camera import Camera, pixel_rays
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.ops.fp import sqrt_rn
 from spath_tpu_torch.ops.intersect import plain_sweep
@@ -55,6 +55,7 @@ from spath_tpu_torch.ops.kernels import bigscene as bs
 from spath_tpu_torch.ops.kernels import megakernel_quality as mq
 from spath_tpu_torch.ops.kernels.build import library
 from spath_tpu_torch.ops.nee import INV_PI
+from spath_tpu_torch.ops.rng import hash_keys
 from spath_tpu_torch.ops.sampling import cross3, dot3
 from spath_tpu_torch.scene import Scene
 
@@ -446,6 +447,19 @@ class QualityRows(torch.autograd.Function):
                 None, None, None)
 
 
+def radiance_block_grad(scene: Scene, origins, directions, pixel_ids,
+                        cfg: RenderConfig, seed: int = 0) -> torch.Tensor:
+    """``megakernel_quality.radiance_block``, differentiable
+    (``QualityRows``), the rays' adjoint included."""
+    if not supported_grad(scene, cfg):
+        raise ValueError("quality megakernel VJP needs rng='hash', "
+                         f"sampler='cosine', T <= {GRAD_MAX_TRIS}, "
+                         f"max_bounces <= {MAX_BOUNCES}")
+    return QualityRows.apply(mq.quality_table(scene), origins, directions,
+                             hash_keys(seed, pixel_ids), mq.light_rows(scene),
+                             cfg)
+
+
 def render_radiance_quality_grad(scene: Scene, camera: Camera,
                                  cfg: RenderConfig, seed: int = 0
                                  ) -> torch.Tensor:
@@ -455,11 +469,6 @@ def render_radiance_quality_grad(scene: Scene, camera: Camera,
     normals and areas), albedo and emission, and to the camera (through
     ``generate_rays``). Raises ``ValueError`` outside the hash+cosine
     estimator or the kernels' limits."""
-    if not supported_grad(scene, cfg):
-        raise ValueError("quality megakernel VJP needs rng='hash', "
-                         f"sampler='cosine', T <= {GRAD_MAX_TRIS}, "
-                         f"max_bounces <= {MAX_BOUNCES}")
-    o, d, keys = mq.pack_rays(camera, cfg, seed)
-    out = QualityRows.apply(mq.quality_table(scene), o, d, keys,
-                            mq.light_rows(scene), cfg)
-    return out.reshape(cfg.height, cfg.width, 3)
+    return radiance_block_grad(
+        scene, *pixel_rays(camera, cfg.width, cfg.height), cfg,
+        seed).reshape(cfg.height, cfg.width, 3)

@@ -32,6 +32,7 @@ import torch
 
 from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.ops.fp import sqrt_rn
+from spath_tpu_torch.ops.gather import gather_rows
 from spath_tpu_torch.ops.intersect import nearest_hit_edges
 from spath_tpu_torch.ops.kernels.light_cdf import light_cdf_call
 from spath_tpu_torch.ops.sampling import cross3, dot3
@@ -84,11 +85,14 @@ def sample_light_points(lt: Lights, u_sel, u1, u2) -> dict:
 
     Returns ``y`` (N, 3) light points, ``normal`` unit normals,
     ``emission``, ``area``, ``prob`` (detached) and ``idx``, the chosen
-    triangle, as the JAX function's dict.
+    triangle, as the JAX function's dict. The rows are gathered by
+    ``ops/gather.py::gather_rows``, whose backward adds each row's
+    duplicates in a fixed order (on the card through K7).
     """
     idx = torch.searchsorted(lt.cdf, u_sel, right=True)
     idx = idx.clamp(0, lt.cdf.shape[0] - 1)
-    v0, e1, e2 = (t.index_select(0, idx) for t in (lt.v0, lt.e1, lt.e2))
+    v0, e1, e2, emission = gather_rows(idx, lt.v0, lt.e1, lt.e2,
+                                       lt.emission)
     su1 = sqrt_rn(u1)
     b1 = 1.0 - su1
     b2 = u2 * su1
@@ -99,7 +103,7 @@ def sample_light_points(lt: Lights, u_sel, u1, u2) -> dict:
     return {
         "y": y,
         "normal": n / torch.clamp_min(norm, 1e-20)[:, None],
-        "emission": lt.emission.index_select(0, idx),
+        "emission": emission,
         "area": 0.5 * norm,
         "prob": lt.prob.index_select(0, idx),
         "idx": idx,

@@ -74,8 +74,14 @@ def lcg_next(seed: torch.Tensor):
 
 def pixel_seeds(n_pixels: int, offset: int = 0, *, device) -> torch.Tensor:
     """Per-pixel seeds ``pixel index + offset`` (mod 2^32), int64."""
-    return (torch.arange(n_pixels, dtype=torch.int64, device=device)
-            + offset) & _U32
+    return lcg_seeds(offset, torch.arange(n_pixels, dtype=torch.int64,
+                                          device=device))
+
+
+def lcg_seeds(seed: int, pixel_ids: torch.Tensor) -> torch.Tensor:
+    """``pixel id + seed`` (mod 2^32), int64: each ray's LCG seed, the
+    ``seeds`` of the fused kernels."""
+    return (pixel_ids + seed) & _U32
 
 
 def mul32(x: torch.Tensor, c: int) -> torch.Tensor:

@@ -33,7 +33,7 @@ from spath_tpu.scene import Scene as JScene  # noqa: E402
 from spath_tpu.scene import default_scene as j_default_scene  # noqa: E402
 from spath_tpu.scene import make_scene as j_make_scene  # noqa: E402
 from spath_tpu.scene import procedural_scene as j_procedural  # noqa: E402
-from spath_tpu_torch.camera import Camera  # noqa: E402
+from spath_tpu_torch.camera import Camera, pixel_rays  # noqa: E402
 from spath_tpu_torch.config import RenderConfig  # noqa: E402
 from spath_tpu_torch.convert import scene_from_numpy  # noqa: E402
 from spath_tpu_torch.models import pathtracer, renderer  # noqa: E402
@@ -785,18 +785,23 @@ def test_routing_keeps_scenes_at_the_crossovers_on_k3_k4(monkeypatch, at):
 
 def test_routing_declines_above_light_max_and_names_the_cap(monkeypatch):
     """Above ``LIGHT_MAX`` lights (patched to 256) the streamed route
-    declines with NEE, and both directions raise naming the cap; without
-    NEE the lights are not read and the route takes the scene."""
+    declines with NEE, and both directions go to the wavefront on the
+    card, which has no light cap (the JAX package's wavefront renders such
+    scenes); the cap is named where K9 is called itself, before any ray
+    reaches it. Without NEE the lights are not read and the route takes
+    the scene."""
     monkeypatch.setattr(bq, "LIGHT_MAX", 256)
     scene = _stub_scene(2000, n_lights=257)
+    rays = pixel_rays(Camera.default(CPU), Q.width, Q.height)
+    k9, k10 = bq.radiance_block, bqg.radiance_block_grad
     calls = _as_if_on_cuda(monkeypatch)
     cam = Camera.default(CPU)
     assert not bq.supported(scene, Q) and not bqg.supported_grad(scene, Q)
-    with pytest.raises(NotImplementedError, match="LIGHT_MAX = 256"):
-        render_pt_fast(scene, cam, Q)
-    with pytest.raises(NotImplementedError, match="K9 and K10 take at most "
-                       "LIGHT_MAX = 256 lights"):
-        render_radiance_fastgrad(scene, cam, Q)
+    assert renderer.forward_renderer(scene, Q).name == "wavefront"
+    assert renderer.grad_renderer(scene, Q).name == "wavefront"
+    for entry in (k9, k10):
+        with pytest.raises(ValueError, match="LIGHT_MAX = 256 lights"):
+            entry(scene, *rays, Q)
     assert calls == []
     render_pt_fast(scene, cam, Q.replace(nee=False, mis=False))
     assert calls == [("K9", 2000)]

@@ -175,3 +175,49 @@ def test_vis_grad_hit_rows_are_one_gather_of_19_columns(monkeypatch):
     calls.clear()
     pathtracer.render_radiance(scene, cam, cfg.replace(vis_grad=False), 0)
     assert calls and set(calls) == {9}
+
+
+def test_sweep_and_light_rows_gather_through_gather_rows(monkeypatch):
+    """The wavefront's gathers of the light samples
+    (``nee.sample_light_points``) and, in the sweep's backward, of the
+    selected triangles (``intersect._dist_selected``) are ``gather_rows``,
+    whose backward adds in a fixed order on the card (``index_select``'s
+    adds with float atomics there); on the CPU the gradients are the bits
+    of ``index_select``'s backward, which ``plain_sweep()`` keeps."""
+    from spath_tpu_torch.camera import Camera
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.models import pathtracer
+    from spath_tpu_torch.ops import nee
+    from spath_tpu_torch.ops.intersect import plain_sweep
+    from spath_tpu_torch.scene import Scene, default_scene
+
+    calls = []
+
+    def recorder(tag, inner):
+        def record(index, *tables):
+            calls.append(tag)
+            return inner(index, *tables)
+        return record
+
+    monkeypatch.setattr(gather, "gather_rows",
+                        recorder("sweep", gather.gather_rows))
+    monkeypatch.setattr(nee, "gather_rows", recorder("light", nee.gather_rows))
+    cpu = torch.device("cpu")
+    scene, cam = default_scene(cpu), Camera.default(cpu)
+    cfg = RenderConfig(width=8, height=4, spp=1, max_bounces=2, rng="hash",
+                       sampler="cosine", nee=True)
+
+    def grads():
+        leaves = [scene.vertices.clone().requires_grad_(),
+                  scene.emission.clone().requires_grad_()]
+        img = pathtracer.render_radiance(
+            Scene(leaves[0], scene.albedo, leaves[1], scene.light_idx), cam,
+            cfg, 0)
+        return torch.autograd.grad(img.sum(), leaves)
+
+    got = grads()
+    assert "light" in calls and "sweep" in calls
+    with plain_sweep():
+        want = grads()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w) and float(g.abs().max()) > 0
