@@ -14,10 +14,12 @@ K10 and K7 at 19 columns) and visibility gradients with the wavefront on
 the card (phases 34-41: K5, K11, the backward kernels beyond 16
 bounces), the matmul-only sweep microbenchmark (phase 42: T1), and the
 threefry and table streams (phases 43-46: the threefry kernel,
-``config.QUALITY``'s frame and training, the table stream), and
+``config.QUALITY``'s frame and training, the table stream),
 ray-sharded rendering and training over ``torch.distributed`` (phases
-47-48: one rank on NCCL, two ranks sharing the card), through the
-entry points a user calls; any failure exits
+47-48: one rank on NCCL, two ranks sharing the card) and the triangle
+ring (phases 49-50: K5, K7, the light distribution and the threefry
+kernel, a world of one on NCCL and two ranks sharing the card), through
+the entry points a user calls; any failure exits
 non-zero before a result is printed. Every plain wavefront the kernels
 are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
 
@@ -317,6 +319,31 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     and the collectives' ms logged (on one card: machinery, not a scaling
     result).
 
+49. The triangle ring with a world of one on NCCL (``make_mesh(1,
+    axis="shard")``), on procedural_scene(65_536) (the JAX README's ring
+    point, T1's scene) at 1920x1080, 5 bounces: ``render_pt_ring`` at 2
+    spp in the conformance estimator (K5), the quality estimator with
+    roulette from bounce 2 (K5, light) and ``config.QUALITY`` (K5, light,
+    threefry), each bit-equal to the one-device wavefront ``render_pt``
+    (its sweeps on K5 too) and launching its kernels only; the
+    conformance frame timed in turns with the wavefront;
+    ``render_flat_ring`` bit-equal to ``render_flat``; the six gradients
+    of a weighted frame sum through ``render_radiance_ring`` at 1 spp,
+    conformance (K5, K7) and ``config.QUALITY`` (K5, K7, light,
+    threefry), within GRAD_RTOL of each group's max of the one-device
+    wavefront's and bitwise equal over two runs; one ``ring_train_step``;
+    at 16x8, 9 spp the gradients with ``cfg.remat`` (each sample
+    checkpointed) bitwise equal to those without; peak device memory.
+50. Two ranks sharing the card on gloo, spawned as phase 48's
+    (``ring_two_rank_worker``), each holding half the table's rows: phase
+    49's frames bit-equal to one device's on both ranks, its gradients
+    within GRAD_RTOL of one device's and bitwise equal across the ranks
+    and over two runs, each call launching its kernels only; three
+    ``ring_train_step`` steps on the wall-and-light scene at 1920x1080, 2
+    spp from a perturbed albedo lower the loss, the same on both ranks;
+    logged by rank: the resident rows, a rotation's ms through host
+    memory, the peak device memory.
+
 The last three lines of standard output are the kernels' JSON record,
 the card as ``nvidia-smi`` names it, and ``{"ok": true, "device": ...}``.
 """
@@ -607,12 +634,14 @@ def traced_kernels(torch, fn, reps: int, enough) -> list:
     """``(name, device ms)`` of each kernel in a ``torch.profiler`` trace
     of ``reps`` calls of ``fn``. On an H100 a trace of a few short calls
     has come back with no kernel at all, and one with a launch short of
-    50, so a trace that ``enough`` refuses is taken again, up to three
-    times; the last is returned whatever it holds."""
+    50, and one with fewer than half of 60, so a trace that ``enough``
+    refuses is taken again, up to three times; where none is enough, the
+    one that holds the most kernels is returned."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    best = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -625,8 +654,9 @@ def traced_kernels(torch, fn, reps: int, enough) -> list:
         kernels = [(e["name"], e["dur"] / 1e3) for e in events
                    if e.get("cat") == "kernel" and "dur" in e]
         if enough(kernels):
-            break
-    return kernels
+            return kernels
+        best = max(best, kernels, key=len)
+    return best
 
 
 def kernel_device_ms(torch, fn, reps: int, kernel: str) -> float:
@@ -916,23 +946,34 @@ def device_calls(torch, fn, reps: int, launches: int = 0) -> dict:
     ``by_kernel``, each kernel's device ms a call by name (its mean
     duration times its launches a call), ``busy_ms``, their sum, and
     ``kernels_per_call``. A kernel's launches a call are its traced count
-    over ``reps``, rounded: the profiler can lose a launch. Where three
-    traces hold no kernel, ``traced`` is False, ``busy_ms`` the device ms
-    a call from CUDA events (``queued_ms``) and the rest None."""
+    over ``reps``, rounded: the profiler can lose a launch (on an H100,
+    53 of 60 in one trace and fewer than half in another). Where three
+    traces hold no kernel, or the fullest holds fewer than ``reps`` times
+    ``launches`` and too few for its counts a call to add up to
+    ``launches``, ``traced`` is False, ``busy_ms`` the device ms a call
+    from CUDA events (``queued_ms``), ``traced_kernels`` the kernels that
+    trace held and the rest None. A trace that holds ``reps`` times
+    ``launches`` or more is kept whatever its counts: a kernel the
+    library does not count shows there."""
     kernels = traced_kernels(
         torch, fn, reps, lambda ks: ks and (not launches
                                             or len(ks) == reps * launches))
-    if not kernels:
-        log(f"no kernel in three traces of {reps} calls: device ms a call "
-            f"from CUDA events instead")
-        return dict(busy_ms=queued_ms(torch, fn, reps), by_kernel=None,
-                    kernels_per_call=None, traced=False)
     durs = {}
     for name, ms in kernels:
         name = name.replace("(anonymous namespace)::", "")
         name = name.split("(")[0].split("<")[0].split("::")[-1].strip()
         durs.setdefault(name, []).append(ms)
     per_call = {name: round(len(d) / reps) for name, d in durs.items()}
+    short = len(kernels) < reps * launches
+    if short:
+        log(f"{len(kernels)} kernels in the fullest of three traces of "
+            f"{reps} calls, {reps * launches} launched")
+    if not kernels or (short and sum(per_call.values()) != launches):
+        log(f"no trace of {reps} calls gives the kernels a call: device ms "
+            f"a call from CUDA events instead")
+        return dict(busy_ms=queued_ms(torch, fn, reps), by_kernel=None,
+                    kernels_per_call=None, traced=False,
+                    traced_kernels=len(kernels))
     by_kernel = {name: sum(d) / len(d) * per_call[name]
                  for name, d in durs.items()}
     return dict(busy_ms=sum(by_kernel.values()), by_kernel=by_kernel,
@@ -3492,6 +3533,343 @@ def two_rank_phase(torch, dev, cam) -> dict:
     return out
 
 
+#: Phases 49-50, the triangle ring: the JAX README's ring point and T1's
+#: scene, procedural_scene(RING_T, seed=0), at 1920x1080, RING_SPP samples
+#: a frame (2) and 1 a gradient, 5 bounces.
+RING_T = 65_536
+RING_FRAME = dict(width=1920, height=1080, spp=2, max_bounces=5)
+RING_GRAD_SPP = 1
+#: the remat check: 9 samples (above the 8 that cfg.remat needs) at 16x8
+RING_REMAT = dict(width=16, height=8, spp=9, max_bounces=5)
+#: the ring's train steps: 3 SGD steps at this rate from a perturbed albedo
+#: on the wall-and-light scene, whose frame is smooth in its vertices
+#: (ring_train_step steps every leaf; on a scene of small triangles a
+#: vertex step moves edges across pixels)
+RING_TRAIN_STEPS, RING_TRAIN_LR = 3, 1.0
+
+
+def ring_cases(torch, dev) -> list:
+    """``(name, cfg, forward kernels, gradient kernels)`` of the ring's
+    three estimators at RING_FRAME: conformance (LCG, angle: K5; K5, K7),
+    quality (hash, cosine, NEE+MIS, roulette from bounce 2: K5, light; and
+    K7) and ``config.QUALITY`` (threefry, cosine, NEE+MIS: K5, light,
+    threefry; and K7). The gradients are taken of the first and last."""
+    from spath_tpu_torch.config import QUALITY as PRESET
+    from spath_tpu_torch.config import RenderConfig
+
+    return [
+        ("conformance", RenderConfig(**RING_FRAME), {"K5"}, {"K5", "K7"}),
+        ("quality", RenderConfig(**RING_FRAME, **QUALITY, rr_start=2),
+         {"K5", "light"}, {"K5", "K7", "light"}),
+        ("config.QUALITY", PRESET.replace(**RING_FRAME),
+         {"K5", "light", "threefry"}, {"K5", "K7", "light", "threefry"}),
+    ]
+
+
+def ring_grads(torch, scene, cam, cfg, mesh=None) -> list:
+    """The six gradients (vertices, albedo, emission, camera position,
+    angles, focal length) of ``sum(weights * radiance)`` through
+    ``render_radiance_ring`` on ``mesh``, or through the one-device
+    wavefront ``render_radiance`` without one; zeros where a group gets
+    none."""
+    from spath_tpu_torch.camera import Camera
+    from spath_tpu_torch.models.pathtracer import render_radiance
+    from spath_tpu_torch.parallel.ring import render_radiance_ring
+    from spath_tpu_torch.scene import Scene
+
+    leaves = [t.detach().clone().requires_grad_() for t in (
+        scene.vertices, scene.albedo, scene.emission, cam.pos, cam.angle,
+        cam.focal)]
+    sc, c = Scene(*leaves[:3], scene.light_idx), Camera(*leaves[3:])
+    img = render_radiance(sc, c, cfg, 0) if mesh is None else \
+        render_radiance_ring(sc, c, cfg, mesh, 0)
+    loss = (img * shard_weights(torch, cfg, img.device)).sum()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for g, x in zip(grads, leaves)]
+
+
+def grads_close(torch, got, want, what: str) -> dict:
+    """Each group within GRAD_RTOL of its max in ``want``; the shares."""
+    errs = {}
+    for group, g, w in zip(SHARD_GROUPS, got, want):
+        err = (g.cpu() - w.cpu()).abs().max().item()
+        scale = w.abs().max().item()
+        check(err <= GRAD_RTOL * scale, f"{what}: the {group} gradient is "
+              f"{err} off, over {GRAD_RTOL} of its max {scale}")
+        errs[group] = err / scale if scale else err
+    return errs
+
+
+def ring_one_rank_phase(torch, dev, cam) -> dict:
+    """Phase 49: the triangle ring with a world of one on NCCL, on
+    procedural_scene(RING_T) at 1920x1080. ``render_pt_ring`` in three
+    estimators and ``render_flat_ring`` bit-equal to the one-device
+    wavefront ``render_pt`` (its sweeps on K5) and ``render_flat``; the
+    six gradients through ``render_radiance_ring`` at RING_GRAD_SPP within
+    GRAD_RTOL of each group's max of the one-device wavefront's and
+    bitwise equal over two runs; one ``ring_train_step``; remat against no
+    remat at RING_REMAT; each call launching its kernels only. Returns the
+    counts and, for phase 50, the one-device frames and gradients on the
+    host."""
+    import torch.distributed as dist
+
+    from spath_tpu_torch import parallel
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.models.flat import render_flat
+    from spath_tpu_torch.models.pathtracer import render_pt
+    from spath_tpu_torch.parallel import ring
+    from spath_tpu_torch.scene import Scene, procedural_scene
+
+    check(parallel.init_multihost(f"localhost:{free_port()}", 1, 0),
+          "init_multihost started no process group")
+    mesh = parallel.make_mesh(1, axis="shard")
+    check(mesh.backend == "nccl" and mesh.axis == "shard"
+          and mesh.group is not None, f"mesh {mesh}")
+    scene = procedural_scene(RING_T, seed=0, device=dev)
+    out = {"launches": {}, "grad_launches": {}, "ms": {}, "one_ms": {},
+           "frames": {}, "grads": {}}
+    torch.cuda.reset_peak_memory_stats()
+    for name, cfg, fwd, grad in ring_cases(torch, dev):
+        shape = f"{cfg.width}x{cfg.height} spp{cfg.spp}"
+        zero_counts(every_kernel())
+        t0 = time.perf_counter()
+        img = ring.render_pt_ring(scene, cam, cfg, mesh, 0)
+        torch.cuda.synchronize()
+        out["ms"][name] = (time.perf_counter() - t0) * 1e3
+        out["launches"][name] = launched_set(fwd, f"ring {name}")
+        t0 = time.perf_counter()
+        one = render_pt(scene, cam, cfg, 0)
+        torch.cuda.synchronize()
+        out["one_ms"][name] = (time.perf_counter() - t0) * 1e3
+        mean = img.mean().item()
+        check(tuple(img.shape) == (cfg.height, cfg.width, 3)
+              and torch.isfinite(img).all().item() and mean > 0.0,
+              f"ring {name} {shape}: shape {tuple(img.shape)}, mean {mean}")
+        check(torch.equal(img, one), f"ring {name} {shape}: the frame "
+              f"differs from the one-device wavefront's in "
+              f"{int((img != one).any(-1).sum())} pixels")
+        out["frames"][name] = one.cpu()
+        log(f"[49] render_pt_ring, world of one on NCCL, {name}, "
+            f"procedural_scene({RING_T}) {shape}: bit-equal to render_pt, "
+            f"mean {mean:.6f}; {out['ms'][name]:.1f} ms (one device "
+            f"{out['one_ms'][name]:.1f} ms, host clock); "
+            f"{out['launches'][name]}")
+    # after the first calls, the conformance frame in turns: ring, one
+    # device, one device, ring
+    cfg = ring_cases(torch, dev)[0][1]
+    turns = {"ring": [], "one": []}
+    for k in ("ring", "one", "one", "ring"):
+        t0 = time.perf_counter()
+        if k == "ring":
+            ring.render_pt_ring(scene, cam, cfg, mesh, 0)
+        else:
+            render_pt(scene, cam, cfg, 0)
+        torch.cuda.synchronize()
+        turns[k].append((time.perf_counter() - t0) * 1e3)
+    out["turns_ms"] = turns
+    log(f"[49] the conformance frame in turns (ring, one device, one "
+        f"device, ring; host clock) on {card()}: ring {turns['ring']} ms, "
+        f"one device {turns['one']} ms")
+    flat_cfg = RenderConfig(width=RING_FRAME["width"],
+                            height=RING_FRAME["height"])
+    zero_counts(every_kernel())
+    flat = ring.render_flat_ring(scene, cam, flat_cfg, mesh)
+    torch.cuda.synchronize()
+    out["launches"]["flat"] = launched_set({"K5"}, "render_flat_ring")
+    check(torch.equal(flat, render_flat(scene, cam, flat_cfg)),
+          "render_flat_ring differs from render_flat")
+    log(f"[49] render_flat_ring 1920x1080 bit-equal to render_flat "
+        f"({out['launches']['flat']})")
+    for name, cfg, fwd, grad in ring_cases(torch, dev)[::2]:
+        cfg = cfg.replace(spp=RING_GRAD_SPP)
+        shape = f"{cfg.width}x{cfg.height} spp{cfg.spp}"
+        zero_counts(every_kernel())
+        t0 = time.perf_counter()
+        got = ring_grads(torch, scene, cam, cfg, mesh)
+        torch.cuda.synchronize()
+        grad_ms = (time.perf_counter() - t0) * 1e3
+        out["grad_launches"][name] = launched_set(grad,
+                                                  f"ring {name} gradient")
+        again = ring_grads(torch, scene, cam, cfg, mesh)
+        for group, a, b in zip(SHARD_GROUPS, got, again):
+            check(torch.equal(a, b), f"ring {name}: two {group} gradients "
+                  "differ")
+        want = [g.cpu() for g in ring_grads(torch, scene, cam, cfg)]
+        errs = grads_close(torch, got, want, f"ring {name} {shape}")
+        check(want[1].abs().max().item() > 0, f"{name}: no albedo gradient")
+        out["grads"][name] = want
+        log(f"[49] render_radiance_ring's six gradients, {name} {shape}: "
+            f"bitwise equal over two runs, against the one-device "
+            f"wavefront (share of each group's max) {errs}; "
+            f"{grad_ms:.1f} ms forward and backward (host clock); "
+            f"{out['grad_launches'][name]}")
+    name, cfg = ring_cases(torch, dev)[1][:2]
+    cfg = cfg.replace(spp=RING_GRAD_SPP)
+    target = ring.render_radiance_ring(scene, cam, cfg, mesh, 0)
+    start = Scene(scene.vertices, (scene.albedo + 0.25).clamp(0.0, 1.0),
+                  scene.emission, scene.light_idx)
+    zero_counts(every_kernel())
+    loss, new = ring.ring_train_step(start, cam, cfg, mesh, target, 0, 1.0)
+    torch.cuda.synchronize()
+    out["train_launches"] = launched_set({"K5", "K7", "light"},
+                                         "ring_train_step")
+    check(torch.isfinite(loss).item() and loss.item() > 0
+          and all(torch.isfinite(t).all().item() for t in
+                  (new.vertices, new.albedo, new.emission))
+          and not torch.equal(new.albedo, start.albedo),
+          f"ring_train_step: loss {loss.item()}")
+    log(f"[49] ring_train_step, {name} at {RING_GRAD_SPP} spp from the "
+        f"albedo raised by 0.25: loss {loss.item():.6g}, the new scene "
+        f"finite ({out['train_launches']})")
+    rcfg = ring_cases(torch, dev)[2][1].replace(**RING_REMAT)
+    remat = ring_grads(torch, scene, cam, rcfg, mesh)
+    plain = ring_grads(torch, scene, cam, rcfg.replace(remat=False), mesh)
+    for group, a, b in zip(SHARD_GROUPS, remat, plain):
+        check(torch.equal(a, b), f"ring remat: the {group} gradient differs "
+              "from the one without remat")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[49] remat (9 samples, each checkpointed) against no remat, "
+        f"config.QUALITY 16x8: six gradients bitwise equal; peak device "
+        f"memory of the phase {out['peak_gb']:.2f} GB on {card()}")
+    dist.destroy_process_group()
+    return out
+
+
+def ring_two_rank_worker(rank: int, port: int, out: str) -> None:
+    """Phase 50's rank ``rank`` of two sharing card 0 on gloo: the ring's
+    frames and gradients (twice) on procedural_scene(RING_T), three
+    ``ring_train_step`` steps on the wall-and-light scene, the resident
+    shard's rows, a rotation's ms through host memory and the peak device
+    memory, saved for the parent to check."""
+    import torch
+    import torch.distributed as dist
+
+    from spath_tpu_torch import parallel
+    from spath_tpu_torch.camera import Camera
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.parallel import ring
+    from spath_tpu_torch.scene import Scene, procedural_scene
+
+    parallel.init_multihost(f"localhost:{port}", 2, rank, backend="gloo")
+    dev = torch.device("cuda", 0)
+    mesh = parallel.make_mesh(2, axis="shard")
+    cam = Camera.default(dev)
+    scene = procedural_scene(RING_T, seed=0, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    res = {"backend": mesh.backend, "ms": {}}
+    for name, cfg, _, _ in ring_cases(torch, dev):
+        zero_counts(every_kernel())
+        t0 = time.perf_counter()
+        res[f"frame/{name}"] = ring.render_pt_ring(scene, cam, cfg, mesh,
+                                                   0).cpu()
+        res["ms"][name] = (time.perf_counter() - t0) * 1e3
+        res[f"launches/{name}"] = {k: v for k, v in
+                                   counts(every_kernel()).items() if v}
+    for name, cfg, _, _ in ring_cases(torch, dev)[::2]:
+        cfg = cfg.replace(spp=RING_GRAD_SPP)
+        zero_counts(every_kernel())
+        grads = ring_grads(torch, scene, cam, cfg, mesh)
+        res[f"grad_launches/{name}"] = {k: v for k, v in
+                                        counts(every_kernel()).items() if v}
+        again = ring_grads(torch, scene, cam, cfg, mesh)
+        res[f"grad/{name}"] = [g.cpu() for g in grads]
+        res[f"again/{name}"] = all(torch.equal(a, b)
+                                   for a, b in zip(grads, again))
+    table = ring._ring_table(scene, ring_cases(torch, dev)[1][1], mesh.size)
+    shard = table[:table.shape[0] // mesh.size].contiguous()
+    res["shard_rows"] = shard.shape[0]
+    mesh.shift(shard)
+    res["shift_ms"] = host_ms(torch, lambda: mesh.shift(shard), 10)
+    wall = wall_and_light_scene(dev)
+    cfg = RenderConfig(**RING_FRAME)
+    target = ring.render_radiance_ring(wall, cam, cfg, mesh, 0)
+    state = Scene(wall.vertices, (wall.albedo + 0.25).clamp(0.0, 1.0),
+                  wall.emission, wall.light_idx)
+    losses = []
+    for _ in range(RING_TRAIN_STEPS):
+        loss, state = ring.ring_train_step(state, cam, cfg, mesh, target, 0,
+                                           RING_TRAIN_LR)
+        losses.append(loss.item())
+    res["losses"], res["trained_albedo"] = losses, state.albedo.cpu()
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.save(res, f"{out}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def ring_two_rank_phase(torch, dev, one: dict) -> dict:
+    """Phase 50: two ranks sharing the card on gloo (``ring_two_rank_worker``,
+    spawned as phase 48's): both ranks' frames bit-equal to phase 49's
+    one-device frames, the gradients within GRAD_RTOL of each group's max
+    of one device's and bitwise equal across the ranks and over two runs,
+    each call launching its kernels only; three ``ring_train_step`` steps
+    lower the loss, the same on both ranks."""
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()            # the ranks share the card
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(ring_two_rank_worker, args=(free_port(), tmp), nprocs=2,
+                 join=True)
+        spawn_s = time.perf_counter() - t0
+        res = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+               for r in range(2)]
+    out = {"spawn_s": spawn_s, "launches": {}, "grad_launches": {}}
+    for name, cfg, fwd, grad in ring_cases(torch, dev):
+        shape = f"{cfg.width}x{cfg.height} spp{cfg.spp}"
+        for rank, r in enumerate(res):
+            check(r["backend"] == "gloo", f"rank {rank}: {r['backend']}")
+            check(set(r[f"launches/{name}"]) == fwd, f"rank {rank}, ring "
+                  f"{name}: launched {r[f'launches/{name}']}, want "
+                  f"{sorted(fwd)}")
+            check(torch.equal(r[f"frame/{name}"], one["frames"][name]),
+                  f"rank {rank}, ring {name} {shape}: the frame differs "
+                  "from one device's")
+        out["launches"][name] = res[0][f"launches/{name}"]
+        log(f"[50] two ranks on one card (gloo), render_pt_ring {name}, "
+            f"procedural_scene({RING_T}) {shape}: both frames bit-equal to "
+            f"one device's; ms by rank (host clock) "
+            f"{[r['ms'][name] for r in res]}; {out['launches'][name]} a "
+            f"rank")
+    for name, cfg, fwd, grad in ring_cases(torch, dev)[::2]:
+        errs = {}
+        for rank, r in enumerate(res):
+            check(set(r[f"grad_launches/{name}"]) == grad, f"rank {rank}, "
+                  f"ring {name} gradient: launched "
+                  f"{r[f'grad_launches/{name}']}, want {sorted(grad)}")
+            check(r[f"again/{name}"], f"rank {rank}, ring {name}: two "
+                  "gradients differ")
+            errs = grads_close(torch, r[f"grad/{name}"], one["grads"][name],
+                               f"rank {rank}, ring {name}")
+        for group, a, b in zip(SHARD_GROUPS, res[0][f"grad/{name}"],
+                               res[1][f"grad/{name}"]):
+            check(torch.equal(a, b), f"ring {name}: the ranks' {group} "
+                  "gradients differ")
+        out["grad_launches"][name] = res[0][f"grad_launches/{name}"]
+        log(f"[50] two ranks, render_radiance_ring's six gradients, {name} "
+            f"at {RING_GRAD_SPP} spp: bitwise equal across the ranks and two "
+            f"runs, against one device (share of each group's max) {errs}; "
+            f"{out['grad_launches'][name]} a rank")
+    losses = [r["losses"] for r in res]
+    check(losses[0] == losses[1] and losses[0][-1] < losses[0][0]
+          and torch.equal(res[0]["trained_albedo"], res[1]["trained_albedo"]),
+          f"{RING_TRAIN_STEPS} ring_train_step steps: losses {losses}")
+    out.update(losses=losses[0], spawn_s=spawn_s,
+               shard_rows=[r["shard_rows"] for r in res],
+               shift_ms=[r["shift_ms"] for r in res],
+               peak_gb=[r["peak_gb"] for r in res])
+    log(f"[50] {RING_TRAIN_STEPS} ring_train_step steps (lr "
+        f"{RING_TRAIN_LR}) on the wall-and-light scene at "
+        f"{RING_FRAME['width']}x{RING_FRAME['height']} spp"
+        f"{RING_FRAME['spp']} from the albedo raised by 0.25: losses "
+        f"{losses[0]}, the same on both ranks")
+    log(f"[50] by rank, on {card()}: resident table rows {out['shard_rows']} "
+        f"(of {RING_T}), a rotation of the 17-column shard through host "
+        f"memory {out['shift_ms']} ms (host clock, 10 calls), peak device "
+        f"memory {out['peak_gb']} GB; spawn to exit {spawn_s:.2f} s")
+    return out
+
+
 def run() -> None:
     import torch
 
@@ -4755,6 +5133,11 @@ def run() -> None:
     one_rank = one_rank_phase(torch, dev, cam)
     two_ranks = two_rank_phase(torch, dev, cam)
 
+    # 49-50. the triangle ring: a world of one on NCCL, then two ranks
+    # sharing the card on gloo
+    ring_one = ring_one_rank_phase(torch, dev, cam)
+    ring_two = ring_two_rank_phase(torch, dev, ring_one)
+
     record = {"kernels": [{
         "name": "megakernel_forward",
         "route": "cuda",
@@ -5026,7 +5409,12 @@ def run() -> None:
             ("above LIGHT_MAX lights, serving",
              {"": one_rank["light_cap"]["launches"]}),
             ("above LIGHT_MAX lights, training",
-             {"": one_rank["light_cap"]["grad_launches"]})):
+             {"": one_rank["light_cap"]["grad_launches"]}),
+            ("ring serving, one rank", ring_one["launches"]),
+            ("ring training, one rank", {**ring_one["grad_launches"],
+                                         "step": ring_one["train_launches"]}),
+            ("ring serving, rank 0 of two", ring_two["launches"]),
+            ("ring training, rank 0 of two", ring_two["grad_launches"])):
         for launched in runs.values():
             for short, n in launched.items():
                 paths = by_name[RECORD_NAMES[short]]["launches_by_path"]

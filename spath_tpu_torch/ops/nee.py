@@ -80,6 +80,27 @@ def make_lights(v0, e1, e2, emission) -> tuple[Lights, torch.Tensor]:
     return Lights(v0, e1, e2, emission, cdf, prob), area
 
 
+def light_points(v0, e1, e2, emission, prob, idx, u1, u2) -> dict:
+    """Points on the chosen triangles, given as their rows (``v0``, edges,
+    emission, prob; ``idx`` the triangles), from ``(N,)`` uniforms: the
+    dict ``sample_light_points`` returns."""
+    su1 = sqrt_rn(u1)
+    b1 = 1.0 - su1
+    b2 = u2 * su1
+    y = v0 + b1[:, None] * e1 + b2[:, None] * e2
+    n = cross3(e1, e2)
+    norm = sqrt_rn(n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1]
+                   + n[:, 2] * n[:, 2])
+    return {
+        "y": y,
+        "normal": n / torch.clamp_min(norm, 1e-20)[:, None],
+        "emission": emission,
+        "area": 0.5 * norm,
+        "prob": prob,
+        "idx": idx,
+    }
+
+
 def sample_light_points(lt: Lights, u_sel, u1, u2) -> dict:
     """Sample N points on emissive triangles from ``(N,)`` uniforms.
 
@@ -93,34 +114,16 @@ def sample_light_points(lt: Lights, u_sel, u1, u2) -> dict:
     idx = idx.clamp(0, lt.cdf.shape[0] - 1)
     v0, e1, e2, emission = gather_rows(idx, lt.v0, lt.e1, lt.e2,
                                        lt.emission)
-    su1 = sqrt_rn(u1)
-    b1 = 1.0 - su1
-    b2 = u2 * su1
-    y = v0 + b1[:, None] * e1 + b2[:, None] * e2
-    n = cross3(e1, e2)
-    norm = sqrt_rn(n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1]
-                   + n[:, 2] * n[:, 2])
-    return {
-        "y": y,
-        "normal": n / torch.clamp_min(norm, 1e-20)[:, None],
-        "emission": emission,
-        "area": 0.5 * norm,
-        "prob": lt.prob.index_select(0, idx),
-        "idx": idx,
-    }
+    return light_points(v0, e1, e2, emission, lt.prob.index_select(0, idx),
+                        idx, u1, u2)
 
 
-def direct_light(lt: Lights, p, n_s, hit_idx, u_sel, u1, u2,
-                 cfg: RenderConfig, hit_albedo, table=None):
-    """Direct radiance ``(N, 3)`` at surface points ``p`` with shading
-    normals ``n_s`` (flipped toward the incoming ray): the ``albedo/π ·
-    emit · G · A/q · V`` estimator, zero where the chosen triangle is dark,
-    below the horizon, occluded or the surface itself. ``hit_idx`` is the
-    surface's own triangle, excluded from the shadow ray. With ``cfg.mis``
-    (and a sampler other than the reference's angle sampler) the
-    contribution carries the detached power-heuristic weight. ``table`` is
-    the triangles' ``sweep_table`` for the shadow ray's sweep."""
-    s = sample_light_points(lt, u_sel, u1, u2)
+def direct_from_points(s: dict, p, n_s, hit_idx, cfg: RenderConfig,
+                       hit_albedo, occluder):
+    """``direct_light`` from the light points ``s`` (``light_points``):
+    ``occluder(p, omega)`` gives each shadow ray's nearest triangle
+    excluding ``hit_idx`` (called without gradient), which must be the
+    chosen light."""
     delta = s["y"] - p
     r2 = dot3(delta, delta)
     r = sqrt_rn(torch.clamp_min(r2, 1e-20))
@@ -130,8 +133,7 @@ def direct_light(lt: Lights, p, n_s, hit_idx, u_sel, u1, u2,
 
     # shadow ray: the nearest hit other than the surface must be the light
     with torch.no_grad():
-        _, occ = nearest_hit_edges(p, omega, lt.v0, lt.e1, lt.e2, hit_idx,
-                                   cfg.tri_block, table)
+        occ = occluder(p, omega)
     valid = (occ == s["idx"]) & (s["prob"] > 0) & (cos_s > 0) \
         & (s["idx"] != hit_idx)
 
@@ -146,6 +148,24 @@ def direct_light(lt: Lights, p, n_s, hit_idx, u_sel, u1, u2,
                                             1e-30)
         contrib = contrib * w.detach()[:, None]
     return torch.where(valid[:, None], contrib, 0.0)
+
+
+def direct_light(lt: Lights, p, n_s, hit_idx, u_sel, u1, u2,
+                 cfg: RenderConfig, hit_albedo, table=None):
+    """Direct radiance ``(N, 3)`` at surface points ``p`` with shading
+    normals ``n_s`` (flipped toward the incoming ray): the ``albedo/π ·
+    emit · G · A/q · V`` estimator, zero where the chosen triangle is dark,
+    below the horizon, occluded or the surface itself. ``hit_idx`` is the
+    surface's own triangle, excluded from the shadow ray. With ``cfg.mis``
+    (and a sampler other than the reference's angle sampler) the
+    contribution carries the detached power-heuristic weight. ``table`` is
+    the triangles' ``sweep_table`` for the shadow ray's sweep."""
+    def occluder(points, omega):
+        return nearest_hit_edges(points, omega, lt.v0, lt.e1, lt.e2,
+                                 hit_idx, cfg.tri_block, table)[1]
+
+    return direct_from_points(sample_light_points(lt, u_sel, u1, u2), p,
+                              n_s, hit_idx, cfg, hit_albedo, occluder)
 
 
 def bsdf_pdf(sampler: str, cos_theta: torch.Tensor) -> torch.Tensor:

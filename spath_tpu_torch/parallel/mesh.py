@@ -10,8 +10,11 @@ rank's device.
 
 ``make_mesh(1)`` needs no process group: a world of one, whose
 collectives are identities. A larger mesh needs ``init_multihost`` (or
-``torch.distributed.init_process_group``) first. The triangle ring's
-two-axis mesh (``make_mesh_2d``) is not ported.
+``torch.distributed.init_process_group``) first. The triangle ring
+(``parallel/ring.py``) takes a one-axis mesh, which the JAX package names
+``"shard"`` (``make_mesh(n, axis="shard")``), and rotates its shards with
+``Mesh.shift``; ``make_mesh_2d`` is the JAX package's ``(rays, tris)``
+grid, whose ``tris`` row is such a mesh.
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ class Mesh:
       ranks: the members' global ranks, in the order their blocks take.
       rank: this process's global rank.
       device: this rank's device.
-      axis: the axis name, ``"rays"``.
+      axis: the axis name, ``"rays"`` unless the caller names another
+        (the ring's is ``"shard"``, the 2-D grid's rows ``"tris"``).
     """
 
     group: object | None
@@ -90,6 +94,30 @@ class Mesh:
         parts = [torch.empty_like(src) for _ in self.ranks]
         dist.all_gather(parts, src, group=self.group)
         return [p.to(t.device) for p in parts] if staged else parts
+
+    def shift(self, t: torch.Tensor) -> torch.Tensor:
+        """The previous member's ``t`` (equal shapes): every member sends
+        its ``t`` to the next one in mesh order and receives from the
+        previous one, the ring's rotation (``lax.ppermute`` with the pairs
+        ``(i, (i + 1) % S)``). Both in one ``batch_isend_irecv``: two
+        blocking calls in a fixed order can deadlock a ring. A world of
+        one returns ``t``; a CUDA tensor on gloo is staged through host
+        memory, as ``all_gather`` stages it."""
+        if self.group is None or self.size == 1:
+            return t
+        src = t.detach().contiguous()
+        staged = self.staged(src)
+        if staged:
+            src = src.cpu()
+        out = torch.empty_like(src)
+        i = self.member_index()
+        nxt = self.ranks[(i + 1) % self.size]
+        prev = self.ranks[(i - 1) % self.size]
+        ops = [dist.P2POp(dist.isend, src, nxt, group=self.group),
+               dist.P2POp(dist.irecv, out, prev, group=self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out.to(t.device) if staged else out
 
     def barrier(self) -> None:
         if self.group is not None:
@@ -144,6 +172,67 @@ def make_mesh(n_devices: int | None = None, axis: str = AXIS,
                          f"{world} ranks")
     ranks = tuple(range(n))
     return Mesh(_group(ranks), ranks, rank, rank_device(rank, device), axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """A ``(rays, tris)`` grid of ranks (``make_mesh_2d``).
+
+    Attributes:
+      grid: ``grid[i][j]``, the rank of ray shard ``i`` and triangle shard
+        ``j``.
+      rays: this rank's column, the ranks of its triangle shard along the
+        ``"rays"`` axis; ``None`` for a rank outside the grid.
+      tris: this rank's row, the ranks of its ray shard along the
+        ``"tris"`` axis, the mesh the triangle ring takes; ``None``
+        outside the grid.
+    """
+
+    grid: tuple[tuple[int, ...], ...]
+    rays: Mesh | None
+    tris: Mesh | None
+    axis_names = ("rays", "tris")
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return len(self.grid), len(self.grid[0])
+
+
+def make_mesh_2d(n_ray_shards: int, n_tri_shards: int,
+                 device=None) -> Mesh2D:
+    """The ``(rays, tris)`` grid of the first ``n_ray_shards *
+    n_tri_shards`` ranks in row-major order, as the JAX package reshapes
+    its devices (``spath_tpu/parallel/mesh.py::make_mesh_2d``). Every rank
+    of the default group must call it: each row's and each column's
+    subgroup is made collectively. Without a process group only the grid
+    of one is possible. ``device`` as ``rank_device`` takes it."""
+    n = n_ray_shards * n_tri_shards
+    if n_ray_shards < 1 or n_tri_shards < 1:
+        raise ValueError(f"make_mesh_2d({n_ray_shards}, {n_tri_shards}): "
+                         "each axis needs at least one rank")
+    grid = tuple(tuple(i * n_tri_shards + j for j in range(n_tri_shards))
+                 for i in range(n_ray_shards))
+    if not (dist.is_available() and dist.is_initialized()):
+        if n != 1:
+            raise ValueError(
+                f"make_mesh_2d({n_ray_shards}, {n_tri_shards}) needs a "
+                f"process group of at least {n} ranks: call "
+                "spath_tpu_torch.parallel.init_multihost first")
+        one = make_mesh(1, device=device)
+        return Mesh2D(grid, dataclasses.replace(one, axis="rays"),
+                      dataclasses.replace(one, axis="tris"))
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if n > world:
+        raise ValueError(f"make_mesh_2d({n_ray_shards}, {n_tri_shards}): "
+                         f"the process group has {world} ranks")
+    rows = [(r, _group(r)) for r in grid]
+    cols = [(c, _group(c)) for c in zip(*grid)]
+    if rank >= n:
+        return Mesh2D(grid, None, None)
+    dev = rank_device(rank, device)
+    i, j = divmod(rank, n_tri_shards)
+    return Mesh2D(grid, Mesh(cols[j][1], cols[j][0], rank, dev, "rays"),
+                  Mesh(rows[i][1], rows[i][0], rank, dev, "tris"))
 
 
 def default_mesh(device=None) -> Mesh:
