@@ -18,7 +18,9 @@ threefry and table streams (phases 43-46: the threefry kernel,
 ray-sharded rendering and training over ``torch.distributed`` (phases
 47-48: one rank on NCCL, two ranks sharing the card) and the triangle
 ring (phases 49-50: K5, K7, the light distribution and the threefry
-kernel, a world of one on NCCL and two ranks sharing the card), through
+kernel, a world of one on NCCL and two ranks sharing the card) and
+camera-ray compaction (phase 51: K1-K4, K6, K8+K7, K9, K10+K7 on the live
+rays, the plan's K5 sweep, the compacted wavefront), through
 the entry points a user calls; any failure exits
 non-zero before a result is printed. Every plain wavefront the kernels
 are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
@@ -344,6 +346,34 @@ are held to runs its sweeps on the plain ``_sweep`` (``plain_sweep``).
     logged by rank: the resident rows, a rotation's ms through host
     memory, the peak device memory.
 
+51. Camera-ray compaction (``models/compact_fast.py``) on each kernel
+    route: the default scene at 1920x1080, 64 spp, 5 bounces, conformance
+    (K1; K1+K2) and quality (the light distribution and K3; and K4), and
+    procedural_scene(10_000) at 1920x1080, 5 bounces, conformance at 8
+    spp (K6; K6+K8+K7) and quality at 4 spp (K9; K9+K10+K7), cut for time
+    as PERF.md section 4 cuts them: the plan's live count and share, its
+    build timed alone (CUDA events) and the first call with it (its K5
+    sweep), then the compacted frame bit-equal to the full launch's and
+    to the plain version's (the whole frame on the default scene, rows
+    536-543 at 10k), launching its route's kernels only; the six
+    gradients of a weighted frame sum within GRAD_RTOL of each group's
+    max of the full launch's and bitwise equal over two calls; forward
+    and forward+backward timed in turns with the full launch (full,
+    compacted, compacted, full, the plan cached); the routing rule takes
+    ``compact_fused`` on this camera, whose plan is cached, exactly on the
+    routes in ``COMPACT_ROUTES`` and ``COMPACT_GRAD_ROUTES``, and the full
+    launch on an equal camera built anew, and ``render_pt_fast`` on the
+    cached plan launches the route's kernels only (no K5), its frame the
+    full launch's. The plan cache's fast and value keys timed on the host
+    at 10k and 2^20 triangles. ``config.QUALITY`` at 1920x1080, 8 spp
+    through the compacted wavefront: its frame bit-equal to the
+    wavefront's, K5, the light distribution and the threefry kernel
+    launched, timed in turns.
+    An all-miss view: zeros, forward and gradient, and no kernel past the
+    plan's K5 sweep. ``render_any(backend="compact_fused")`` and
+    ``get_renderer("compact_fused")``'s gradient at 320x240x8 reach K1
+    and K1+K2; ``render_any(backend="compact")`` K5 only.
+
 The last three lines of standard output are the kernels' JSON record,
 the card as ``nvidia-smi`` names it, and ``{"ok": true, "device": ...}``.
 """
@@ -543,6 +573,23 @@ def plain_sweep():
     from spath_tpu_torch.ops.intersect import plain_sweep as block
 
     return block()
+
+
+def serving_route(scene, cam, cfg) -> str:
+    """The renderer ``render_pt_fast`` takes for ``(scene, cam, cfg)``: a
+    timing of it times that route."""
+    from spath_tpu_torch.models.renderer import forward_renderer
+
+    return forward_renderer(scene, cfg, require_jittable=False,
+                            camera=cam).name
+
+
+def grad_route(scene, cam, cfg) -> str:
+    """The renderer ``render_radiance_fastgrad`` takes for ``(scene, cam,
+    cfg)``: a timing of it times that route."""
+    from spath_tpu_torch.models.renderer import grad_renderer
+
+    return grad_renderer(scene, cfg, camera=cam).name
 
 
 def check(cond, msg: str) -> None:
@@ -864,8 +911,10 @@ def training(torch, dev, cam, scene, cfg, per_step=None) -> dict:
 
     fwd_bwd()
     ms = event_ms(torch, fwd_bwd, 1 if big else 3)
+    route = grad_route(dataclasses.replace(scene, albedo=albedo), cam, cfg)
     return dict(launches=launched, losses=losses, step_s=step_s,
-                fwd_bwd_ms=ms, **{k.lower(): v for k, v in launched.items()})
+                fwd_bwd_ms=ms, fwd_bwd_route=route,
+                **{k.lower(): v for k, v in launched.items()})
 
 
 def cli_invert(cli) -> str:
@@ -1235,8 +1284,8 @@ def quality_training(torch, dev, cam, scene, cfg, per_step=None) -> dict:
     import numpy as np
 
     from spath_tpu_torch.models.inverse import (
-        InverseParams, init_state, make_train_step, param_group_optimizer,
-        render_loss,
+        InverseParams, apply_params, init_state, make_train_step,
+        param_group_optimizer, render_loss,
     )
     from spath_tpu_torch.models.renderer import forward_renderer
     from spath_tpu_torch.ops.kernels import light_cdf as lc
@@ -1289,6 +1338,7 @@ def quality_training(torch, dev, cam, scene, cfg, per_step=None) -> dict:
     ms = event_ms(torch, fwd_bwd, 3)
     out = {k.lower(): v for k, v in launched.items()}
     out.update(losses=losses, step_s=step_s, fwd_bwd_ms=ms,
+               fwd_bwd_route=grad_route(*apply_params(leaves, scene), cfg),
                cam_grad=g_pos.tolist(), launches=launched)
     return out
 
@@ -2931,7 +2981,8 @@ def quality_preset_frame(torch, dev, cam) -> dict:
                threefry_share=shares["threefry_ms"] / (ft.last_s * 1e3),
                bounce_stats=stats)
     log(f"[44] render_pt_fast on config.QUALITY, {cfg.width}x{cfg.height} "
-        f"spp{cfg.spp} {cfg.max_bounces} bounces, on {card()}: launched "
+        f"spp{cfg.spp} {cfg.max_bounces} bounces, on {card()}, route "
+        f"{serving_route(scene, cam, cfg)}: launched "
         f"{launched}; first call {first_s:.3f} s, frames {ft.times} s, "
         f"{ft.rays_per_s:.6g} rays/s (FrameTimer), mean {mean:.6f}; "
         f"profiled frame {shares}; threefry's share of a frame "
@@ -3016,7 +3067,8 @@ def table_stream_phase(torch, dev, cam) -> dict:
                rays_per_s=ft.rays_per_s, mean=mean,
                grad_launches=glaunched, grad_rel_err=errs)
     log(f"[45] render_pt_fast on the table stream, {cfg.width}x"
-        f"{cfg.height} spp{cfg.spp} {cfg.max_bounces} bounces, on {card()}: "
+        f"{cfg.height} spp{cfg.spp} {cfg.max_bounces} bounces, on {card()}, "
+        f"route {serving_route(scene, cam, cfg)}: "
         f"launched {launched}; first call {first_s:.3f} s, frames "
         f"{ft.times} s, {ft.rays_per_s:.6g} rays/s, mean {mean:.6f}; at "
         f"320x240x4 bit-equal to the plain sweep's frame; its gradient "
@@ -3167,7 +3219,9 @@ def shard_weights(torch, cfg, dev):
 def six_grads(torch, scene, cam, cfg, mesh=None) -> list:
     """The gradients of ``sum(weights * render_radiance_fastgrad)`` in the
     scene's vertices, albedo and emission and the camera's position,
-    angles and focal length, through ``mesh`` or on one device."""
+    angles and focal length, through ``mesh`` or on one device, on the
+    route the sharded call takes (``require_jittable``: never a compacted
+    one)."""
     from spath_tpu_torch.camera import Camera
     from spath_tpu_torch.models.pathtracer import render_radiance_fastgrad
     from spath_tpu_torch.scene import Scene
@@ -3176,7 +3230,8 @@ def six_grads(torch, scene, cam, cfg, mesh=None) -> list:
         scene.vertices, scene.albedo, scene.emission, cam.pos, cam.angle,
         cam.focal)]
     img = render_radiance_fastgrad(Scene(*leaves[:3], scene.light_idx),
-                                   Camera(*leaves[3:]), cfg, 0, mesh=mesh)
+                                   Camera(*leaves[3:]), cfg, 0, mesh=mesh,
+                                   require_jittable=True)
     loss = (img * shard_weights(torch, cfg, img.device)).sum()
     return list(torch.autograd.grad(loss, leaves))
 
@@ -3356,8 +3411,11 @@ def one_rank_phase(torch, dev, cam) -> dict:
     # the sharded call's overhead at the headline: after a call each way,
     # OVERHEAD_TURNS pairs of 5 calls each way, the order alternating, a
     # difference a pair
+    from spath_tpu_torch.models.renderer import forward_renderer
+
     scene, cfg = shard_cases(torch, dev, HEADLINE, SHARD_BIG)[0][1:3]
-    calls = {"one": lambda: render_pt_fast(scene, cam, cfg, 0),
+    full = forward_renderer(scene, cfg)         # the sharded call's route
+    calls = {"one": lambda: full.render(scene, cam, cfg, 0),
              "sharded": lambda: render_pt_fast(scene, cam, cfg, 0,
                                                mesh=mesh)}
     for fn in calls.values():
@@ -3870,6 +3928,366 @@ def ring_two_rank_phase(torch, dev, one: dict) -> dict:
     return out
 
 
+#: Phase 51's cells: the default scene at the headline (K1; K1+K2; the
+#: light distribution and K3; and K4), procedural_scene(BIG_T) at
+#: 1920x1080, 8 spp conformance (K6; K6+K8+K7) and 4 spp quality (K9;
+#: K9+K10+K7), cut for time as PERF.md section 4 cuts the training cells,
+#: and the compacted wavefront on config.QUALITY at 1920x1080, 8 spp (K5,
+#: the light distribution, the threefry kernel)
+COMPACT_BIG = dict(width=1920, height=1080, spp=8, max_bounces=5)
+COMPACT_BIG_Q = dict(width=1920, height=1080, spp=4, max_bounces=5)
+COMPACT_PRESET = dict(width=1920, height=1080, spp=8, max_bounces=5)
+#: the render_any / get_renderer check's frame
+COMPACT_SMALL = dict(width=320, height=240, spp=8, max_bounces=5)
+
+
+def compact_cases(torch, dev) -> list:
+    """``(route, scene, cfg, full forward, full gradient, forward kernels,
+    gradient kernels, plain)`` of the four kernel routes phase 51
+    compacts; ``plain(cam)`` is the plain version's frame rows and the
+    rows of the frame it covers (the whole frame on the default scene,
+    rows BAND_ROWS at 10k)."""
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.ops.kernels import bigscene as bs
+    from spath_tpu_torch.ops.kernels import bigscene_grad as bg
+    from spath_tpu_torch.ops.kernels import bigscene_quality as bq
+    from spath_tpu_torch.ops.kernels import bigscene_quality_grad as bqg
+    from spath_tpu_torch.ops.kernels import megakernel as mk
+    from spath_tpu_torch.ops.kernels import megakernel_grad as mg
+    from spath_tpu_torch.ops.kernels import megakernel_quality as mq
+    from spath_tpu_torch.ops.kernels import megakernel_quality_grad as mqg
+    from spath_tpu_torch.scene import default_scene, procedural_scene
+
+    dscene = default_scene(dev)
+    ten_k = procedural_scene(BIG_T, seed=0, device=dev)
+
+    def conformance_plain(scene, cfg, band):
+        def plain(cam):
+            o, d, seeds = mk.pack_rays(cam, cfg, 0)
+            rays = rows_of(torch, cfg.width, BAND_ROWS, o, d, seeds) \
+                if band else (o, d, seeds)
+            with plain_sweep():
+                return mk.megakernel_plain(*rays, mk.scene_table(scene),
+                                           cfg.replace(tri_block=2048))
+        return plain
+
+    def quality_plain(scene, cfg, band, light_rows):
+        def plain(cam):
+            o, d, keys = mq.pack_rays(cam, cfg, 0)
+            rays = rows_of(torch, cfg.width, BAND_ROWS, o, d, keys) \
+                if band else (o, d, keys)
+            with plain_sweep():
+                return mq.quality_plain(*rays, mq.quality_table(scene),
+                                        light_rows(scene),
+                                        cfg.replace(tri_block=2048))
+        return plain
+
+    conf = RenderConfig(**HEADLINE)
+    qual = RenderConfig(**HEADLINE, **QUALITY)
+    big = RenderConfig(**COMPACT_BIG)
+    bigq = RenderConfig(**COMPACT_BIG_Q, **QUALITY)
+    return [
+        ("conformance", dscene, conf, mk.render_radiance_megakernel,
+         mg.render_radiance_mega, {"K1"}, {"K1", "K2"},
+         conformance_plain(dscene, conf, False)),
+        ("quality", dscene, qual, mq.render_radiance_quality_megakernel,
+         mqg.render_radiance_quality_grad, {"light", "K3"},
+         {"light", "K3", "K4"},
+         quality_plain(dscene, qual, False, mq.light_rows)),
+        ("bigscene", ten_k, big, bs.render_radiance_bigscene,
+         bg.render_radiance_bigscene_grad, {"K6"}, {"K6", "K8", "K7"},
+         conformance_plain(ten_k, big, True)),
+        ("bigscene_quality", ten_k, bigq,
+         bq.render_radiance_bigscene_quality,
+         bqg.render_radiance_bigscene_quality_grad, {"light", "K9"},
+         {"light", "K9", "K10", "K7"},
+         quality_plain(ten_k, bigq, True, bq.light_rows)),
+    ]
+
+
+def leaf_grads(torch, render, leaves, light_idx, cfg, weights) -> list:
+    """The gradients of ``sum(weights * render)`` in ``leaves`` (the
+    scene's vertices, albedo, emission, the camera's position, angles and
+    focal length); zeros where the render does not reach a leaf."""
+    from spath_tpu_torch.camera import Camera
+    from spath_tpu_torch.scene import Scene
+
+    img = render(Scene(*leaves[:3], light_idx), Camera(*leaves[3:]), cfg, 0)
+    got = torch.autograd.grad((img * weights).sum(), leaves,
+                              allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for g, t in zip(got, leaves)]
+
+
+def compact_turns(torch, full, compact, reps: int) -> dict:
+    """Full, compacted, compacted, full after a call of each, CUDA events
+    over ``reps`` calls each; ``pays``: both compacted times under both
+    full ones."""
+    full()
+    compact()
+    full_ms = [event_ms(torch, full, reps)]
+    compact_ms = [event_ms(torch, compact, reps),
+                  event_ms(torch, compact, reps)]
+    full_ms.append(event_ms(torch, full, reps))
+    return dict(full_ms=full_ms, compact_ms=compact_ms,
+                pays=max(compact_ms) < min(full_ms))
+
+
+def key_timing(torch, scene, cam, cfg, reps: int = 3) -> dict:
+    """Host ms of the plan cache's two lookups on ``scene``: the fast key
+    (``compact_fast.has_plan``) and the value key (``_value_key``), each
+    ``reps`` times after a sync."""
+    from spath_tpu_torch.models import compact_fast as cf
+
+    def timed(fn) -> list:
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    tensors = cf._inputs(scene, cam)
+    return dict(fast_ms=timed(lambda: cf.has_plan(scene, cam, cfg)),
+                value_ms=timed(lambda: cf._value_key(tensors, cfg)),
+                vertex_mb=scene.vertices.numel() * 4 / 1e6)
+
+
+def compaction_phase(torch, dev, cam) -> dict:
+    """Phase 51: camera-ray compaction (``models/compact_fast.py``) on
+    every kernel route, against the full launch, and the compacted
+    wavefront against the wavefront; the all-miss view; ``render_any``
+    and ``get_renderer``; each compacted route timed in turns with the
+    full launch, the plan cached, and its first call with the plan build
+    apart. The routing rule's own choice is logged beside the timings."""
+    from spath_tpu_torch.camera import Camera
+    from spath_tpu_torch.config import QUALITY as PRESET
+    from spath_tpu_torch.config import RenderConfig
+    from spath_tpu_torch.convert import camera_from_numpy
+    from spath_tpu_torch.models import compact_fast as cf
+    from spath_tpu_torch.models import pathtracer, renderer
+    from spath_tpu_torch.models.pathtracer import render_pt_fast
+    from spath_tpu_torch.scene import Scene, default_scene, procedural_scene
+
+    out = {"launches": {}, "grad_launches": {}, "routes": {}}
+    for (name, scene, cfg, full_fwd, full_grad, fwd_k, grad_k,
+         plain) in compact_cases(torch, dev):
+        shape = f"{cfg.width}x{cfg.height} spp{cfg.spp}"
+        n = cfg.width * cfg.height
+        big = scene.n_tris > 7
+        reps = 1 if big else 5
+        cf._PLAN_CACHE.clear()
+        plan_ms = [event_ms(torch, lambda: cf.make_compact_plan(
+            scene, cam, cfg), 1) for _ in range(2)]
+        zero_counts(every_kernel())
+        t0 = time.perf_counter()
+        got = cf.render_radiance_compact_fused(scene, cam, cfg, 0)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        first_launches = launched_set(fwd_k | {"K5"},
+                                      f"the compacted {name} first call")
+        plan = cf._cached_plan(scene, cam, cfg)
+        zero_counts(every_kernel())
+        again = cf.render_radiance_compact_fused(scene, cam, cfg, 0)
+        torch.cuda.synchronize()
+        out["launches"][name] = launched_set(
+            fwd_k, f"the compacted {name} call, plan cached")
+        want = full_fwd(scene, cam, cfg, 0)
+        check(torch.equal(got, want) and torch.equal(again, want),
+              f"{name} {shape}: the compacted frame differs from the full "
+              "launch's")
+        rows = got[BAND_ROWS.start:BAND_ROWS.stop] if big else got
+        band = plain(cam)
+        check(torch.equal(rows.reshape(-1, 3), band), f"{name} {shape}: "
+              "the compacted frame differs from the plain version's")
+        check(torch.isfinite(got).all().item() and got.mean().item() > 1e-3,
+              f"{name} {shape}: the compacted frame is not finite or black")
+        fwd_t = compact_turns(
+            torch, lambda: full_fwd(scene, cam, cfg, 0),
+            lambda: cf.render_radiance_compact_fused(scene, cam, cfg, 0),
+            reps)
+        # the rule: on this camera, whose plan is cached, compaction
+        # where the card measured it faster; on an equal camera built
+        # anew, whose plan is not, the full launch (before the gradients'
+        # cloned leaves take the plan's entry)
+        rule = (serving_route(scene, cam, cfg), grad_route(scene, cam, cfg))
+        fresh = Camera(cam.pos.clone(), cam.angle.clone(), cam.focal.clone())
+        cold = (serving_route(scene, fresh, cfg),
+                grad_route(scene, fresh, cfg))
+        full_name = renderer.KERNEL_RENDERERS[name].name
+        check(rule == tuple(
+            "compact_fused" if name in routes else full_name for routes in
+            (renderer.COMPACT_ROUTES, renderer.COMPACT_GRAD_ROUTES)),
+            f"{name} {shape}: the rule routes the cached plan's calls to "
+            f"{rule}")
+        check(cold == (full_name, full_name), f"{name} {shape}: the rule "
+              f"routes a call with no cached plan to {cold}")
+        zero_counts(every_kernel())
+        served = render_pt_fast(scene, cam, cfg, 0)
+        torch.cuda.synchronize()
+        launched_set(fwd_k, f"render_pt_fast on {name}, routed to {rule[0]}")
+        check(torch.equal(served, torch.clamp(want, 0.0, 1.0)),
+              f"{name} {shape}: render_pt_fast differs from the full launch")
+        if name == "bigscene":
+            keys = {BIG_T: key_timing(torch, scene, cam, cfg)}
+        weights = shard_weights(torch, cfg, dev)
+        leaves = [t.detach().clone().requires_grad_() for t in (
+            scene.vertices, scene.albedo, scene.emission, cam.pos,
+            cam.angle, cam.focal)]
+        zero_counts(every_kernel())
+        g1 = leaf_grads(torch, cf.render_radiance_compact_grad, leaves,
+                            scene.light_idx, cfg, weights)
+        torch.cuda.synchronize()
+        out["grad_launches"][name] = launched_set(
+            grad_k, f"the compacted {name} gradient")
+        g2 = leaf_grads(torch, cf.render_radiance_compact_grad, leaves,
+                            scene.light_idx, cfg, weights)
+        for group, a, b in zip(SHARD_GROUPS, g1, g2):
+            check(torch.equal(a, b), f"{name} {shape}: two compacted "
+                  f"{group} gradients on one seed differ")
+        gf = leaf_grads(torch, full_grad, leaves, scene.light_idx, cfg,
+                            weights)
+        errs = grads_close(torch, g1, gf, f"the compacted {name} gradient")
+        grad_t = compact_turns(
+            torch,
+            lambda: leaf_grads(torch, full_grad, leaves,
+                                   scene.light_idx, cfg, weights),
+            lambda: leaf_grads(torch, cf.render_radiance_compact_grad,
+                                   leaves, scene.light_idx, cfg, weights),
+            reps if not big else 1)
+        out["routes"][name] = dict(
+            n_live=plan.n_live, live_share=plan.n_live / n,
+            plan_ms=plan_ms, first_ms=first_ms,
+            first_launches=first_launches, forward=fwd_t, gradient=grad_t,
+            grad_err_share=errs, rule=rule)
+        log(f"[51] compacted {name}, {scene.n_tris} triangles, {shape}, on "
+            f"{card()}: n_live {plan.n_live} of {n} "
+            f"({plan.n_live / n:.4f}); plan build {plan_ms} ms; first call "
+            f"with its plan {first_ms:.3f} ms ({first_launches}); frame "
+            f"bit-equal to the full launch's and the plain version's "
+            f"({out['launches'][name]}); forward ms in turns full "
+            f"{fwd_t['full_ms']} compacted {fwd_t['compact_ms']} (pays "
+            f"{fwd_t['pays']}); gradient within {errs} of each max, "
+            f"bitwise over two calls ({out['grad_launches'][name]}); "
+            f"forward+backward ms full {grad_t['full_ms']} compacted "
+            f"{grad_t['compact_ms']} (pays {grad_t['pays']}); the rule "
+            f"routes forward to {rule[0]}, gradient to {rule[1]} (with no "
+            f"cached plan to {cold[0]}, {cold[1]}); render_pt_fast on the "
+            f"cached plan launched its kernels only, equal to the full launch")
+        del got, again, want, g1, g2, gf, leaves, weights, served
+
+    # the plan cache's lookups: the fast key, and the value key (a sync,
+    # the vertices and camera to the host, a SHA1) that a new Scene or
+    # Camera, or an in-place change, pays on a compacted call by name
+    cfg = RenderConfig(**COMPACT_BIG)
+    keys[1 << 20] = key_timing(
+        torch, procedural_scene(1 << 20, seed=0, device=dev), cam, cfg)
+    out["keys"] = keys
+    log(f"[51] the plan cache's keys, host ms over three calls each, on "
+        f"{card()}: " + "; ".join(
+            f"{t} triangles ({k['vertex_mb']:.1f} MB of vertices) fast key "
+            f"{k['fast_ms']}, value key {k['value_ms']}"
+            for t, k in keys.items()))
+
+    # the compacted wavefront on config.QUALITY: K5, light, threefry
+    dscene = default_scene(dev)
+    cfg = PRESET.replace(**COMPACT_PRESET)
+    wave = {"K5", "light", "threefry"}
+    zero_counts(every_kernel())
+    got = pathtracer.render_radiance_compact(dscene, cam, cfg, 0)
+    torch.cuda.synchronize()
+    out["launches"]["wavefront, config.QUALITY"] = launched_set(
+        wave, "the compacted wavefront")
+    zero_counts(every_kernel())
+    want = pathtracer.render_radiance(dscene, cam, cfg, 0)
+    torch.cuda.synchronize()
+    full_launches = launched_set(wave, "the wavefront")
+    check(torch.equal(got, want), "config.QUALITY: the compacted "
+          "wavefront's frame differs from the wavefront's")
+    wave_t = compact_turns(
+        torch, lambda: pathtracer.render_radiance(dscene, cam, cfg, 0),
+        lambda: pathtracer.render_radiance_compact(dscene, cam, cfg, 0), 1)
+    out["routes"]["wavefront, config.QUALITY"] = dict(
+        forward=wave_t, full_launches=full_launches,
+        rule=renderer.forward_renderer(dscene, cfg,
+                                       require_jittable=False).name)
+    log(f"[51] compacted wavefront, config.QUALITY, 1920x1080 spp"
+        f"{cfg.spp}, on {card()}: frame bit-equal to the wavefront's; "
+        f"launches {out['launches']['wavefront, config.QUALITY']} against "
+        f"{full_launches}; ms in turns full {wave_t['full_ms']} compacted "
+        f"{wave_t['compact_ms']} (pays {wave_t['pays']}); the rule routes "
+        f"it to {out['routes']['wavefront, config.QUALITY']['rule']}")
+    del got, want
+
+    # the all-miss view: zeros, and no kernel past the plan's sweep
+    away = camera_from_numpy((0.0, 0.0, -50.0), (0.0, 3.14159265, 0.0), 2.0,
+                             device=dev)
+    cfg = RenderConfig(**HEADLINE)
+    zero_counts(every_kernel())
+    check(cf._cached_plan(dscene, away, cfg).n_live == 0,
+          "the all-miss view has live rays")
+    launched_set({"K5"}, "the all-miss plan")
+    zero_counts(every_kernel())
+    zeros = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    check(torch.equal(cf.render_radiance_compact_fused(dscene, away, cfg),
+                      zeros), "the all-miss view is not zeros")
+    albedo = dscene.albedo.clone().requires_grad_()
+    img = cf.render_radiance_compact_grad(
+        Scene(dscene.vertices, albedo, dscene.emission, dscene.light_idx),
+        away, cfg)
+    (g,) = torch.autograd.grad(img.sum(), [albedo])
+    check(torch.equal(img.detach(), zeros) and not g.any().item(),
+          "the all-miss gradient is not zeros")
+    torch.cuda.synchronize()
+    launched_set(set(), "the all-miss view")
+    zero_counts(every_kernel())
+    check(torch.equal(pathtracer.render_radiance_compact(dscene, away, cfg),
+                      zeros), "the compacted wavefront's all-miss view is "
+          "not zeros")
+    launched_set({"K5"}, "the compacted wavefront's all-miss view")
+    log("[51] the all-miss view (camera at z=-50 facing away): zeros, "
+        "forward and gradient with no kernel launch past the plan's K5 "
+        "sweep; the compacted wavefront launches its first-hit K5 only")
+
+    # render_any and get_renderer reach the kernels by name
+    cfg = RenderConfig(**COMPACT_SMALL)
+    cf._PLAN_CACHE.clear()
+    zero_counts(every_kernel())
+    img = renderer.render_any(dscene, cam, cfg, 0, backend="compact_fused")
+    torch.cuda.synchronize()
+    by_name = launched_set({"K5", "K1"}, "render_any(backend=compact_fused)")
+    check(torch.equal(img, renderer.get_renderer("megakernel").render(
+        dscene, cam, cfg, 0)), "render_any(backend=compact_fused) differs "
+        "from the full launch")
+    leaves = [dscene.albedo.clone().requires_grad_()]
+    zero_counts(every_kernel())
+    img = renderer.get_renderer("compact_fused").render_radiance_grad(
+        Scene(dscene.vertices, leaves[0], dscene.emission,
+              dscene.light_idx), cam, cfg, 0)
+    torch.autograd.grad(img.sum(), leaves)
+    torch.cuda.synchronize()
+    by_name_grad = launched_set({"K1", "K2"},
+                                "get_renderer(compact_fused)'s gradient")
+    zero_counts(every_kernel())
+    img = renderer.render_any(dscene, cam, cfg, 0, backend="compact")
+    torch.cuda.synchronize()
+    launched_set({"K5"}, "render_any(backend=compact)")
+    with plain_sweep():
+        check(torch.equal(img, pathtracer.render_pt(dscene, cam, cfg, 0)),
+              "render_any(backend=compact) differs from the plain "
+              "wavefront")
+    auto = serving_route(dscene, cam, RenderConfig(**HEADLINE))
+    out["by_name"] = dict(compact_fused=by_name, grad=by_name_grad,
+                          auto_headline=auto)
+    log(f"[51] render_any(backend='compact_fused') at 320x240 spp8: "
+        f"{by_name}, equal to the full launch; get_renderer('compact_fused')"
+        f"'s gradient: {by_name_grad}; render_any(backend='compact'): K5 "
+        f"only, equal to the plain wavefront; render_any at the headline "
+        f"takes {auto}")
+    return out
+
+
 def run() -> None:
     import torch
 
@@ -3990,7 +4408,8 @@ def run() -> None:
     segs = cfg.width * cfg.height * cfg.spp * cfg.max_bounces
     log(f"[5] {frame} {cfg.max_bounces} bounces on {smi}: kernel "
         f"{kernel_ms} ms, "
-        f"plain {plain_ms} ms, render_pt_fast {slice_ms:.3f} ms; "
+        f"plain {plain_ms} ms, render_pt_fast {slice_ms:.3f} ms (route "
+        f"{serving_route(scene, cam, cfg)}); "
         f"kernel {segs / (k_ms / 1e3):.4e} rays/s, plain "
         f"{segs / (p_ms / 1e3):.4e} rays/s, serving path "
         f"{segs / (slice_ms / 1e3):.4e} rays/s; build {build_s:.2f} s")
@@ -4025,7 +4444,8 @@ def run() -> None:
         f"launches {tr['launches']}, losses {tr['losses']}, "
         f"step s {[round(x, 6) for x in tr['step_s']]}; "
         f"render_radiance_fastgrad forward+backward {tr['fwd_bwd_ms']:.3f} "
-        f"ms, {segs / (tr['fwd_bwd_ms'] / 1e3):.4e} rays/s")
+        f"ms (route {tr['fwd_bwd_route']}), "
+        f"{segs / (tr['fwd_bwd_ms'] / 1e3):.4e} rays/s")
 
     # 9. the CLI's invert
     log(f"[9] cli invert {CLI_SIZE[0]}x{CLI_SIZE[1]} spp16, 5 steps: "
@@ -4172,7 +4592,8 @@ def run() -> None:
         f"{[round(x, 6) for x in qtr['step_s']]}; camera gradient "
         f"{qtr['cam_grad']}; "
         f"render_radiance_fastgrad forward+backward {qtr['fwd_bwd_ms']:.3f} "
-        f"ms, {segs / (qtr['fwd_bwd_ms'] / 1e3):.4e} rays/s")
+        f"ms (route {qtr['fwd_bwd_route']}), "
+        f"{segs / (qtr['fwd_bwd_ms'] / 1e3):.4e} rays/s")
     log(f"[15] the camera moved {EDGE_MOVE} along x, quality {frame}: "
         f"{edge_witness(torch, cam, scene, qcfg)}")
     pose = pose_recovery(torch, dev, cam, qcfg)
@@ -4253,7 +4674,8 @@ def run() -> None:
         f"{light_bound[0]:.4g} ms ({light_bound[1]})")
     log(f"[17] quality {frame} on {smi}: K3 {timed['k3'][0]} ms, plain "
         f"{timed['k3'][1]} ms; K4 {timed['k4'][0]} ms, plain "
-        f"{timed['k4'][1]} ms; render_pt_fast {q_slice_ms:.3f} ms; K3 "
+        f"{timed['k4'][1]} ms; render_pt_fast {q_slice_ms:.3f} ms (route "
+        f"{serving_route(scene, cam, qcfg)}); K3 "
         f"{segs / (k3_ms / 1e3):.4e} rays/s, serving path "
         f"{segs / (q_slice_ms / 1e3):.4e} rays/s; the walk: {walk}; "
         f"operations K3 {k3_ops:.4e}, K4 {k4_ops:.4e}; bound K3 "
@@ -4350,7 +4772,7 @@ def run() -> None:
         f"{bg.chunk_samples(n_full, train_cfg)} samples, on {smi}: launches "
         f"{btr['launches']}, losses {btr['losses']}, step s "
         f"{[round(x, 6) for x in btr['step_s']]}; forward+backward "
-        f"{btr['fwd_bwd_ms']:.3f} ms")
+        f"{btr['fwd_bwd_ms']:.3f} ms (route {btr['fwd_bwd_route']})")
 
     # 24. the CLI on large scenes
     log(f"[24] cli --scene {CLI_SIZE[0]}x{CLI_SIZE[1]} spp16: {big_cli(cli)}")
@@ -4639,7 +5061,7 @@ def run() -> None:
         f"samples, on {smi}: launches {qbtr['launches']}, losses "
         f"{qbtr['losses']}, step s {[round(x, 6) for x in qbtr['step_s']]}; "
         f"camera gradient {qbtr['cam_grad']}; forward+backward "
-        f"{qbtr['fwd_bwd_ms']:.3f} ms")
+        f"{qbtr['fwd_bwd_ms']:.3f} ms (route {qbtr['fwd_bwd_route']})")
 
     # 32. the CLI on large scenes in quality mode
     log(f"[32] cli --mode quality --scene {CLI_SIZE[0]}x{CLI_SIZE[1]} spp16: "
@@ -5138,6 +5560,9 @@ def run() -> None:
     ring_one = ring_one_rank_phase(torch, dev, cam)
     ring_two = ring_two_rank_phase(torch, dev, ring_one)
 
+    # 51. camera-ray compaction on every kernel route and the wavefront
+    compact = compaction_phase(torch, dev, cam)
+
     record = {"kernels": [{
         "name": "megakernel_forward",
         "route": "cuda",
@@ -5414,7 +5839,9 @@ def run() -> None:
             ("ring training, one rank", {**ring_one["grad_launches"],
                                          "step": ring_one["train_launches"]}),
             ("ring serving, rank 0 of two", ring_two["launches"]),
-            ("ring training, rank 0 of two", ring_two["grad_launches"])):
+            ("ring training, rank 0 of two", ring_two["grad_launches"]),
+            ("compact serving", compact["launches"]),
+            ("compact training", compact["grad_launches"])):
         for launched in runs.values():
             for short, n in launched.items():
                 paths = by_name[RECORD_NAMES[short]]["launches_by_path"]

@@ -104,13 +104,17 @@ def apply_params(params: InverseParams, base_scene: Scene):
 
 def render_loss(params: InverseParams, base_scene: Scene,
                 target: torch.Tensor, cfg: RenderConfig,
-                seed: int, mesh=None) -> torch.Tensor:
+                seed: int, mesh=None,
+                require_jittable: bool = False) -> torch.Tensor:
     """MSE between the (HDR, unclamped) render and the target image; with
-    a ``mesh`` the render is sharded over its ranks."""
+    a ``mesh`` the render is sharded over its ranks. ``require_jittable``
+    keeps the compacted kernels off, as ``render_radiance_fastgrad``
+    takes it."""
     from spath_tpu_torch.models.pathtracer import render_radiance_fastgrad
 
     scene, cam = apply_params(params, base_scene)
-    img = render_radiance_fastgrad(scene, cam, cfg, seed, mesh)
+    img = render_radiance_fastgrad(scene, cam, cfg, seed, mesh,
+                                   require_jittable)
     return ((img - target) ** 2).mean()
 
 
@@ -147,11 +151,12 @@ def stack_cameras(cameras) -> Camera:
 
 def multiview_render_loss(params: InverseParams, base_scene: Scene,
                           cameras: Camera, targets: torch.Tensor,
-                          cfg: RenderConfig, seed: int) -> torch.Tensor:
+                          cfg: RenderConfig, seed: int,
+                          require_jittable: bool = False) -> torch.Tensor:
     """Mean MSE across V known views (``cameras``/``targets`` batched on
     the leading axis), view ``v`` rendered with seed ``seed + v``. The
     camera parameters in ``params`` are ignored: the views' poses are the
-    knowns."""
+    knowns. ``require_jittable`` as ``render_loss`` takes it."""
     from spath_tpu_torch.models.pathtracer import render_radiance_fastgrad
 
     scene = dataclasses.replace(base_scene, albedo=_clip01(params.albedo))
@@ -159,7 +164,8 @@ def multiview_render_loss(params: InverseParams, base_scene: Scene,
     for v in range(targets.shape[0]):
         cam = Camera(pos=cameras.pos[v], angle=cameras.angle[v],
                      focal=cameras.focal[v])
-        img = render_radiance_fastgrad(scene, cam, cfg, seed + v)
+        img = render_radiance_fastgrad(scene, cam, cfg, seed + v,
+                                       require_jittable=require_jittable)
         losses.append(((img - targets[v]) ** 2).mean())
     return torch.stack(losses).mean()
 
@@ -215,12 +221,18 @@ def make_train_step(base_scene: Scene, cfg: RenderConfig,
     numbers); when the target was rendered with the same seed, the loss
     at the true parameters is exactly zero. Default (None) renders step
     ``k`` with seed ``k``.
+
+    The step never takes a compacted renderer (``require_jittable``), as
+    the JAX package's jitted step cannot: a plan syncs a host scalar, and
+    with the pose free the camera moves every step, so its plan would be
+    built again each time.
     """
 
     def step_fn(state: TrainState, target: torch.Tensor):
         seed = state.step if fixed_seed is None else fixed_seed
         return _apply(state, render_loss(state.params, base_scene, target,
-                                         cfg, seed, mesh))
+                                         cfg, seed, mesh,
+                                         require_jittable=True))
 
     return step_fn
 
@@ -233,7 +245,8 @@ def make_multiview_train_step(base_scene: Scene, cameras: Camera,
     def step_fn(state: TrainState, targets: torch.Tensor):
         seed = state.step if fixed_seed is None else fixed_seed
         return _apply(state, multiview_render_loss(
-            state.params, base_scene, cameras, targets, cfg, seed))
+            state.params, base_scene, cameras, targets, cfg, seed,
+            require_jittable=True))
 
     return step_fn
 

@@ -65,7 +65,7 @@ from spath_tpu_torch.config import RenderConfig
 from spath_tpu_torch.ops import nee
 from spath_tpu_torch.ops.gather import gather_rows
 from spath_tpu_torch.ops.intersect import (
-    check_method, in_plain_sweep, nearest_hit_edges, sweep_table,
+    check_method, in_plain_sweep, nearest_hit, nearest_hit_edges, sweep_table,
 )
 from spath_tpu_torch.ops.rng import (
     fmix32, fold_in, hash_keys, key_uniforms, lcg_next, lcg_seeds,
@@ -408,12 +408,15 @@ def trace_geometry(geom, origins, directions, rng, cfg: RenderConfig,
 
 def mean_radiance_geometry(geom, origins, directions, rng,
                            cfg: RenderConfig, lights=None, verts=None,
-                           vis_residual: bool = False, hits_replay=None):
+                           vis_residual: bool = False, hits_replay=None,
+                           first_hit=None):
     """Mean of ``cfg.spp`` samples per ray → ``(N, 3)``; ``rng``,
     ``lights``, ``verts``, ``vis_residual`` as ``trace_geometry`` takes
     them. The camera rays' nearest hit is the same for every sample and is
-    computed once. ``hits_replay`` is ``(dist (spp, B, N), idx (spp, B,
-    N))``, replayed for every sweep (``vis_residual`` only).
+    computed once, unless the caller gives it (``first_hit``, ``(dist,
+    idx)``, as the compacted wavefront does). ``hits_replay`` is ``(dist
+    (spp, B, N), idx (spp, B, N))``, replayed for every sweep
+    (``vis_residual`` only).
 
     Under autograd with ``cfg.remat`` and more than 8 samples, each
     sample is checkpointed (``torch.utils.checkpoint``), as the JAX
@@ -424,8 +427,9 @@ def mean_radiance_geometry(geom, origins, directions, rng,
     counter (``ThreefryRays.sample``)."""
     check_estimator(cfg)
     n, device = origins.shape[0], origins.device
-    first_hit = None
-    if hits_replay is None:
+    if hits_replay is not None:
+        first_hit = None
+    elif first_hit is None:
         src = torch.full((n,), -1, dtype=torch.int64, device=device)
         if vis_residual:
             with torch.no_grad():
@@ -516,13 +520,15 @@ def trace_radiance(scene: Scene, origins, directions, cfg: RenderConfig,
 
 def trace_mean_radiance(scene: Scene, origins, directions,
                         cfg: RenderConfig, seed=0, pixel_ids=None,
-                        vis_residual: bool = False, hits_replay=None):
+                        vis_residual: bool = False, hits_replay=None,
+                        first_hit=None):
     """Average ``cfg.spp`` samples per ray → ``(N, 3)``. LCG streams start
     at each ray's pixel index plus ``seed``; the hash and table streams
     are keyed by ``seed`` and the pixel index, the threefry stream by the
     key ``seed`` makes (or ``seed`` itself, a key's two words), folded
-    with each sample, then the pixel index. ``vis_residual`` and
-    ``hits_replay`` (``(dist (spp, B, N), idx (spp, B, N))``) as
+    with each sample, then the pixel index. ``vis_residual``,
+    ``hits_replay`` (``(dist (spp, B, N), idx (spp, B, N))``) and
+    ``first_hit`` (the rays' nearest hit, ``(dist, idx)``) as
     ``trace_geometry`` and ``mean_radiance_geometry`` take them."""
     check_estimator(cfg)
     check_method(cfg.intersect)
@@ -536,7 +542,8 @@ def trace_mean_radiance(scene: Scene, origins, directions,
                                   directions, rng, cfg,
                                   verts=_scene_verts(scene),
                                   vis_residual=vis_residual,
-                                  hits_replay=hits_replay)
+                                  hits_replay=hits_replay,
+                                  first_hit=first_hit)
 
 
 def _check_devices(scene: Scene, camera: Camera) -> None:
@@ -552,6 +559,41 @@ def render_radiance(scene: Scene, camera: Camera, cfg: RenderConfig,
     origins, directions = generate_rays(camera, cfg.width, cfg.height)
     mean = trace_mean_radiance(scene, origins, directions, cfg, seed)
     return mean.reshape(cfg.height, cfg.width, 3)
+
+
+def render_radiance_compact(scene: Scene, camera: Camera, cfg: RenderConfig,
+                            seed: int = 0) -> torch.Tensor:
+    """The compacted wavefront: ``render_radiance``'s frame, tracing only
+    the pixels whose camera ray hits a triangle
+    (``spath_tpu/models/pathtracer.py::render_radiance_compact``).
+
+    A camera ray that misses contributes exactly zero for every sample
+    and bounce, and every stream is keyed by the global pixel id, so the
+    frame is bit-equal to the whole wavefront's. The first-hit sweep over
+    all camera rays (K5 on the card) is the one the wavefront does
+    anyway; the live pixels go through ``trace_mean_radiance`` with their
+    first hit given, and come back by a gather. One host scalar, the live
+    count, crosses a call. Forward only, detached: differentiate
+    ``render_radiance``."""
+    _check_devices(scene, camera)
+    with torch.no_grad():
+        origins, directions = generate_rays(camera, cfg.width, cfg.height)
+        n = origins.shape[0]
+        src = torch.full((n,), -1, dtype=torch.int64, device=origins.device)
+        dist0, idx0 = nearest_hit(origins, directions, scene.v0, scene.v1,
+                                  scene.v2, src, cfg)
+        live = idx0 >= 0
+        (sel,) = torch.nonzero(live, as_tuple=True)
+        n_live = sel.shape[0]
+        if n_live == 0:
+            return torch.zeros((cfg.height, cfg.width, 3),
+                               dtype=torch.float32, device=origins.device)
+        mean = trace_mean_radiance(scene, origins[sel], directions[sel], cfg,
+                                   seed, sel,
+                                   first_hit=(dist0[sel], idx0[sel]))
+        take = torch.where(live, torch.cumsum(live, 0) - 1, n_live)
+        ext = torch.cat([mean, mean.new_zeros((1, 3))])
+        return ext.index_select(0, take).reshape(cfg.height, cfg.width, 3)
 
 
 #: Pixels of one slice of the residual's backward pass: its tape holds
@@ -644,7 +686,8 @@ def render_pt(scene: Scene, camera: Camera, cfg: RenderConfig,
 
 
 def render_radiance_fastgrad(scene: Scene, camera: Camera,
-                             cfg: RenderConfig, seed: int = 0, mesh=None
+                             cfg: RenderConfig, seed: int = 0, mesh=None,
+                             require_jittable: bool = False
                              ) -> torch.Tensor:
     """Differentiable unclamped radiance ``(H, W, 3)``: the same value and
     the same detached-sampling gradients as ``render_radiance``, from the
@@ -660,7 +703,11 @@ def render_radiance_fastgrad(scene: Scene, camera: Camera,
     it raises ``NotImplementedError``. With a ``mesh``
     (``spath_tpu_torch.parallel``) every rank of it traces its block of
     pixels and gets the whole frame, and the gradients are summed over
-    the ranks (``parallel/shard_fast.py``)."""
+    the ranks (``parallel/shard_fast.py``). A compacted kernel pair
+    takes the call where this camera's plan is cached
+    (``CompactFusedRenderer``), as the JAX package's eager calls may;
+    ``require_jittable`` keeps it off, as a traced JAX call is kept off
+    it: a train step passes it."""
     if mesh is not None:
         from spath_tpu_torch.parallel.shard_fast import (
             render_radiance_fastgrad_sharded,
@@ -671,8 +718,9 @@ def render_radiance_fastgrad(scene: Scene, camera: Camera,
     from spath_tpu_torch.models.renderer import grad_renderer
 
     _check_devices(scene, camera)
-    return grad_renderer(scene, cfg).render_radiance_grad(scene, camera,
-                                                          cfg, seed)
+    return grad_renderer(
+        scene, cfg, require_jittable=require_jittable,
+        camera=camera).render_radiance_grad(scene, camera, cfg, seed)
 
 
 def render_pt_fast(scene: Scene, camera: Camera, cfg: RenderConfig,
@@ -683,9 +731,11 @@ def render_pt_fast(scene: Scene, camera: Camera, cfg: RenderConfig,
     scenes, a streamed one (K6, K9), ``vis_grad`` or not; for other
     estimators the wavefront with its sweeps on K5; on the CPU the
     wavefront. Above the streamed kernels' 2^20 triangles it raises
-    ``NotImplementedError``. With a ``mesh`` every rank of it renders its
-    block of pixels on the same route and gets the whole frame
-    (``parallel/shard_fast.py``)."""
+    ``NotImplementedError``. A compacted kernel takes the call where
+    this camera's plan is cached (``CompactFusedRenderer``), as the JAX
+    package's eager calls may. With a ``mesh`` every rank of it renders
+    its block of pixels on the same route, never compacted, and gets the
+    whole frame (``parallel/shard_fast.py``)."""
     if mesh is not None:
         from spath_tpu_torch.parallel.shard_fast import render_pt_fast_sharded
 
@@ -693,4 +743,5 @@ def render_pt_fast(scene: Scene, camera: Camera, cfg: RenderConfig,
     from spath_tpu_torch.models.renderer import forward_renderer
 
     _check_devices(scene, camera)
-    return forward_renderer(scene, cfg).render(scene, camera, cfg, seed)
+    return forward_renderer(scene, cfg, require_jittable=False,
+                            camera=camera).render(scene, camera, cfg, seed)

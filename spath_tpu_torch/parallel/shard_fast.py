@@ -48,7 +48,8 @@ def fused_available(device=None) -> bool:
 
 def _render(scene: Scene, camera: Camera, cfg: RenderConfig, seed: int,
             mesh: Mesh | None, grad: bool) -> torch.Tensor:
-    renderer = (grad_renderer if grad else forward_renderer)(scene, cfg)
+    renderer = (grad_renderer if grad else forward_renderer)(
+        scene, cfg, require_jittable=True)
     return sharded_frame(renderer, scene, camera, cfg, seed,
                          mesh or default_mesh(scene.device), grad=grad)
 

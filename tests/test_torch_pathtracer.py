@@ -163,8 +163,8 @@ def test_routing_keeps_cpu_tensors_off_the_kernel(monkeypatch):
     assert not mega.available(scene) and not mega.supports(scene, cfg)
     assert renderer.forward_renderer(scene, cfg).name == "wavefront"
     assert [r.name for r in renderer.REGISTRY] == [
-        "megakernel", "bigscene", "quality", "quality_bigscene", "visgrad",
-        "wavefront"]
+        "compact_fused", "megakernel", "quality", "quality_bigscene",
+        "bigscene", "visgrad", "compact", "wavefront"]
 
     def forbidden(*args, **kw):
         raise AssertionError("mega_call reached with CPU tensors")
